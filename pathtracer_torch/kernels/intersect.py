@@ -1,0 +1,109 @@
+"""Ray-triangle intersection and brute-force scene intersection.
+
+Counterpart of pathtracer/kernels/intersect.py: Moller-Trumbore without
+backface culling, the O(rays x tris) closest-hit oracle, and shadow-ray
+visibility with the reference's backface skip (raygen.rgen:214-218).
+The brute routes are also the production intersector for scenes of at
+most 256 triangles (render.make_intersectors).
+
+Hit convention: t f32[N] (t_max if miss), tri i32[N] (-1 miss), u, v
+f32[N] barycentrics of corners 1 and 2.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from pathtracer_torch.utils import vmath
+
+DET_EPS = 1e-12
+
+
+class Hit(NamedTuple):
+    t: torch.Tensor      # f32 [N]
+    tri: torch.Tensor    # i32 [N], -1 = miss
+    u: torch.Tensor      # f32 [N]
+    v: torch.Tensor      # f32 [N]
+
+    @property
+    def valid(self):
+        return self.tri >= 0
+
+
+def ray_triangle(o, d, v0, v1, v2, t_min, t_max):
+    """Moller-Trumbore for broadcastable batches -> (t, u, v, hit_mask)."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    pvec = vmath.cross(d, e2)
+    det = vmath.dot(e1, pvec)
+    ok_det = det.abs() > DET_EPS
+    inv_det = torch.where(ok_det, torch.reciprocal(det), 0.0)
+    tvec = o - v0
+    u = vmath.dot(tvec, pvec) * inv_det
+    qvec = vmath.cross(tvec, e1)
+    v = vmath.dot(d, qvec) * inv_det
+    t = vmath.dot(e2, qvec) * inv_det
+    hit = (ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+           & (t > t_min) & (t < t_max))
+    t = torch.where(hit, t, torch.inf)
+    return t, u, v, hit
+
+
+def _pad_tris(tri_v0, tri_v1, tri_v2, tri_chunk):
+    pad = (-tri_v0.shape[0]) % tri_chunk
+    if pad:
+        padv = torch.full((pad, 3), torch.inf, dtype=tri_v0.dtype,
+                          device=tri_v0.device)
+        tri_v0, tri_v1, tri_v2 = (torch.cat([a, padv])
+                                  for a in (tri_v0, tri_v1, tri_v2))
+    return tri_v0, tri_v1, tri_v2
+
+
+def intersect_brute(o, d, tri_v0, tri_v1, tri_v2, t_min, t_max,
+                    tri_chunk: int = 256) -> Hit:
+    """Closest hit of rays [N,3] against all triangles [T,3] (O(N*T))."""
+    n = o.shape[0]
+    t_max = torch.as_tensor(t_max, dtype=torch.float32,
+                            device=o.device).expand(n)
+    tv0, tv1, tv2 = _pad_tris(tri_v0, tri_v1, tri_v2, tri_chunk)
+    best_t = t_max.clone()
+    best_tri = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+    best_u = torch.zeros(n, dtype=torch.float32, device=o.device)
+    best_v = torch.zeros_like(best_u)
+    rows = torch.arange(n, device=o.device)
+    for c0 in range(0, tv0.shape[0], tri_chunk):
+        t, u, v, hit = ray_triangle(
+            o[:, None, :], d[:, None, :], tv0[None, c0:c0 + tri_chunk],
+            tv1[None, c0:c0 + tri_chunk], tv2[None, c0:c0 + tri_chunk],
+            t_min, t_max[:, None])
+        tj, j = torch.min(torch.where(hit, t, torch.inf), dim=1)
+        better = tj < best_t
+        best_t = torch.where(better, tj, best_t)
+        best_tri = torch.where(better, (c0 + j).to(torch.int32), best_tri)
+        best_u = torch.where(better, u[rows, j], best_u)
+        best_v = torch.where(better, v[rows, j], best_v)
+    return Hit(t=best_t, tri=best_tri, u=best_u, v=best_v)
+
+
+def occluded_brute(o, d, t_max, tri_v0, tri_v1, tri_v2,
+                   tri_chunk: int = 256):
+    """Any front-facing hit with 0 < t < t_max per ray -> bool[N]."""
+    n = o.shape[0]
+    t_max = torch.as_tensor(t_max, dtype=torch.float32,
+                            device=o.device).expand(n)
+    tv0, tv1, tv2 = _pad_tris(tri_v0, tri_v1, tri_v2, tri_chunk)
+    blocked = torch.zeros(n, dtype=torch.bool, device=o.device)
+    for c0 in range(0, tv0.shape[0], tri_chunk):
+        v0c = tv0[c0:c0 + tri_chunk]
+        v1c = tv1[c0:c0 + tri_chunk]
+        v2c = tv2[c0:c0 + tri_chunk]
+        t, _, _, hit = ray_triangle(o[:, None, :], d[:, None, :],
+                                    v0c[None], v1c[None], v2c[None],
+                                    0.0, torch.inf)
+        gn = vmath.cross(v1c - v0c, v2c - v0c)[None]
+        front = vmath.dot(d[:, None, :], gn) < 0.0
+        hit = hit & front & (t < t_max[:, None])
+        blocked = blocked | hit.any(dim=1)
+    return blocked

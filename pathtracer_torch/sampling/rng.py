@@ -1,0 +1,92 @@
+"""Counter-based PCG4D random numbers (counterpart of pathtracer/sampling/rng.py).
+
+Every random number is a pure hash of the key (pixel, sample,
+depth * _SALTS_PER_DEPTH + salt, seed), bit for bit the JAX package's.
+No torch global RNG and no `torch.Generator` is involved.
+
+u32 arithmetic is emulated in int64 with `& 0xFFFFFFFF`: CPU torch
+`uint32` has no `+` or `>>`. A product of two words below 2^32 does not
+fit in int64, so `_mul32` splits one operand into 16-bit halves and
+never relies on signed overflow wrapping.
+"""
+
+from __future__ import annotations
+
+import torch
+
+SALT_JITTER = 0
+SALT_ALPHA = 1
+SALT_DIELECTRIC = 2
+SALT_LIGHT_SELECT = 3
+SALT_LIGHT_UV = 4
+SALT_BSDF_LOBE = 5
+SALT_BSDF_UV = 6
+SALT_RR = 7
+SALT_ENV_SELECT = 8
+SALT_ENV_UV = 9
+SALT_TEX_FILTER = 10
+SALT_ENV_RR = 11
+_SALTS_PER_DEPTH = 12
+
+M32 = 0xFFFFFFFF
+
+
+def _mul32(a, b):
+    """(a * b) mod 2^32 for int64 tensors holding u32 words."""
+    a_lo = a & 0xFFFF
+    a_hi = a >> 16
+    return (a_lo * b + (((a_hi * (b & 0xFFFF)) & 0xFFFF) << 16)) & M32
+
+
+def pcg4d(v):
+    """PCG4D hash: int64[..., 4] u32 words -> int64[..., 4] u32 words."""
+    v = (_mul32(v & M32, 1664525) + 1013904223) & M32
+    x, y, z, w = v.unbind(-1)
+    x = (x + _mul32(y, w)) & M32
+    y = (y + _mul32(z, x)) & M32
+    z = (z + _mul32(x, y)) & M32
+    w = (w + _mul32(y, z)) & M32
+    x, y, z, w = (a ^ (a >> 16) for a in (x, y, z, w))
+    x = (x + _mul32(y, w)) & M32
+    y = (y + _mul32(z, x)) & M32
+    z = (z + _mul32(x, y)) & M32
+    w = (w + _mul32(y, z)) & M32
+    return torch.stack([x, y, z, w], dim=-1)
+
+
+def _word(x, device):
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int64) & M32
+    return torch.tensor(int(x) & M32, dtype=torch.int64, device=device)
+
+
+def _key(pixel, sample, depth_salt, seed):
+    """Stack (pixel, sample, depth_salt, seed) words, broadcast together."""
+    dev = next((t.device for t in (pixel, sample, depth_salt)
+                if isinstance(t, torch.Tensor)), torch.device("cpu"))
+    parts = torch.broadcast_tensors(*(_word(p, dev) for p in
+                                      (pixel, sample, depth_salt, seed)))
+    return torch.stack(parts, dim=-1)
+
+
+def _to_unit(bits):
+    """u32 word -> f32 in [0, 1): top 24 bits scaled by 2^-24 (exact)."""
+    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def uniform4(pixel, sample, depth, salt, seed=0, sampler="pcg"):
+    """Four U[0,1) floats keyed on (pixel, sample, depth, salt)."""
+    if sampler != "pcg":
+        raise ValueError(f"sampler {sampler!r} is not ported "
+                         "(ROADMAP.md Queue 1, item 2)")
+    depth_salt = (int(depth) * _SALTS_PER_DEPTH + salt) & M32
+    return _to_unit(pcg4d(_key(pixel, sample, depth_salt, seed)))
+
+
+def uniform2(pixel, sample, depth, salt, seed=0, sampler="pcg"):
+    u = uniform4(pixel, sample, depth, salt, seed, sampler)
+    return u[..., 0], u[..., 1]
+
+
+def uniform1(pixel, sample, depth, salt, seed=0, sampler="pcg"):
+    return uniform4(pixel, sample, depth, salt, seed, sampler)[..., 0]

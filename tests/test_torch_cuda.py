@@ -1,0 +1,138 @@
+"""pathtracer_torch CUDA kernels against their plain versions, on the card.
+
+Every test here is marked `cuda` and skips without a CUDA device. The
+file imports neither jax nor the JAX package, so on a machine with a
+card it also runs without them:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pathtracer_torch import kernels
+from pathtracer_torch.accel.cluster import build_clusters
+from pathtracer_torch.kernels import cull, packet, sweep
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are built with nvcc "
+                    "and run only on the card")
+    return torch.device("cuda")
+
+
+def _soup(t, seed):
+    rng = np.random.default_rng(seed)
+    v0 = rng.uniform(-1, 1, (t, 3)).astype(np.float32)
+    v1 = v0 + rng.uniform(-0.3, 0.3, (t, 3)).astype(np.float32)
+    v2 = v0 + rng.uniform(-0.3, 0.3, (t, 3)).astype(np.float32)
+    return [torch.from_numpy(x) for x in (v0, v1, v2)]
+
+
+def _rays(n, seed, dev, park_tail=0):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    if park_tail:
+        o[-park_tail:] = 1e30
+        d[-park_tail:] = 1.0
+    return torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+
+
+@pytest.mark.parametrize("n_tris,n_tiles,t_max", [(3000, 40, 3.0),
+                                                  (300, 3, 1e20)])
+def test_kernels_match_plain_bit_for_bit(dev, n_tris, n_tiles, t_max):
+    accel = build_clusters(*_soup(n_tris, n_tris)).to(dev)
+    o, d = _rays(64 * n_tiles, n_tiles, dev, park_tail=70)
+    tm = torch.full((o.shape[0],), t_max, device=dev)
+    inv = packet._safe_inv(d)
+    kw = dict(t_min=1e-3, n_tiles=n_tiles, tile_rays=64)
+    before = dict(kernels.LAUNCHES)
+    tn = cull.tile_cull(accel.aabb_lo, accel.aabb_hi, o, inv, tm, **kw)
+    assert torch.equal(tn, cull.tile_cull_plain(accel.aabb_lo,
+                                                accel.aabb_hi, o, inv, tm,
+                                                **kw))
+    st, si = packet._sorted_schedule(tn, 1)
+    rays6 = packet._tile_rays6(o, d, n_tiles, 64)
+    cap = packet._scene_exit(accel, o, d, tm).reshape(n_tiles, 64) \
+        .contiguous()
+    got = sweep.sweep_closest(st, si, rays6, cap, accel.blocks_t, 1e-3)
+    ref = sweep.sweep_closest_plain(st, si, rays6, cap, accel.blocks_t,
+                                    1e-3)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert bool((got[1] >= 0).any())
+    tm2 = tm.reshape(n_tiles, 64).contiguous()
+    occ = sweep.sweep_occluded(st, si, rays6, tm2, accel.blocks_t)
+    assert torch.equal(occ, sweep.sweep_occluded_plain(st, si, rays6, tm2,
+                                                       accel.blocks_t))
+    assert all(kernels.LAUNCHES[k] == before[k] + 1 for k in before)
+
+
+def test_packet_traversal_on_cuda_matches_cpu(dev):
+    accel = build_clusters(*_soup(2000, 5))
+    o, d = _rays(5000, 6, "cpu")
+    tm = torch.full((5000,), 2.0)
+    for sort in (True, False):
+        hc = packet.intersect_clusters(accel, o, d, 1e-3, 1e20,
+                                       backend="pallas", sort_rays=sort)
+        hg = packet.intersect_clusters(accel.to(dev), o.to(dev), d.to(dev),
+                                       1e-3, 1e20, backend="pallas",
+                                       sort_rays=sort)
+        assert torch.equal(hg.tri.cpu(), hc.tri)
+        oc = packet.occluded_clusters(accel, o, d, tm, backend="pallas",
+                                      sort_rays=sort)
+        og = packet.occluded_clusters(accel.to(dev), o.to(dev), d.to(dev),
+                                      tm.to(dev), backend="pallas",
+                                      sort_rays=sort)
+        assert torch.equal(og.cpu(), oc)
+
+
+def test_wrappers_check_their_inputs(dev):
+    accel = build_clusters(*_soup(300, 1)).to(dev)
+    o, d = _rays(64, 2, dev)
+    tm = torch.full((64,), 2.0, device=dev)
+    kw = dict(t_min=0.0, n_tiles=1, tile_rays=64)
+    with pytest.raises(ValueError):
+        cull.tile_cull(accel.aabb_lo, accel.aabb_hi, o.double(),
+                       packet._safe_inv(d), tm, **kw)
+    with pytest.raises(ValueError):
+        cull.tile_cull(accel.aabb_lo, accel.aabb_hi, o.t().contiguous().t(),
+                       packet._safe_inv(d), tm, **kw)
+    tn = cull.tile_cull(accel.aabb_lo, accel.aabb_hi, o,
+                        packet._safe_inv(d), tm, **kw)
+    st, si = packet._sorted_schedule(tn, 1)
+    rays6 = packet._tile_rays6(o, d, 1, 64)
+    with pytest.raises(ValueError):
+        sweep.sweep_closest(st, si.long(), rays6, tm.reshape(1, 64),
+                            accel.blocks_t, 1e-3)
+    with pytest.raises(ValueError):
+        sweep.sweep_occluded(st, si, rays6[:, :, :32].contiguous(),
+                             tm.reshape(1, 64)[:, :32].contiguous(),
+                             accel.blocks_t.cpu())
+
+
+def test_cornell_render_on_cuda_matches_cpu(dev):
+    from pathtracer_torch.config import RenderConfig
+    from pathtracer_torch.integrator.camera import Camera
+    from pathtracer_torch.render import Renderer
+    from pathtracer_torch.scene.procedural import cornell_box
+
+    cfg = RenderConfig(width=32, height=32, spp=2, max_depth=4,
+                       spp_batch=True)
+    imgs = []
+    for device in ("cpu", dev):
+        c = Camera(position=(0.5, 0.5, 2.2))
+        c.look_at((0.5, 0.5, 0.0))
+        r = Renderer(cornell_box(materials_suite=True).finalize(), cfg, c,
+                     device=device)
+        imgs.append(r.run(1).accum.cpu().numpy())
+    diff = np.abs(imgs[0] - imgs[1]).max(-1)
+    assert (diff > 0.01).mean() <= 0.02
+    assert abs(imgs[0].mean() - imgs[1].mean()) <= 1e-3 * imgs[0].mean()

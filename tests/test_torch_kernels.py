@@ -1,0 +1,309 @@
+"""Traversal kernels K1-K3 and packet traversal of pathtracer_torch vs the JAX package.
+
+CPU: each kernel's plain PyTorch version against the JAX Pallas kernel
+run in interpret mode on identical inputs (K1 bit-exact, K2 tri-exact
+with t/u/v within a few roundings of their summed terms, K3 exact), and
+the port's
+packet traversal on both backends against the JAX brute-force oracle
+(tri / blocked exact, t within rtol 1e-4). The CUDA kernels themselves
+are held to their plain versions in tests/test_torch_cuda.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pathtracer.accel.cluster import build_clusters as jbuild
+from pathtracer.kernels import packet as jpacket
+from pathtracer.kernels import pallas_cull, pallas_sweep
+from pathtracer.kernels.intersect import intersect_brute, occluded_brute
+from pathtracer_torch.accel.cluster import accel_from_numpy
+from pathtracer_torch.accel.cluster import build_clusters as tbuild
+from pathtracer_torch.kernels import cull, packet, sweep
+from pathtracer_torch.kernels import intersect as tisect
+
+
+def _soup(t, seed=0):
+    rng = np.random.default_rng(seed)
+    v0 = rng.uniform(-1, 1, (t, 3)).astype(np.float32)
+    v1 = v0 + rng.uniform(-0.3, 0.3, (t, 3)).astype(np.float32)
+    v2 = v0 + rng.uniform(-0.3, 0.3, (t, 3)).astype(np.float32)
+    return v0, v1, v2
+
+
+def _rays(n, seed=1, park_tail=0):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    if park_tail:
+        o[-park_tail:] = 1e30
+        d[-park_tail:] = 1.0
+    return o, d
+
+
+def _carry(ja):
+    return accel_from_numpy(*(np.asarray(getattr(ja, f)) for f in
+                              ("aabb_lo", "aabb_hi", "blocks", "blocks_t")))
+
+
+def _T(a):
+    return torch.from_numpy(np.array(a))
+
+
+# --- K1 tile cull ---------------------------------------------------------
+
+@pytest.mark.parametrize("t,min_k,max_c,t_min", [(500, 8, 100, 1e-3),
+                                                 (90, 8, 16, 0.0),
+                                                 (2000, 4, 700, 1e-3)])
+def test_cull_plain_matches_pallas_interpret(t, min_k, max_c, t_min):
+    v0, v1, v2 = _soup(t, seed=t)
+    ja = jbuild(jnp.asarray(v0), jnp.asarray(v1), jnp.asarray(v2),
+                max_clusters=max_c, min_k=min_k)
+    n = 256
+    o, d = _rays(n, seed=2, park_tail=40)
+    t_max = np.full(n, 50.0, np.float32)
+    t_max[-40:] = 0.0
+    inv = np.asarray(jpacket._safe_inv(jnp.asarray(d)))
+    n_tiles = n // 64
+    ref = np.asarray(pallas_cull.tile_cull(
+        ja.aabb_lo, ja.aabb_hi, jnp.asarray(o), jnp.asarray(inv),
+        jnp.asarray(t_max), t_min=t_min, n_tiles=n_tiles, tile_rays=64,
+        interpret=True))
+    got = cull.tile_cull(_T(ja.aabb_lo), _T(ja.aabb_hi), _T(o), _T(inv),
+                         _T(t_max), t_min=t_min, n_tiles=n_tiles,
+                         tile_rays=64).numpy()
+    if t != 2000:
+        assert ja.aabb_lo.shape[0] % 128 != 0   # C not a lane multiple
+    np.testing.assert_array_equal(got, ref)
+    assert np.isfinite(got).any() and np.isinf(got).any()
+
+
+def test_safe_inv_matches_jax():
+    d = np.float32([[0.0, -0.0, 1e-25], [-1e-25, 2.0, -3.0]])
+    np.testing.assert_array_equal(
+        packet._safe_inv(_T(d)).numpy(),
+        np.asarray(jpacket._safe_inv(jnp.asarray(d))))
+
+
+# --- K2 / K3 sweeps -------------------------------------------------------
+
+def _sweep_inputs(n_tris=300, n_rays=512, max_c=16, seed=0, method="morton"):
+    v0, v1, v2 = _soup(n_tris, seed=seed)
+    ja = jbuild(jnp.asarray(v0), jnp.asarray(v1), jnp.asarray(v2),
+                max_clusters=max_c, method=method)
+    o, d = _rays(n_rays, seed=seed + 1, park_tail=10)
+    n_tiles = n_rays // 64
+    t_max = np.full(n_rays, 2.0, np.float32)
+    t_max[-10:] = 0.0
+    tn = jpacket._tile_cull(ja, jnp.asarray(o), jnp.asarray(d), 1e-3,
+                            jnp.asarray(t_max), n_tiles, 64)
+    st, si = jpacket._sorted_schedule(tn, 1)
+    rays6 = np.swapaxes(np.concatenate(
+        [o.reshape(n_tiles, 64, 3), d.reshape(n_tiles, 64, 3)], 2), 1, 2)
+    t_cap = np.asarray(jpacket._scene_exit(
+        ja, jnp.asarray(o), jnp.asarray(d), jnp.float32(1e20))) \
+        .reshape(n_tiles, 64)
+    return ja, (np.asarray(st), np.asarray(si), np.ascontiguousarray(rays6),
+                t_cap, np.asarray(ja.blocks_t)), t_max.reshape(n_tiles, 64)
+
+
+@pytest.mark.parametrize("seed,max_c", [(0, 16), (5, 4)])
+def test_sweep_closest_plain_matches_pallas_interpret(seed, max_c):
+    _, (st, si, rays6, t_cap, bt), _ = _sweep_inputs(seed=seed, max_c=max_c)
+    ref = pallas_sweep.sweep_closest(
+        jnp.asarray(st), jnp.asarray(si), jnp.asarray(rays6),
+        jnp.asarray(t_cap), jnp.asarray(bt), 1e-3, interpret=True)
+    got = sweep.sweep_closest(_T(st), _T(si), _T(rays6), _T(t_cap), _T(bt),
+                              1e-3)
+    rt, rtri, ru, rv = (np.asarray(x) for x in ref)
+    gt, gtri, gu, gv = (x.numpy() for x in got)
+    np.testing.assert_array_equal(gtri, rtri)
+    hit = rtri >= 0
+    assert hit.sum() > 20
+    # XLA contracts a*b+c into FMAs when it runs the interpret-mode
+    # kernel on the host; the port must not (it is held bit for bit to
+    # the -fmad=false CUDA kernel). So t, u, v agree to a few roundings of
+    # the terms each one sums: |diff| <= 32 * 2^-24 * sum(|term|).
+    rows = {int(r[12]) - 1: r.astype(np.float64)
+            for r in bt.transpose(0, 2, 1).reshape(-1, 16) if r[12] > 0}
+    o = rays6[:, 0:3].transpose(0, 2, 1)[hit].astype(np.float64)
+    d = rays6[:, 3:6].transpose(0, 2, 1)[hit].astype(np.float64)
+    for k, tri in enumerate(rtri[hit]):
+        r = rows[int(tri)]
+        t = float(rt[hit][k])
+        h = o[k] + t * d[k]
+        no = np.abs(r[0:3] * o[k]).sum()
+        scale_t = (abs(r[3]) + no) * abs(t) / max(
+            abs(r[3] - (r[0:3] * o[k]).sum()), 1e-30) + abs(t)
+        scale_u = np.abs(r[4:7] * h).sum() + abs(r[7])
+        scale_v = np.abs(r[8:11] * h).sum() + abs(r[11])
+        for got_x, ref_x, s in ((gt, rt, scale_t), (gu, ru, scale_u),
+                                (gv, rv, scale_v)):
+            assert abs(float(got_x[hit][k]) - float(ref_x[hit][k])) \
+                <= 32 * 2.0 ** -24 * s
+    np.testing.assert_allclose(gt[hit], rt[hit], rtol=1e-5)
+
+
+@pytest.mark.parametrize("seed,max_c", [(0, 16), (5, 4)])
+def test_sweep_occluded_plain_matches_pallas_interpret(seed, max_c):
+    _, (st, si, rays6, _, bt), tm = _sweep_inputs(seed=seed, max_c=max_c)
+    ref = np.asarray(pallas_sweep.sweep_occluded(
+        jnp.asarray(st), jnp.asarray(si), jnp.asarray(rays6),
+        jnp.asarray(tm), jnp.asarray(bt), interpret=True))
+    got = sweep.sweep_occluded(_T(st), _T(si), _T(rays6), _T(tm), _T(bt))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert 0 < ref.sum() < ref.size
+
+
+# --- packet traversal end to end -----------------------------------------
+
+_SOUP = _soup(300)
+_RAYS = _rays(700)
+
+
+def _oracle(v, o, d, t_max=2.0):
+    hr = intersect_brute(*(jnp.asarray(x) for x in (o, d, *v)), 1e-3, 1e20)
+    tm = jnp.full(len(o), t_max, jnp.float32)
+    obr = occluded_brute(jnp.asarray(o), jnp.asarray(d), tm,
+                         *(jnp.asarray(x) for x in v))
+    return hr, np.asarray(obr)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+@pytest.mark.parametrize("accel_src", ["jax_morton", "port_sahsplit"])
+def test_packet_traversal_matches_bruteforce(backend, accel_src):
+    v = _SOUP
+    o, d = _RAYS
+    if accel_src == "jax_morton":
+        accel = _carry(jbuild(*(jnp.asarray(x) for x in v), max_clusters=16))
+    else:
+        accel = tbuild(*(_T(x) for x in v))
+    hr, obr = _oracle(v, o, d)
+    hp = packet.intersect_clusters(accel, _T(o), _T(d), 1e-3, 1e20,
+                                   backend=backend)
+    np.testing.assert_array_equal(hp.tri.numpy(), np.asarray(hr.tri))
+    both = np.asarray(hr.tri) >= 0
+    assert both.sum() > 0
+    np.testing.assert_allclose(hp.t.numpy()[both], np.asarray(hr.t)[both],
+                               rtol=1e-4, atol=1e-5)
+    op = packet.occluded_clusters(accel, _T(o), _T(d),
+                                  torch.full((len(o),), 2.0), backend=backend)
+    np.testing.assert_array_equal(op.numpy(), obr)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_packet_ragged_and_tiny(backend):
+    v = _soup(33, seed=7)
+    accel = _carry(jbuild(*(jnp.asarray(x) for x in v), max_clusters=4))
+    for n in (1, 130, 257):
+        o, d = _rays(n, seed=n)
+        hr, obr = _oracle(v, o, d)
+        hp = packet.intersect_clusters(accel, _T(o), _T(d), 1e-3, 1e20,
+                                       backend=backend)
+        np.testing.assert_array_equal(hp.tri.numpy(), np.asarray(hr.tri))
+        op = packet.occluded_clusters(accel, _T(o), _T(d),
+                                      torch.full((n,), 2.0), backend=backend)
+        np.testing.assert_array_equal(op.numpy(), obr)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_packet_small_chunks_and_dead_chunks(backend):
+    """Several chunks, one of them all parked (skipped), unsorted primary."""
+    v = _SOUP
+    o, d = _rays(640, seed=9)
+    o[128:320] = 1e30                 # chunk 1 (128 rays) fully parked
+    accel = _carry(jbuild(*(jnp.asarray(x) for x in v), max_clusters=16))
+    hr, obr = _oracle(v, o, d)
+    for sort in (True, False):
+        hp = packet.intersect_clusters(accel, _T(o), _T(d), 1e-3, 1e20,
+                                       backend=backend, sort_rays=sort,
+                                       chunk_rays=128)
+        np.testing.assert_array_equal(hp.tri.numpy(), np.asarray(hr.tri))
+        op = packet.occluded_clusters(accel, _T(o), _T(d),
+                                      torch.full((640,), 2.0),
+                                      backend=backend, sort_rays=sort,
+                                      chunk_rays=128)
+        np.testing.assert_array_equal(op.numpy(), obr)
+    assert packet.chunk_live(_T(o), 128) == [True, False, True, True, True]
+
+
+def test_packet_schedule_longer_than_128_columns():
+    """Corridor of ~125 ring clusters ahead of a far wall (the JAX
+    test_pallas_cpi_not_dividing_128_keeps_tail scene): every ray walks
+    the whole schedule before the wall."""
+    rng = np.random.default_rng(11)
+    v0l, v1l, v2l = [], [], []
+    for i in range(128):
+        n = 128
+        if i == 127:
+            v0l.append([[float(i), -2.0, -2.0]])
+            v1l.append([[float(i), 4.0, -2.0]])
+            v2l.append([[float(i), -2.0, 4.0]])
+            n -= 1
+        ang = rng.uniform(0, 2 * np.pi, n)
+        rad = rng.uniform(0.25, 0.5, n)
+        cy, cz = rad * np.cos(ang), rad * np.sin(ang)
+        x = np.full(n, float(i)) + rng.uniform(-0.1, 0.1, n)
+        a = np.stack([x, cy, cz], 1)
+        v0l.append(a)
+        v1l.append(a + rng.uniform(0.01, 0.1, (n, 3)) * [0, 1, 0])
+        v2l.append(a + rng.uniform(0.01, 0.1, (n, 3)) * [0, 0, 1])
+    v = [np.concatenate(x).astype(np.float32) for x in (v0l, v1l, v2l)]
+    o = np.zeros((64, 3), np.float32)
+    o[:, 0] = -2.0
+    o[:, 1:] = rng.uniform(-0.05, 0.05, (64, 2))
+    d = np.tile(np.float32([1.0, 0.0, 0.0]), (64, 1))
+    ja = jbuild(*(jnp.asarray(x) for x in v), max_clusters=128,
+                method="median")
+    accel = _carry(ja)
+    hr = intersect_brute(*(jnp.asarray(x) for x in (o, d, *v)), 1e-3, 1e20)
+    assert (np.asarray(hr.tri) >= 0).all()
+    n_tiles = 1
+    tn = cull.tile_cull(accel.aabb_lo, accel.aabb_hi, _T(o),
+                        packet._safe_inv(_T(d)), torch.full((64,), 1e20),
+                        t_min=1e-3, n_tiles=n_tiles, tile_rays=64)
+    assert int(torch.isfinite(tn).sum()) > 120
+    for backend in ("pallas", "xla"):
+        hp = packet.intersect_clusters(accel, _T(o), _T(d), 1e-3, 1e20,
+                                       backend=backend)
+        np.testing.assert_array_equal(hp.tri.numpy(), np.asarray(hr.tri))
+
+
+def test_brute_force_matches_jax():
+    v = _SOUP
+    o, d = _RAYS
+    hr, obr = _oracle(v, o, d)
+    hb = tisect.intersect_brute(_T(o), _T(d), *(_T(x) for x in v), 1e-3,
+                                1e20)
+    np.testing.assert_array_equal(hb.tri.numpy(), np.asarray(hr.tri))
+    hit = np.asarray(hr.tri) >= 0
+    np.testing.assert_allclose(hb.t.numpy()[hit], np.asarray(hr.t)[hit],
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(hb.u.numpy()[hit], np.asarray(hr.u)[hit],
+                               rtol=1e-4, atol=1e-5)
+    ob = tisect.occluded_brute(_T(o), _T(d), torch.full((len(o),), 2.0),
+                               *(_T(x) for x in v))
+    np.testing.assert_array_equal(ob.numpy(), obr)
+
+
+def test_wrappers_never_fall_back_off_cpu():
+    """A non-CPU, non-CUDA tensor raises instead of taking the plain route."""
+    o = torch.zeros((64, 3), device="meta")
+    lo = torch.zeros((4, 3), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        cull.tile_cull(lo, lo, o, o, torch.zeros(64, device="meta"),
+                       t_min=0.0, n_tiles=1, tile_rays=64)
+    st = torch.zeros((1, 4), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        sweep.sweep_closest(st, st.int(), torch.zeros((1, 6, 64),
+                                                      device="meta"),
+                            torch.zeros((1, 64), device="meta"),
+                            torch.zeros((4, 16, 128), device="meta"), 1e-3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sweep.sweep_occluded(st, st.int(), torch.zeros((1, 6, 64),
+                                                       device="meta"),
+                             torch.zeros((1, 64), device="meta"),
+                             torch.zeros((4, 16, 128), device="meta"))

@@ -1,0 +1,117 @@
+"""pathtracer_torch scene tables and cluster accel vs the JAX package.
+
+The port's builders re-home the JAX package's numpy generators, so the
+tables must come out identical: integer/u8 fields exact, f32 fields
+exact (the same numpy expressions), and the sahsplit accel (leaf order,
+ids, boxes, both block layouts) exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pathtracer.accel.cluster import build_scene_clusters as jbuild
+from pathtracer.scene import procedural as jproc
+from pathtracer.utils import native as jnative
+from pathtracer_torch.accel.cluster import accel_from_numpy
+from pathtracer_torch.accel.cluster import build_scene_clusters as tbuild
+from pathtracer_torch.scene import procedural as tproc
+from pathtracer_torch.scene.types import (META_FIELDS, OPTIONAL_FIELDS,
+                                          TENSOR_FIELDS, scene_from_numpy)
+from pathtracer_torch.utils import native as tnative
+
+SCENES = {
+    "cornell": (jproc.cornell_box, tproc.cornell_box),
+    "materials": (lambda: jproc.cornell_box(materials_suite=True),
+                  lambda: tproc.cornell_box(materials_suite=True)),
+    "sponza_textured": (lambda: jproc.sponza_like(4000, textured=True),
+                        lambda: tproc.sponza_like(4000, textured=True)),
+}
+_cache = {}
+
+
+def _pair(name):
+    if name not in _cache:
+        jf, tf = SCENES[name]
+        _cache[name] = (jbuild(jf().finalize()), tbuild(tf().finalize()))
+    return _cache[name]
+
+
+def _np(a):
+    a = np.asarray(a)
+    return a.astype(np.int64) if a.dtype == np.uint32 else a
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_finalize_matches_jax_field_by_field(name):
+    js, ts = _pair(name)
+    for f in TENSOR_FIELDS + OPTIONAL_FIELDS:
+        a, b = getattr(js, f), getattr(ts, f)
+        if a is None:
+            assert b is None, f
+            continue
+        a, b = _np(a), b.numpy()
+        assert a.shape == b.shape and a.dtype == b.dtype, f
+        np.testing.assert_array_equal(b, a, err_msg=f)
+    for f in META_FIELDS:
+        assert getattr(ts, f) == getattr(js, f), f
+    assert ts.n_tris == js.n_tris
+    if name == "sponza_textured":
+        assert ts.has_textures and ts.tex_comp is not None
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_sahsplit_accel_matches_jax(name):
+    js, ts = _pair(name)
+    ja, ta = js.clusters, ts.clusters
+    assert ta.n_clusters == ja.n_clusters and ta.n_clusters % 128 == 0
+    for f in ("aabb_lo", "aabb_hi", "blocks"):
+        np.testing.assert_array_equal(getattr(ta, f).numpy(),
+                                      np.asarray(getattr(ja, f)), err_msg=f)
+    jb, tb = np.asarray(ja.blocks_t), ta.blocks_t.numpy()
+    # id row (leaf order + ids) exact; Baldwin-Weber rows exact too: the
+    # port reproduces XLA's contraction of the cross products
+    np.testing.assert_array_equal(tb[:, 12], jb[:, 12])
+    np.testing.assert_array_equal(tb, jb)
+
+
+def test_scene_and_accel_from_numpy_roundtrip():
+    js, ts = _pair("materials")
+    fields = {k: (None if getattr(js, k) is None else np.asarray(
+        getattr(js, k))) for k in TENSOR_FIELDS + OPTIONAL_FIELDS}
+    fields.update({k: getattr(js, k) for k in META_FIELDS})
+    carried = scene_from_numpy(fields)
+    for f in TENSOR_FIELDS:
+        assert torch.equal(getattr(carried, f), getattr(ts, f)), f
+    acc = accel_from_numpy(*(np.asarray(getattr(js.clusters, f)) for f in
+                             ("aabb_lo", "aabb_hi", "blocks", "blocks_t")))
+    assert torch.equal(acc.blocks_t, ts.clusters.blocks_t)
+    moved = carried.with_clusters(acc).to("cpu")
+    assert moved.clusters.n_clusters == acc.n_clusters
+
+
+def test_native_sah_build_matches_jax_binding():
+    js, _ = _pair("materials")
+    v = [np.asarray(x) for x in js.tri_vertices(np.arange(js.n_tris))]
+    jl, jlo, jhi = jnative.sah_split_build(*v, 128)
+    tl, tlo, thi = tnative.sah_split_build(*v, 128)
+    assert len(jl) == len(tl)
+    for a, b in zip(jl, tl):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(jlo, tlo)
+    np.testing.assert_array_equal(jhi, thi)
+
+
+def test_native_png_encode_roundtrip():
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (17, 23, 3), dtype=np.uint8)
+    data = tnative.png_encode(img)
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    np.testing.assert_array_equal(jnative.png_decode(data), img)
+    with pytest.raises(ValueError):
+        tnative.png_encode(np.zeros((4, 4, 2), np.uint8))
+
+
+def test_sponza_tri_count_class():
+    s = tproc.sponza_like(target_tris=50_000).finalize()
+    assert 40_000 < s.n_tris < 70_000
