@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU: python3 chip_smoke.py
 
-Drives pathtracer_torch's main path - the textured sponza_like interior
-(~262k triangles), 1920x1080, 4 spp, depth 6, spp-batched wavefront,
-cluster intersector on the hand-written kernels - and checks it:
+Drives pathtracer_torch's paths on the card and checks them:
 
 1. device: card name and power limit, versions, builds of the native
-   library and of the CUDA kernels (csrc/*.cu, nvcc, sm_90a);
-2. each kernel (K1 tile cull, K2 closest sweep, K3 occlusion sweep)
-   against its plain PyTorch version on the card, replaying the arguments
-   the main path handed the kernels in chunks of the headline frame's
-   primary, bounce-0 shadow and bounce-1 batches: K1 bit-exact, K2
-   hit-exact with t/u/v bit-exact, K3 exact;
-3. the config 1/3/5 golden gates at 64x64, 4 spp, through the kernels
+   library and of the CUDA kernels (one nvcc per csrc/*.cu, all started
+   together);
+2. each kernel against its plain PyTorch version on the card, replaying
+   the arguments the main path itself handed it: K1 tile cull, K2 closest
+   sweep and K3 occlusion sweep in chunks of an unprimed headline frame's
+   primary, bounce-0 shadow and bounce-1 batches (K1 bit-exact, K2
+   hit-exact with t/u/v bit-exact, K3 exact); K3b (occlusion sweep with
+   blocker hints) in chunks of a primed headline frame's bounce-0 shadow
+   batch (bit-exact blocked and btri, blocked equal to K3's, every hint a
+   front-facing blocker with 0 < t < t_max), and K1/K2 once more on that
+   frame's primary batch, whose t_max is per ray;
+3. the config 1-5 golden gates at 64x64, 4 spp, through the kernels
    (robust gate of benchmarks/run_configs.py);
-4. the headline: one warm-up frame and --frames timed frames through
-   Renderer, with launch counts reset just before and read just after.
+4. the headline - textured sponza_like (~262k triangles), 1920x1080,
+   4 spp, depth 6, spp-batched - unprimed and then primed: one warm-up
+   frame and --frames timed frames each through Renderer, launch counts
+   reset just before and read just after each run; the primed film must
+   pass the gate against the unprimed one with the same ray counts;
+5. config 4 at its published size (1024x1024, 1 spp, depth 6, env-map
+   NEE; frame_batch 1), unprimed and primed.
 
 Prints one JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line,
@@ -26,10 +34,13 @@ any phase fails.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -39,6 +50,10 @@ RMSE_TOL, OUTLIER_TOL, MEAN_TOL = 5e-3, 0.02, 1e-3
 DEVICE = "cuda"
 # the headline: bench.py's textured sponza_like at 1080p (never cut)
 HEADLINE_TRIS, HEADLINE_W, HEADLINE_H = 262_000, 1920, 1080
+SPONZA_CAM = ((3.0, 4.5, 6.0), (14.0, 3.0, 6.0))
+BOX_CAM = ((0.5, 0.5, 2.2), (0.5, 0.5, 0.0))
+BUNNY_CAM = ((0.0, 2.0, 5.0), (0.0, 1.2, 0.0))
+ENV_CAM = ((0.0, 2.5, 5.5), (0.0, 1.2, 0.0))
 BATCH_NAMES = ("primary", "shadow0", "bounce1")   # first traversal calls
 CHUNK_STRIDE = 16   # compare every 16th chunk of a batch ...
 CMP_CHUNKS = 4      # ... and at most 4 chunks per batch
@@ -49,7 +64,16 @@ KERNELS = {
                       "pathtracer/kernels/pallas_sweep.py:98"),
     "sweep_occluded": ("pathtracer_torch/csrc/sweep.cu",
                        "pathtracer/kernels/pallas_sweep.py:223"),
+    "sweep_occluded_blocker": ("pathtracer_torch/csrc/sweep.cu",
+                               "pathtracer/kernels/pallas_sweep.py:223 "
+                               "(want_blocker=True)"),
 }
+UNPRIMED_KERNELS = ("tile_cull", "sweep_closest", "sweep_occluded")
+# Least-time model of one NVIDIA H100 SXM (NVIDIA's data sheet): FP32
+# outside the tensor cores and HBM3 bandwidth.
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+CULL_OPS = 30   # per (ray, cluster): 6 sub, 6 mul, 10 min/max, 5 tests, 3
+BW_OPS = 40     # per (ray, triangle lane): the Baldwin-Weber test of bw_lane
 
 
 def log(phase, **kw):
@@ -74,6 +98,14 @@ def robust_gate(img, golden):
     return dict(inlier_rmse=rmse, flip_frac=flips, mean_rel=mean_rel, ok=ok)
 
 
+def camera(spec):
+    from pathtracer_torch.integrator.camera import Camera
+
+    c = Camera(position=spec[0])
+    c.look_at(spec[1])
+    return c
+
+
 def phase_device():
     import torch
 
@@ -87,46 +119,56 @@ def phase_device():
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else f"nvidia-smi failed: {smi.stderr.strip()}", flush=True)
     t0 = time.perf_counter()
-    native.build()
-    t1 = time.perf_counter()
-    for name in ("cull", "sweep"):
-        cuda_build.build(name)
-    t2 = time.perf_counter()
+    errors = []
+
+    def run(fn, *a):
+        try:
+            fn(*a)
+        except Exception as e:     # reported below, after every build ends
+            errors.append(e)
+
+    builds = [threading.Thread(target=run, args=(native.build,))] + [
+        threading.Thread(target=run, args=(cuda_build.build, name))
+        for name in ("cull", "sweep")]
+    for t in builds:
+        t.start()
+    for t in builds:
+        t.join()
+    if errors:
+        raise PhaseError(f"build failed: {errors[0]}")
     for name, text in cuda_build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"ptxas[{name}] {line.strip()}", flush=True)
     log("device", torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0], gpu=torch.cuda.get_device_name(0),
-        native_build_s=t1 - t0, kernels_build_s=t2 - t1)
+        build_s=time.perf_counter() - t0)
 
 
 def headline_setup():
     from pathtracer_torch.accel.cluster import build_scene_clusters
     from pathtracer_torch.config import RenderConfig
-    from pathtracer_torch.integrator.camera import Camera
     from pathtracer_torch.scene.procedural import sponza_like
 
     t0 = time.perf_counter()
-    scene = sponza_like(target_tris=HEADLINE_TRIS, textured=True).finalize()
+    scene = sponza_like(target_tris=HEADLINE_TRIS,
+                        textured=True).finalize(device="cpu")
     t1 = time.perf_counter()
     scene = build_scene_clusters(scene).to(DEVICE)
     t2 = time.perf_counter()
     cfg = RenderConfig(width=HEADLINE_W, height=HEADLINE_H, spp=4,
                        max_depth=6, intersector="cluster",
                        traversal_backend="pallas", spp_batch=True)
-    cam = Camera(position=(3.0, 4.5, 6.0))
-    cam.look_at((14.0, 3.0, 6.0))
     log("scene", tris=scene.n_tris, clusters=scene.clusters.n_clusters,
         build_s=t1 - t0, accel_s=t2 - t1)
-    return scene, cfg, cam
+    return scene, cfg, camera(SPONZA_CAM)
 
 
-def capture_chunks(scene, cfg, cam):
-    """Kernel arguments of the headline frame's primary, bounce-0 shadow
-    and bounce-1 batches, recorded inside packet.py's chunk bodies while
-    render_frame renders one headline frame: every CHUNK_STRIDE-th chunk
-    of each batch, at most CMP_CHUNKS of them.
+def capture_chunks(scene, cfg, cam, frame_idx=0, prime=None):
+    """Kernel arguments of one frame's primary, bounce-0 shadow and
+    bounce-1 batches, recorded inside packet.py's chunk bodies while
+    render_frame_with_stats renders the frame: every CHUNK_STRIDE-th
+    chunk of each batch, at most CMP_CHUNKS of them.
     """
     from pathtracer_torch import render
     from pathtracer_torch.kernels import cull, sweep
@@ -152,10 +194,11 @@ def capture_chunks(scene, cfg, cam):
         return real["tile_cull"](*a, **kw)
 
     def rec_sweep(name):
-        def call(*a):
+        def call(*a, **kw):
             if cur["keep"]:
-                cur["batch"][name].append(copies(a, (0, 1, 2, 3)))
-            return real[name](*a)
+                key = name + ("_blocker" if kw.get("want_blocker") else "")
+                cur["batch"][key].append((copies(a, (0, 1, 2, 3)), dict(kw)))
+            return real[name](*a, **kw)
         return call
 
     def traversal(fn):              # one call = one batch of rays
@@ -170,14 +213,18 @@ def capture_chunks(scene, cfg, cam):
         return call
 
     def make_intersectors(scene, cfg):
-        return tuple(map(traversal, real["make_intersectors"](scene, cfg)))
+        intersect_fn, occluded_fn, hint_fn = real["make_intersectors"](
+            scene, cfg)
+        return traversal(intersect_fn), traversal(occluded_fn), hint_fn
 
     cull.tile_cull = rec_cull
     sweep.sweep_closest = rec_sweep("sweep_closest")
     sweep.sweep_occluded = rec_sweep("sweep_occluded")
     render.make_intersectors = make_intersectors
     try:
-        render.render_frame(scene, cfg, cam.state(DEVICE), 0)
+        render.render_frame_with_stats(scene, cfg,
+                                       cam.state(device=DEVICE), frame_idx,
+                                       prime=prime)
     finally:
         cull.tile_cull = real["tile_cull"]
         sweep.sweep_closest = real["sweep_closest"]
@@ -198,22 +245,92 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
+def bound_ms(name, args, visited):
+    """Least time of one call on the card, as (operations ms, bytes ms):
+    its FP32 operations over PEAK_FP32 and its bytes (each input read
+    once, each output written once) over PEAK_BYTES; the bound is the
+    larger. The sweeps' work is what this call's data needs: the schedule
+    columns its tiles visit."""
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa
+    if name == "tile_cull":
+        lo, hi, o, inv_d, t_max = args
+        tiles = t_max.numel() // 64
+        ops = o.shape[0] * lo.shape[0] * CULL_OPS
+        moved = nbytes(lo, hi, o, inv_d, t_max) + tiles * lo.shape[0] * 4
+    else:
+        st, si, rays, per_ray, blocks_t = args[:5]
+        k = blocks_t.shape[2]
+        ops = int(visited.sum()) * rays.shape[2] * k * BW_OPS
+        outs = {"sweep_closest": 4, "sweep_occluded": 1,
+                "sweep_occluded_blocker": 2}[name]
+        moved = (nbytes(st, si, rays, per_ray, blocks_t)
+                 + outs * per_ray.numel() * 4)
+    return ops / PEAK_FP32 * 1e3, moved / PEAK_BYTES * 1e3
+
+
 def phase_kernels(scene, cfg, cam):
     import torch
 
     from pathtracer_torch.kernels import cull, sweep
+    from pathtracer_torch.kernels.intersect import ray_triangle
+    from pathtracer_torch.render import render_frame_with_stats
+    from pathtracer_torch.utils import vmath
 
-    mods = {"tile_cull": cull, "sweep_closest": sweep, "sweep_occluded": sweep}
-    stats = {k: {"ms": [], "plain_ms": [], "max_abs_err": 0.0, "calls": 0}
+    stats = {k: {"ms": [], "plain_ms": [], "ops_ms": [], "bytes_ms": [],
+                 "bound_ms": [], "max_abs_err": 0.0, "calls": 0}
              for k in KERNELS}
 
-    def compare(name, label, args, kw=None):
-        kw = kw or {}
-        kernel = getattr(mods[name], name)
-        plain = getattr(mods[name], name + "_plain")
-        kernel(*args, **kw)                                   # warm-up
-        out, ms = timed(lambda: kernel(*args, **kw))
-        ref, ms_p = timed(lambda: plain(*args, **kw))
+    def run_plain(name, args, kw, visited):
+        if name == "tile_cull":
+            return cull.tile_cull_plain(*args, **kw)
+        if name == "sweep_closest":
+            return sweep.sweep_closest_plain(*args, visited=visited)
+        return sweep.sweep_occluded_plain(*args, visited=visited, **kw)
+
+    def run_kernel(name, args, kw):
+        if name == "tile_cull":
+            return cull.tile_cull(*args, **kw)
+        if name == "sweep_closest":
+            return sweep.sweep_closest(*args)
+        return sweep.sweep_occluded(*args, **kw)
+
+    bw_rows = sweep.bw_rows_by_triangle(scene.clusters.blocks_t,
+                                        scene.n_tris)
+
+    def check_blocker_hints(label, args, out):
+        """Every hint is a front-facing triangle with 0 < t < t_max under
+        Moller-Trumbore (intersect.ray_triangle); a hint on a triangle
+        edge, where that test and the sweep's Baldwin-Weber test may
+        round apart, must pass the Baldwin-Weber test. Returns (hints,
+        hints only the Baldwin-Weber test accepts)."""
+        _, _, rays, tm, _ = args
+        blocked, btri = out
+        if not torch.equal(btri >= 0, blocked > 0):
+            raise PhaseError(f"K3b {label}: hint set != blocked set")
+        sel = btri >= 0
+        o = rays[:, 0:3].transpose(1, 2)[sel]
+        d = rays[:, 3:6].transpose(1, 2)[sel]
+        ids = btri[sel].long()
+        v0, v1, v2 = scene.tri_vertices(ids)
+        _, _, _, ok = ray_triangle(o, d, v0, v1, v2, 0.0, tm[sel])
+        front = vmath.dot(d, vmath.cross(v1 - v0, v2 - v0)) < 0.0
+        edge = ~(ok & front)
+        if bool(edge.any()):
+            _, _, _, ok_bw = sweep.bw_hit(bw_rows[ids[edge]], o[edge],
+                                          d[edge], 0.0, tm[sel][edge],
+                                          front_only=True)
+            bad = int((~ok_bw).sum())
+            if bad:
+                raise PhaseError(f"K3b {label}: {bad} hints do not "
+                                 "re-verify")
+        return int(sel.sum()), int(edge.sum())
+
+    def compare(name, label, args, kw, record=True):
+        run_kernel(name, args, kw)                            # warm-up
+        out, ms = timed(lambda: run_kernel(name, args, kw))
+        visited = (None if name == "tile_cull" else torch.zeros(
+            args[0].shape[0], dtype=torch.int64, device=DEVICE))
+        ref, ms_p = timed(lambda: run_plain(name, args, kw, visited))
         if name == "tile_cull":
             if not torch.equal(out, ref):
                 bad = int((out != ref).sum())
@@ -234,13 +351,32 @@ def phase_kernels(scene, cfg, cam):
             hit = out[1] >= 0
             err = float((out[0][hit] - ref[0][hit]).abs().max()) \
                 if bool(hit.any()) else 0.0
-        else:
+        elif name == "sweep_occluded":
             err = float(int((out != ref).sum()))
             if err:
                 raise PhaseError(f"K3 {label}: {int(err)} rays differ")
+        else:
+            for x, y, nm in zip(out, ref, ("blocked", "btri")):
+                if not torch.equal(x, y):
+                    raise PhaseError(f"K3b {label}: {nm} differs on "
+                                     f"{int((x != y).sum())} rays")
+            k3 = sweep.sweep_occluded(*args)
+            if not torch.equal(k3, out[0]):
+                raise PhaseError(f"K3b {label}: blocked != K3's")
+            hints, edge = check_blocker_hints(label, args, out)
+            log("k3b_chunk", batch=label, rays=out[0].numel(),
+                blocked=int(out[0].sum()), hints_verified=hints,
+                hints_on_edges=edge)
+            err = 0.0
+        if not record:
+            return
         s = stats[name]
         s["ms"].append(ms)
         s["plain_ms"].append(ms_p)
+        ops_ms, bytes_ms = bound_ms(name, args, visited)
+        s["ops_ms"].append(ops_ms)
+        s["bytes_ms"].append(bytes_ms)
+        s["bound_ms"].append(max(ops_ms, bytes_ms))
         s["max_abs_err"] = max(s["max_abs_err"], err)
         s["calls"] += 1
 
@@ -248,49 +384,104 @@ def phase_kernels(scene, cfg, cam):
         for args, kw in b["tile_cull"]:
             compare("tile_cull", b["label"], args, kw)
         for name in ("sweep_closest", "sweep_occluded"):
-            for args in b[name]:
-                compare(name, b["label"], args)
+            for args, kw in b[name]:
+                compare(name, b["label"], args, kw)
         log("kernels_batch", batch=b["label"], chunks=b["chunks"],
+            compared=len(b["tile_cull"]))
+    # a primed frame: frame 0 fills the hints, frame 1 is recorded
+    cfg_p = dataclasses.replace(cfg, primary_priming=True)
+    _, _, prime = render_frame_with_stats(scene, cfg_p,
+                                          cam.state(device=DEVICE), 0,
+                                          return_prime=True)
+    for b in capture_chunks(scene, cfg_p, cam, 1, prime)[:2]:
+        label = "primed_" + b["label"]
+        for args, kw in b["tile_cull"]:
+            compare("tile_cull", label, args, kw, record=False)
+        for args, kw in b["sweep_closest"]:
+            compare("sweep_closest", label, args, kw, record=False)
+        for args, kw in b["sweep_occluded_blocker"]:
+            compare("sweep_occluded_blocker", label, args, kw)
+        log("kernels_batch", batch=label, chunks=b["chunks"],
             compared=len(b["tile_cull"]))
     for name, s in stats.items():
         if not s["calls"]:
             raise PhaseError(f"{name}: never compared")
+        mean = {k: sum(s[k]) / s["calls"]
+                for k in ("ms", "plain_ms", "ops_ms", "bytes_ms",
+                          "bound_ms")}
+        s.update(mean, bound_by=("operations" if mean["ops_ms"]
+                                 >= mean["bytes_ms"] else "bytes"))
         log("kernel_vs_plain", kernel=name, chunks=s["calls"],
-            ms=sum(s["ms"]) / s["calls"],
-            plain_ms=sum(s["plain_ms"]) / s["calls"],
-            max_abs_err=s["max_abs_err"])
+            max_abs_err=s["max_abs_err"], bound_by=s["bound_by"], **mean)
     return stats
 
 
-def phase_goldens():
+def envmap_scene(tmp_dir):
+    """benchmarks/run_configs.py:70-95 on the port: bunny_like(5), a 256^2
+    checker on the body, and a 512x1024 sky with a sun disc written and
+    re-read through the port's RGBE codec (the golden saw the quantised
+    map)."""
+    import numpy as np
+
+    from pathtracer_torch.scene import procedural
+    from pathtracer_torch.scene.build import MaterialDesc
+    from pathtracer_torch.scene.hdr import read_hdr, write_hdr
+
+    b = procedural.bunny_like(subdivisions=5)
+    tex = np.indices((256, 256)).sum(axis=0) % 2
+    tex = (np.stack([tex] * 3, -1) * 0.6 + 0.2).astype(np.float32)
+    tid = b.add_texture(tex)
+    b.materials[1] = MaterialDesc(albedo=(1, 1, 1), albedo_tex=tid,
+                                  roughness=0.4)
+    eh, ew = 512, 1024
+    theta = np.linspace(0, np.pi, eh)[:, None]
+    env = np.zeros((eh, ew, 3), np.float32)
+    horizon = np.clip(np.sin(theta), 0, 1) ** 3
+    env[..., 0] = 0.25 + 0.5 * horizon
+    env[..., 1] = 0.35 + 0.45 * horizon
+    env[..., 2] = 0.6 + 0.25 * horizon
+    env[60:76, 220:236] = 800.0  # sun disc
+    path = os.path.join(tmp_dir, "bench_env.hdr")
+    write_hdr(path, env)
+    b.set_envmap(read_hdr(path))
+    return b.finalize(device="cpu")
+
+
+def config4_cfg(**kw):
+    from pathtracer_torch.config import RenderConfig
+
+    return RenderConfig(max_depth=6, sky="envmap",
+                        env_importance_sampling=True, emission_gain=1.0,
+                        spp_batch=True, **kw)
+
+
+def phase_goldens(tmp_dir):
     import numpy as np
 
     from pathtracer_torch.accel.cluster import build_scene_clusters
     from pathtracer_torch.config import RenderConfig
-    from pathtracer_torch.integrator.camera import Camera
     from pathtracer_torch.render import render_frame
     from pathtracer_torch.scene import procedural
 
-    def cam(pos, tgt):
-        c = Camera(position=pos)
-        c.look_at(tgt)
-        return c
-
-    box = ((0.5, 0.5, 2.2), (0.5, 0.5, 0.0))
-    # benchmarks/run_configs.py configs 1, 3, 5 at the 64x64 / 4 spp probe
+    probe = dict(width=64, height=64, spp=4)
+    # benchmarks/run_configs.py configs 1-5 at the 64x64 / 4 spp probe
     configs = [
-        (1, procedural.cornell_box, dict(spp_batch=False), box),
-        (3, lambda: procedural.cornell_box(materials_suite=True),
-         dict(spp_batch=True), box),
-        (5, procedural.sponza_like, dict(spp_batch=True),
-         ((3.0, 4.5, 6.0), (14.0, 3.0, 6.0))),
+        (1, lambda: procedural.cornell_box().finalize(device="cpu"),
+         RenderConfig(max_depth=6, spp_batch=False, **probe), BOX_CAM),
+        (2, lambda: procedural.bunny_like().finalize(device="cpu"),
+         RenderConfig(max_depth=6, spp_batch=True, **probe), BUNNY_CAM),
+        (3, lambda: procedural.cornell_box(
+            materials_suite=True).finalize(device="cpu"),
+         RenderConfig(max_depth=6, spp_batch=True, **probe), BOX_CAM),
+        (4, lambda: envmap_scene(tmp_dir), config4_cfg(**probe), ENV_CAM),
+        (5, lambda: procedural.sponza_like().finalize(device="cpu"),
+         RenderConfig(max_depth=6, spp_batch=True, **probe), SPONZA_CAM),
     ]
     failed = []
-    for idx, scene_fn, kw, c in configs:
+    for idx, scene_fn, cfg, cam in configs:
         t0 = time.perf_counter()
-        scene = build_scene_clusters(scene_fn().finalize()).to(DEVICE)
-        cfg = RenderConfig(width=64, height=64, spp=4, max_depth=6, **kw)
-        img = render_frame(scene, cfg, cam(*c).state(DEVICE), 0)
+        scene = build_scene_clusters(scene_fn()).to(DEVICE)
+        img = render_frame(scene, cfg, camera(cam).state(device=DEVICE), 0)
         img = img.cpu().numpy()
         g = np.load(os.path.join(GOLDEN_DIR, f"config_{idx}_64.npz"))["img"]
         res = robust_gate(img, g)
@@ -302,13 +493,15 @@ def phase_goldens():
         raise PhaseError(f"golden gate failed for configs {failed}")
 
 
-def phase_headline(scene, cfg, cam, frames):
+def drive(label, scene, cfg, cam, frames, need):
+    """One warm-up frame and `frames` timed frames through Renderer, with
+    the launch counts set to 0 just before and read just after."""
     import torch
 
     from pathtracer_torch import kernels
-    from pathtracer_torch.kernels import packet
     from pathtracer_torch.render import Renderer
 
+    torch.cuda.synchronize()
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     r = Renderer(scene, cfg, cam, device=DEVICE)
@@ -324,36 +517,70 @@ def phase_headline(scene, cfg, cam, frames):
         times.append(time.perf_counter() - t0)
         rays.append(int(r.last_rays))
     counts = dict(kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
     img = r.film.accum
-    finite = bool(torch.isfinite(img).all())
-    mean = float(img.mean())
-    # cost of one chunk_live host sync (11 traversal calls per frame)
-    o = torch.rand((cfg.width * cfg.height * cfg.spp, 3), device=DEVICE)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        packet.chunk_live(o, packet.CHUNK_TILES * packet.TILE_RAYS)
-    sync_ms = (time.perf_counter() - t0) / 20 * 1e3
-    ms = sum(times) / len(times) * 1e3
-    log("headline", width=cfg.width, height=cfg.height, spp=cfg.spp,
-        max_depth=cfg.max_depth, tris=scene.n_tris, warmup_s=warm_s,
-        frame_ms=[t * 1e3 for t in times], ms_per_frame=ms,
-        rays_per_frame=rays, mrays_per_s=sum(rays) / sum(times) / 1e6,
-        peak_mem_bytes=peak, launches=counts, image_mean=mean,
-        image_finite=finite, chunk_live_ms=sync_ms)
-    if not finite or not mean > 0.0:
-        raise PhaseError(f"headline image bad: finite={finite} mean={mean}")
-    missing = [k for k, v in counts.items() if v == 0]
+    res = dict(width=cfg.width, height=cfg.height, spp=cfg.spp,
+               max_depth=cfg.max_depth, tris=scene.n_tris,
+               priming=cfg.primary_priming, warmup_s=warm_s,
+               frame_ms=[t * 1e3 for t in times],
+               ms_per_frame=sum(times) / len(times) * 1e3,
+               rays_per_frame=rays,
+               mrays_per_s=sum(rays) / sum(times) / 1e6,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               launches=counts, image_mean=float(img.mean()),
+               image_finite=bool(torch.isfinite(img).all()))
+    if r._prime is not None:
+        res["hinted_pixels"] = [int((r._prime[:, i] >= 0).sum())
+                                for i in range(3)]
+    log(label, **res)
+    if not res["image_finite"] or not res["image_mean"] > 0.0:
+        raise PhaseError(f"{label}: image bad: finite={res['image_finite']}"
+                         f" mean={res['image_mean']}")
+    missing = [k for k in need if counts[k] == 0]
     if missing:
-        raise PhaseError(f"main path launched no {missing}")
-    return counts, ms
+        raise PhaseError(f"{label}: the path launched no {missing}")
+    return res, img.cpu().numpy()
+
+
+def phase_headline(scene, cfg, cam, frames):
+    base, img_b = drive("headline", scene, cfg, cam, frames,
+                        UNPRIMED_KERNELS)
+    primed, img_p = drive("headline_primed", scene,
+                          dataclasses.replace(cfg, primary_priming=True),
+                          cam, frames, tuple(KERNELS))
+    gate = robust_gate(img_p, img_b)
+    log("priming_ab", ms_off=base["ms_per_frame"],
+        ms_on=primed["ms_per_frame"], rays_off=base["rays_per_frame"],
+        rays_on=primed["rays_per_frame"], **gate)
+    if not gate["ok"]:
+        raise PhaseError(f"primed headline differs from unprimed: {gate}")
+    if primed["rays_per_frame"] != base["rays_per_frame"]:
+        raise PhaseError("primed headline ray counts differ: "
+                         f"{primed['rays_per_frame']} vs "
+                         f"{base['rays_per_frame']}")
+    return base, primed
+
+
+def phase_config4(tmp_dir, frames):
+    from pathtracer_torch.accel.cluster import build_scene_clusters
+
+    t0 = time.perf_counter()
+    scene = build_scene_clusters(envmap_scene(tmp_dir)).to(DEVICE)
+    log("config4_scene", tris=scene.n_tris, seconds=time.perf_counter() - t0)
+    cfg = config4_cfg(width=1024, height=1024, spp=1)
+    cam = camera(ENV_CAM)
+    base, _ = drive("config4", scene, cfg, cam, frames, UNPRIMED_KERNELS)
+    primed, _ = drive("config4_primed", scene,
+                      dataclasses.replace(cfg, primary_priming=True), cam,
+                      frames, tuple(KERNELS))
+    if not primed["hinted_pixels"][2] > 0:
+        raise PhaseError("config 4 primed: no env-NEE blocker hint")
+    return primed
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--frames", type=int, default=2,
-                    help="timed headline frames after one warm-up frame")
+                    help="timed frames after one warm-up frame, per run")
     args = ap.parse_args(argv)
 
     try:
@@ -377,22 +604,27 @@ def main(argv=None):
 
     t_start = time.perf_counter()
     try:
-        phase_device()
-        scene, cfg, cam = headline_setup()
-        stats = phase_kernels(scene, cfg, cam)
-        phase_goldens()
-        counts, _ = phase_headline(scene, cfg, cam, args.frames)
+        with tempfile.TemporaryDirectory(dir=ROOT) as tmp_dir:
+            phase_device()
+            scene, cfg, cam = headline_setup()
+            stats = phase_kernels(scene, cfg, cam)
+            phase_goldens(tmp_dir)
+            base, primed = phase_headline(scene, cfg, cam, args.frames)
+            del scene
+            phase_config4(tmp_dir, args.frames)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     kern = []
     for name, (src, replaces) in KERNELS.items():
         s = stats[name]
+        launches = (primed if name == "sweep_occluded_blocker"
+                    else base)["launches"][name]
         kern.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": counts[name],
-                     "max_abs_err": s["max_abs_err"],
-                     "ms": sum(s["ms"]) / s["calls"],
-                     "plain_ms": sum(s["plain_ms"]) / s["calls"]})
+                     "replaces": replaces, "launches": launches,
+                     "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                     "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                     "bound_by": s["bound_by"], "library_ms": None})
     log("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kern}), flush=True)
     print(json.dumps({"ok": True, "device": {

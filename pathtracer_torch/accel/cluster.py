@@ -8,9 +8,10 @@ builds one and uses it for closest and occlusion calls alike.
 
 Layouts are the JAX package's:
   aabb_lo/hi f32[C, 3]  clipped-union leaf boxes, pads at _PAD_POS
-  blocks     f32[C, K, 12]  v0, e1, e2, tri_id+1, pad(2)  (lockstep sweep)
   blocks_t   f32[C, 16, K]  Baldwin-Weber rows n(3), d, r1(3), c1,
-                            r2(3), c2, tri_id+1, pad(3)   (sweep kernels)
+                            r2(3), c2, tri_id+1, pad(3)   (the sweeps)
+The JAX accel's Moller-Trumbore `blocks` [C, K, 12] feed only its
+lockstep sweep, which the port does not have.
 """
 
 from __future__ import annotations
@@ -30,11 +31,10 @@ DUP_BUDGET = 1.5     # SBVH reference budget, x triangle count
 
 @dataclasses.dataclass(frozen=True)
 class ClusterAccel:
-    """Flat two-level accel: C cluster AABBs + pre-baked triangle blocks."""
+    """Flat two-level accel: C cluster AABBs + pre-baked triangle rows."""
 
     aabb_lo: torch.Tensor   # f32 [C, 3]
     aabb_hi: torch.Tensor   # f32 [C, 3]
-    blocks: torch.Tensor    # f32 [C, K, 12]
     blocks_t: torch.Tensor  # f32 [C, 16, K]
 
     @property
@@ -43,18 +43,18 @@ class ClusterAccel:
 
     @property
     def tris_per_cluster(self) -> int:
-        return self.blocks.shape[1]
+        return self.blocks_t.shape[2]
 
     def to(self, device) -> "ClusterAccel":
         return ClusterAccel(*(getattr(self, f.name).to(device)
                               for f in dataclasses.fields(self)))
 
 
-def accel_from_numpy(aabb_lo, aabb_hi, blocks, blocks_t,
-                     device="cpu") -> ClusterAccel:
+def accel_from_numpy(aabb_lo, aabb_hi, blocks_t, *,
+                     device) -> ClusterAccel:
     """Carry a JAX ClusterAccel's arrays (as numpy) into the port."""
     t = [torch.from_numpy(np.array(a, np.float32)).to(device)
-         for a in (aabb_lo, aabb_hi, blocks, blocks_t)]
+         for a in (aabb_lo, aabb_hi, blocks_t)]
     return ClusterAccel(*t)
 
 
@@ -114,7 +114,7 @@ def _cross_fma(a, b):
 
 
 def _finish_build(sv0, sv1, sv2, sid, k, pad, t) -> ClusterAccel:
-    """Cluster AABBs + pre-baked blocks over the ordered triangle arrays."""
+    """Cluster AABBs + Baldwin-Weber rows over the ordered triangle arrays."""
     c = sv0.shape[0] // k
     lo = torch.minimum(torch.minimum(sv0, sv1), sv2).reshape(c, k, 3)
     hi = torch.maximum(torch.maximum(sv0, sv1), sv2).reshape(c, k, 3)
@@ -134,8 +134,6 @@ def _finish_build(sv0, sv1, sv2, sid, k, pad, t) -> ClusterAccel:
     e1 = sv1 - sv0
     e2 = sv2 - sv0
     zeros = torch.zeros((sv0.shape[0], 1), dtype=torch.float32)
-    blocks = torch.cat([sv0, e1, e2, id_val, zeros, zeros],
-                       dim=1).reshape(c, k, 12)
 
     def dot3(a, b):
         return ((a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1])
@@ -155,8 +153,7 @@ def _finish_build(sv0, sv1, sv2, sid, k, pad, t) -> ClusterAccel:
     rows_bw = torch.cat([nrm, dpl, r1, c1, r2, c2, id_val, zeros, zeros,
                          zeros], dim=1)                     # [T, 16]
     bt = rows_bw.reshape(c, k, 16).transpose(1, 2).contiguous()
-    return ClusterAccel(aabb_lo=aabb_lo, aabb_hi=aabb_hi,
-                        blocks=blocks.contiguous(), blocks_t=bt)
+    return ClusterAccel(aabb_lo=aabb_lo, aabb_hi=aabb_hi, blocks_t=bt)
 
 
 def build_scene_clusters(scene):

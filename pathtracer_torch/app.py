@@ -1,13 +1,17 @@
-"""Minimal command-line driver (counterpart of pathtracer/app.py).
+"""Command-line driver (counterpart of pathtracer/app.py).
 
-    python -m pathtracer_torch.app --scene cornell --frames 4 --out c.png
     python -m pathtracer_torch.app --scene sponza --textured --width 1920 \
-        --height 1080 --spp 4 --device cuda --out sponza.png
+        --height 1080 --spp 4 --out sponza.png
+    python -m pathtracer_torch.app --scene bunny --sky envmap \
+        --envmap sky.hdr --env-nee --priming --spp 1 --out bunny.png
+    python -m pathtracer_torch.app --scene cornell --width 32 --height 32 \
+        --device cpu --out c.png
 
-Renders progressively and writes one JSON line per frame (ms, Mrays/s,
-mean radiance) and a PNG. The JAX CLI's other flags (env maps, priming,
-denoiser, meshes, viewer, ...) are not ported yet: see ROADMAP.md
-Queue 1.
+Renders progressively on --device (default cuda; it is an error when no
+CUDA device is present - the CPU runs only on --device cpu) and writes
+one JSON line per frame (ms, Mrays/s, mean radiance) and a PNG. The JAX
+CLI's other flags (denoiser, meshes, viewer, ...) are not ported yet:
+see ROADMAP.md Queue 1.
 """
 
 from __future__ import annotations
@@ -23,10 +27,12 @@ from pathtracer_torch.config import RenderConfig
 from pathtracer_torch.integrator.camera import Camera
 from pathtracer_torch.render import Renderer
 from pathtracer_torch.scene import procedural
+from pathtracer_torch.scene.hdr import read_hdr
 
 _CAMERAS = {
     "cornell": ((0.5, 0.5, 2.2), (0.5, 0.5, 0.0)),
     "materials": ((0.5, 0.5, 2.2), (0.5, 0.5, 0.0)),
+    "bunny": ((0.0, 2.0, 5.0), (0.0, 1.0, 0.0)),
     "sponza": ((3.0, 4.5, 6.0), (14.0, 3.0, 6.0)),
 }
 
@@ -36,6 +42,8 @@ def build_scene(name: str, tris: int, textured: bool):
         return procedural.cornell_box()
     if name == "materials":
         return procedural.cornell_box(materials_suite=True)
+    if name == "bunny":
+        return procedural.bunny_like()
     return procedural.sponza_like(target_tris=tris, textured=textured)
 
 
@@ -50,7 +58,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--scene", default="cornell",
-                    choices=["cornell", "materials", "sponza"])
+                    choices=["cornell", "materials", "bunny", "sponza"])
     ap.add_argument("--tris", type=int, default=262_000,
                     help="sponza target triangle count")
     ap.add_argument("--textured", action="store_true",
@@ -60,19 +68,54 @@ def main(argv=None):
     ap.add_argument("--spp", type=int, default=4)
     ap.add_argument("--max-depth", type=int, default=6)
     ap.add_argument("--frames", type=int, default=8)
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available()
-                    else "cpu")
+    ap.add_argument("--sky", default="gradient",
+                    choices=["gradient", "envmap"])
+    ap.add_argument("--envmap", default=None, metavar="PATH",
+                    help="equirect Radiance .hdr environment - required "
+                         "with --sky envmap")
+    ap.add_argument("--env-nee", action="store_true",
+                    help="importance-sample the env map with MIS (one "
+                         "extra shadow ray per bounce)")
+    ap.add_argument("--env-cell", type=int, default=8, metavar="N",
+                    help="pixels in an NxN screen cell share one env "
+                         "direction per (sample, depth); 1 = per pixel")
+    ap.add_argument("--env-rr", type=float, default=0.0, metavar="M",
+                    help="Russian roulette on env shadow rays with "
+                         "q = clip(M*lum(throughput), 1/8, 1); 0 = off")
+    ap.add_argument("--priming", action="store_true",
+                    help="verified priming: per-pixel primary-hit and "
+                         "bounce-0 shadow-blocker hints chained across "
+                         "samples and frames (exact)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
     ap.add_argument("--out", default="out.png")
     args, unknown = ap.parse_known_args(argv)
     if unknown:
         ap.error(f"not ported to pathtracer_torch yet: {' '.join(unknown)} "
                  "(ROADMAP.md Queue 1, item 8 lists the full CLI)")
+    if torch.device(args.device).type == "cuda" \
+            and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available "
+                         "(torch.cuda.is_available() is False); pass "
+                         "--device cpu to render on the CPU")
+    if args.sky == "envmap" and not args.envmap:
+        raise SystemExit("--sky envmap requires --envmap PATH "
+                         "(a zero envmap would render black)")
 
     builder = build_scene(args.scene, args.tris, args.textured)
+    if args.envmap:
+        if not args.envmap.lower().endswith(".hdr"):
+            raise SystemExit("--envmap: only Radiance .hdr files are "
+                             "ported (ROADMAP.md Queue 1, item 9)")
+        builder.set_envmap(read_hdr(args.envmap))
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
-                       max_depth=args.max_depth, spp_batch=args.spp <= 4)
-    r = Renderer(builder.finalize(), cfg, default_camera(args.scene),
-                 device=args.device)
+                       max_depth=args.max_depth, spp_batch=args.spp <= 4,
+                       sky=args.sky, env_importance_sampling=args.env_nee,
+                       env_nee_cell=args.env_cell,
+                       env_shadow_rr=args.env_rr,
+                       primary_priming=args.priming)
+    r = Renderer(builder.finalize(device="cpu"), cfg,
+                 default_camera(args.scene), device=args.device)
     for _ in range(args.frames):
         t0 = time.perf_counter()
         film = r.step()

@@ -9,7 +9,7 @@ traversal_backend:
   "pallas" - the hand-written traversal kernels (kernels/cull.py,
              kernels/sweep.py): CUDA kernels for CUDA tensors, their
              plain PyTorch versions for CPU tensors.
-  "xla"    - the plain lockstep sweep (kernels/packet.py), any device.
+  "xla"    - the same kernels' plain PyTorch versions, on any device.
 """
 
 from __future__ import annotations
@@ -114,19 +114,14 @@ class RenderConfig:
                              "(the cross-frame pool IS the batched "
                              "wavefront)")
         # what the port does not implement yet
-        if self.sky in ("hosek", "envmap"):
-            raise _unported(f"sky={self.sky!r}",
-                            "item 1 (env map) / 2 (Hosek-Wilkie)")
-        if self.env_importance_sampling:
-            raise _unported("env_importance_sampling", "item 1 (env map)")
+        if self.sky == "hosek":
+            raise _unported("sky='hosek'", "item 2 (Hosek-Wilkie)")
         if self.sampler == "sobol":
             raise _unported("sampler='sobol'", "item 2 (estimators)")
         if self.reference_quirks:
             raise _unported("reference_quirks", "item 2 (estimators)")
         if self.clamp_radiance > 0.0:
             raise _unported("clamp_radiance > 0", "item 2 (estimators)")
-        if self.primary_priming:
-            raise _unported("primary_priming", "item 3 (priming)")
         if self.denoise or self.capture_gbuffer:
             raise _unported("denoise / capture_gbuffer",
                             "item 4 (G-buffer, denoiser)")

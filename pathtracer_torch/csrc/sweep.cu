@@ -1,8 +1,10 @@
-// K2 closest sweep and K3 occlusion sweep over the per-tile cluster schedule.
+// K2 closest sweep, K3 occlusion sweep and K3b occlusion sweep with
+// blocker hints, over the per-tile cluster schedule.
 //
 // Replaces pathtracer/kernels/pallas_sweep.py:_sweep_kernel (through
-// sweep_closest) and :_occl_kernel (through sweep_occluded, without
-// want_blocker), with the dense Baldwin-Weber lane test of _bw_lane.
+// sweep_closest) and :_occl_kernel (through sweep_occluded, K3 without and
+// K3b with want_blocker), with the dense Baldwin-Weber lane test of
+// _bw_lane.
 //
 // Layout: one block per tile, one thread per ray (R = 64 threads). The
 // block walks its tile's near-to-far schedule st/si [tiles, Cs] one
@@ -17,6 +19,13 @@
 // st[j] is not below the block maximum of best_t (a block reduction).
 // K3 keeps a per-thread blocked flag (front-facing hit, 0 < t < t_max) and
 // stops when __syncthreads_count(!blocked) == 0 or st[j] == +inf.
+// K3b is the same loop (one template) that also records a blocker id: in
+// the first cluster of the schedule where a ray becomes blocked it scans
+// every lane instead of stopping at the first hit, keeps the blocking lane
+// with the smallest t (the lowest lane on a tie, the argmin of
+// pallas_sweep.py:294-307) and writes that lane's triangle id; -1 where
+// the ray stays open. Only the newly blocked cluster pays the full scan,
+// so K3b costs about what K3 costs.
 //
 // Built with -fmad=false: every expression below is a rounded product and
 // a rounded sum in the order the plain PyTorch versions use, so the kernel
@@ -129,12 +138,14 @@ __global__ void sweep_closest_kernel(const float* __restrict__ st,
   out_v[tile * nr + r] = best_v;
 }
 
+template <bool kBlocker>
 __global__ void sweep_occluded_kernel(const float* __restrict__ st,
                                       const int* __restrict__ si, int cs,
                                       const float* __restrict__ rays,
                                       const float* __restrict__ t_max,
                                       const float* __restrict__ blocks, int k,
-                                      int* __restrict__ out_blocked) {
+                                      int* __restrict__ out_blocked,
+                                      int* __restrict__ out_btri) {
   extern __shared__ float sh[];  // blk[16 * k]
   const size_t tile = blockIdx.x;
   const int r = threadIdx.x, nr = blockDim.x;
@@ -146,6 +157,7 @@ __global__ void sweep_occluded_kernel(const float* __restrict__ st,
   const float* st_t = st + tile * cs;
   const int* si_t = si + tile * cs;
   int blocked = 0;
+  int btri = -1;
   for (int j = 0; j < cs; ++j) {
     // barrier: every thread finished the previous cluster before the load
     if (__syncthreads_count(!blocked) == 0) break;
@@ -153,17 +165,30 @@ __global__ void sweep_occluded_kernel(const float* __restrict__ st,
     load_cluster(sh, blocks, si_t[j], k);
     __syncthreads();
     if (blocked) continue;
+    int best_l = -1;
+    float best_t = INFINITY;
     for (int l = 0; l < k; ++l) {
       float t, u, v, denom;
       if (bw_lane(sh, k, l, ox, oy, oz, dx, dy, dz, 0.0f, INFINITY, t, u, v,
                   denom) &&
           denom < 0.0f && t < tm) {
-        blocked = 1;
-        break;
+        if (!kBlocker) {
+          blocked = 1;
+          break;
+        }
+        if (t < best_t) {  // strict: the lowest lane wins a tie
+          best_t = t;
+          best_l = l;
+        }
       }
+    }
+    if (kBlocker && best_l >= 0) {
+      blocked = 1;
+      btri = (int)rintf(sh[12 * k + best_l]) - 1;
     }
   }
   out_blocked[tile * nr + r] = blocked;
+  if (kBlocker) out_btri[tile * nr + r] = btri;
 }
 
 }  // namespace
@@ -186,7 +211,21 @@ extern "C" int pt_sweep_occluded(const float* st, const int* si, int tiles,
                                  int k, int tile_rays, int* out_blocked,
                                  void* stream) {
   const size_t shmem = sizeof(float) * 16 * k;
-  sweep_occluded_kernel<<<tiles, tile_rays, shmem, (cudaStream_t)stream>>>(
-      st, si, cs, rays, t_max, blocks, k, out_blocked);
+  sweep_occluded_kernel<false>
+      <<<tiles, tile_rays, shmem, (cudaStream_t)stream>>>(
+          st, si, cs, rays, t_max, blocks, k, out_blocked, nullptr);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pt_sweep_occluded_blocker(const float* st, const int* si,
+                                         int tiles, int cs, const float* rays,
+                                         const float* t_max,
+                                         const float* blocks, int k,
+                                         int tile_rays, int* out_blocked,
+                                         int* out_btri, void* stream) {
+  const size_t shmem = sizeof(float) * 16 * k;
+  sweep_occluded_kernel<true>
+      <<<tiles, tile_rays, shmem, (cudaStream_t)stream>>>(
+          st, si, cs, rays, t_max, blocks, k, out_blocked, out_btri);
   return (int)cudaGetLastError();
 }

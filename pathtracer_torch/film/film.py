@@ -24,7 +24,7 @@ class Film:
     frame: int
 
 
-def new_film(width: int, height: int, device="cpu") -> Film:
+def new_film(width: int, height: int, *, device) -> Film:
     return Film(accum=torch.zeros((height, width, 3), dtype=torch.float32,
                                   device=device), frame=0)
 

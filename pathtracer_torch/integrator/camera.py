@@ -83,7 +83,7 @@ class Camera:
         self._update_basis()
         self.moved = True
 
-    def state(self, device="cpu") -> CameraState:
+    def state(self, *, device) -> CameraState:
         t = lambda a: torch.tensor(np.asarray(a, np.float32),  # noqa: E731
                                    device=device)
         return CameraState(position=t(self.position), front=t(self.front),

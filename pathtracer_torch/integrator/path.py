@@ -1,11 +1,17 @@
 """Wavefront path integrator (counterpart of pathtracer/integrator/path.py).
 
-The main path of the JAX `trace_paths`: a flat SoA ray batch [N] runs
-through the bounce loop with active masks. Per bounce (raygen.rgen:128-292):
-trace -> emission (MIS-weighted against light sampling) -> alpha
-passthrough -> dielectric branch -> NEE with MIS -> BSDF sample ->
+The JAX `trace_paths`: a flat SoA ray batch [N] runs through the bounce
+loop with active masks. Per bounce (raygen.rgen:128-292): trace ->
+emission (MIS-weighted against light sampling) and sky on misses (MIS-
+weighted against env NEE) -> alpha passthrough -> dielectric branch ->
+NEE to emissive triangles and to the env map, with MIS -> BSDF sample ->
 Russian roulette. Bounce 0 is peeled so primary rays keep their
 swizzled order (no coherence sort); the loop is a Python `for`.
+
+Verified priming (cfg.primary_priming): per-pixel hints from the previous
+sample - the primary hit triangle and the bounce-0 NEE and env-NEE shadow
+blockers - are re-tested exactly against this sample's rays and never
+trusted, so the estimate and the ray count do not change.
 
 The estimator is the JAX package's default one (reference_quirks=False).
 Every random number is keyed on (pixel, sample, depth, salt) by the
@@ -22,7 +28,9 @@ import torch
 from pathtracer_torch.bsdf import microfacet as mf
 from pathtracer_torch.config import RenderConfig
 from pathtracer_torch.integrator import sky as sky_mod
+from pathtracer_torch.kernels import intersect as isect
 from pathtracer_torch.sampling import rng
+from pathtracer_torch.scene import envlight
 from pathtracer_torch.scene.types import MAT_DIELECTRIC, Scene
 from pathtracer_torch.utils import vmath
 
@@ -226,9 +234,40 @@ def _power_heuristic(pdf_a, pdf_b):
     return a2 / torch.clamp(a2 + pdf_b * pdf_b, min=1e-20)
 
 
+def _verify_blocker(prime_blk, verify_rows, s_orig, s_dir, s_tmax, valid,
+                    occluded_fn, primary):
+    """Shadow query through a blocker hint (path.py:526-552).
+
+    The hinted triangle is re-tested against THIS segment under the
+    traversal's policy (front-facing, 0 < t < s_tmax); a verified block
+    is conclusive and the lane parks out of the traversal. Failed hints
+    are kept (a new light sample may re-verify them); the traversal's own
+    blocker replaces a hint where it finds one. Returns (blocked,
+    new_blk).
+    """
+    brow = verify_rows[prime_blk.clamp(min=0).long()]
+    bv0, bv1, bv2 = brow[:, 0:3], brow[:, 3:6], brow[:, 6:9]
+    _, _, _, okb = isect.ray_triangle(s_orig, s_dir, bv0, bv1, bv2, 0.0,
+                                      s_tmax)
+    frontb = vmath.dot(s_dir, vmath.cross(bv1 - bv0, bv2 - bv0)) < 0.0
+    ver = okb & frontb & (prime_blk >= 0) & valid
+    need = valid & ~ver
+    o_t = torch.where(need[..., None], s_orig, 1e30)     # park resolved
+    d_t = torch.where(need[..., None], s_dir, 1.0)
+    blocked_tr, btri = occluded_fn(o_t, d_t, s_tmax, primary=primary,
+                                   want_blocker=True)
+    new_blk = torch.where(need & blocked_tr, btri, prime_blk)
+    return ver | blocked_tr, new_blk
+
+
 def _nee(scene: Scene, cfg: RenderConfig, surf: Surface, view, pixel,
-         sample, depth, occluded_fn, shade, primary=False):
-    """Next-event estimation to emissive triangles (raygen.rgen:168-261)."""
+         sample, depth, occluded_fn, shade, primary=False, prime_blk=None,
+         verify_rows=None):
+    """Next-event estimation to emissive triangles (raygen.rgen:168-261).
+
+    Returns contrib/T [N,3]; with prime_blk (i32[N] blocker hints, -1 =
+    none) and verify_rows, (contrib, new_blk) with this sample's hints.
+    """
     u_sel = rng.uniform1(pixel, sample, depth, rng.SALT_LIGHT_SELECT,
                          cfg.seed, cfg.sampler)
     n_l = scene.light_cdf.shape[0]
@@ -265,9 +304,15 @@ def _nee(scene: Scene, cfg: RenderConfig, surf: Surface, view, pixel,
     s_dir = seg / seg_len[..., None]
     s_tmax = seg_len * (1.0 - 1e-3)
     valid = geo_ok & shade
-    s_orig = torch.where(valid[..., None], s_orig, 1e30)   # park dead
-    s_dir = torch.where(valid[..., None], s_dir, 1.0)
-    blocked = occluded_fn(s_orig, s_dir, s_tmax, primary=primary)
+    new_blk = None
+    if prime_blk is not None:
+        blocked, new_blk = _verify_blocker(prime_blk, verify_rows, s_orig,
+                                           s_dir, s_tmax, valid,
+                                           occluded_fn, primary)
+    else:
+        s_orig = torch.where(valid[..., None], s_orig, 1e30)   # park dead
+        s_dir = torch.where(valid[..., None], s_dir, 1.0)
+        blocked = occluded_fn(s_orig, s_dir, s_tmax, primary=primary)
 
     f = mf.eval_brdf(surf.normal, view, l_dir, surf.albedo, surf.metallic,
                      surf.roughness)
@@ -278,18 +323,148 @@ def _nee(scene: Scene, cfg: RenderConfig, surf: Surface, view, pixel,
     g = n_dot_l * nl_dot / dist2
     contrib = f * (le * cfg.emission_gain) \
         * (g / torch.clamp(p_a, min=1e-12))[..., None] * w[..., None]
-    return torch.where((geo_ok & ~blocked)[..., None], contrib, 0.0)
+    out = torch.where((geo_ok & ~blocked)[..., None], contrib, 0.0)
+    return (out, new_blk) if prime_blk is not None else out
+
+
+def _env_draw(scene: Scene, cfg: RenderConfig, pixel, sample, depth,
+              sample_window: int):
+    """Env-NEE direction, pdf and radiance per lane (path.py:349-401).
+
+    With cfg.env_nee_cell = c > 1 the draw is keyed on the pixel's c x c
+    screen cell instead of the pixel, so a cell's lanes share one
+    direction per (sample, depth): the sampling runs once per (cell,
+    sample) on a table of n_cells x S rows (S = sample_window, the
+    wavefront's sample-id window starting at s0 = min(sample)) and
+    reaches the lanes through one row gather - bit-identical to per-lane
+    draws keyed on the cell. s0 stays on the device (no host sync).
+    """
+    cell = cfg.env_nee_cell
+    if cell > 1:
+        pix = pixel.long()
+        cells_x = -(-cfg.width // cell)
+        cells_y = -(-cfg.height // cell)
+        n_cells = cells_x * cells_y
+        cell_id = (torch.div(pix, cfg.width, rounding_mode="floor") // cell
+                   * cells_x + torch.remainder(pix, cfg.width) // cell)
+        s_win = max(1, sample_window)
+        samp = sample.long()
+        s0 = samp.min()
+        dev = pix.device
+        ck = torch.arange(n_cells, device=dev).repeat_interleave(s_win)
+        sk = torch.arange(s_win, device=dev).repeat(n_cells) + s0
+        u = rng.uniform4(ck, sk, depth, rng.SALT_ENV_SELECT, cfg.seed,
+                         cfg.sampler)
+    else:
+        u = rng.uniform4(pixel, sample, depth, rng.SALT_ENV_SELECT,
+                         cfg.seed, cfg.sampler)
+    l_dir, _, _ = envlight.sample_env(
+        scene.env_marginal_cdf, scene.env_cond_cdf,
+        u[..., 0], u[..., 1], u[..., 2], u[..., 3])
+    p_env = envlight.env_pdf(scene.env_pdf, l_dir)
+    le = sky_mod.envmap_radiance(scene.envmap, l_dir)
+    if cell > 1:
+        table = torch.cat([l_dir, p_env[:, None], le], dim=1)   # [cells*S, 7]
+        slot = torch.clamp(samp - s0, max=s_win - 1)
+        rows = table[cell_id * s_win + slot]
+        l_dir, p_env, le = rows[:, 0:3], rows[:, 3], rows[:, 4:7]
+    return l_dir, p_env, le
+
+
+def _nee_env(scene: Scene, cfg: RenderConfig, surf: Surface, view, pixel,
+             sample, depth, occluded_fn, shade, throughput,
+             sample_window: int = 1, primary=False, prime_blk=None,
+             verify_rows=None):
+    """Env-map NEE with MIS (path.py:328-456): one shadow ray toward a
+    luminance-importance-sampled env direction.
+
+    Returns (contrib/T [N,3], traced bool[N]); with prime_blk,
+    (contrib, new_blk, traced). With cfg.env_shadow_rr = m > 0 the
+    query is traced with probability q = clip(m * lum(T), 1/8, 1) and
+    survivors are weighted 1/q (unbiased); `traced` marks the lanes that
+    resolved a visibility query, which is what the exact ray counter adds.
+    """
+    l_dir, p_env, le = _env_draw(scene, cfg, pixel, sample, depth,
+                                 sample_window)
+    n_dot_l = torch.clamp(vmath.dot(surf.normal, l_dir), min=0.0)
+    ok = (n_dot_l > 0.0) & (p_env > 0.0)
+
+    s_orig = surf.position + surf.normal * cfg.shadow_eps
+    valid = ok & shade
+    inv_q = 1.0
+    if cfg.env_shadow_rr > 0.0:
+        # Rec.709 luminance, the measure the env CDF importance uses
+        lum_t = (0.2126 * throughput[..., 0] + 0.7152 * throughput[..., 1]
+                 + 0.0722 * throughput[..., 2])
+        q = torch.clamp(cfg.env_shadow_rr * lum_t, 0.125, 1.0)
+        u_rr = rng.uniform1(pixel, sample, depth, rng.SALT_ENV_RR,
+                            cfg.seed, cfg.sampler)
+        valid = valid & (u_rr < q)
+        inv_q = 1.0 / q
+    traced = valid
+    s_tmax = torch.full(l_dir.shape[:-1], 1e18, dtype=torch.float32,
+                        device=l_dir.device)
+    new_blk = None
+    if prime_blk is not None:
+        blocked, new_blk = _verify_blocker(prime_blk, verify_rows, s_orig,
+                                           l_dir, s_tmax, valid,
+                                           occluded_fn, primary)
+    else:
+        s_orig = torch.where(valid[..., None], s_orig, 1e30)   # park dead
+        l_dir_eff = torch.where(valid[..., None], l_dir, 1.0)
+        blocked = occluded_fn(s_orig, l_dir_eff, s_tmax)
+
+    f = mf.eval_brdf(surf.normal, view, l_dir, surf.albedo, surf.metallic,
+                     surf.roughness)
+    pdf_b = mf.pdf_bsdf(surf.normal, view, l_dir, surf.metallic,
+                        surf.roughness)
+    w = _power_heuristic(p_env, pdf_b)
+    contrib = f * le * (n_dot_l * w * inv_q
+                        / torch.clamp(p_env, min=1e-12))[..., None]
+    # an RR-skipped lane resolved no query and contributes 0 (its
+    # expectation rides in the survivors' 1/q weight)
+    out = torch.where((traced & ~blocked)[..., None], contrib, 0.0)
+    return (out, new_blk, traced) if prime_blk is not None \
+        else (out, traced)
+
+
+def _mt_hint(verify_rows):
+    """Default primary-hint test: Moller-Trumbore on verify_rows [T, 9]."""
+    def hint_fn(tri, o, d, t_min, t_max):
+        row = verify_rows[tri.clamp(min=0).long()]
+        t, u, v, ok = isect.ray_triangle(o, d, row[:, 0:3], row[:, 3:6],
+                                         row[:, 6:9], t_min, t_max)
+        return t, u, v, ok
+    return hint_fn
 
 
 def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
                 pixel_ids, sample_ids, intersect_fn: Callable,
-                occluded_fn: Callable):
+                occluded_fn: Callable, prime=None, local_pix=None,
+                sample_window: int = 0, hint_fn: Callable = None):
     """Trace a batch of paths to completion.
 
-    Returns (radiance f32[N,3], rays_traced int64 scalar); lanes stay in
-    input order.
-    intersect_fn(o, d, t_min, t_max, primary=False) -> Hit
-    occluded_fn(o, d, t_max, primary=False) -> bool[N]
+    Returns (radiance f32[N,3], rays_traced int64 scalar, prime_out);
+    lanes stay in input order.
+    intersect_fn(o, d, t_min, t_max, primary=False) -> Hit, t_max a
+        scalar or per-ray [N]
+    occluded_fn(o, d, t_max, primary=False, want_blocker=False) -> bool[N]
+        or, with want_blocker, (bool[N], blocker i32[N])
+
+    prime: optional i32[P, 3] per-pixel hint rows (-1 = none), verified
+    and never trusted (path.py:619-627): [:, 0] the primary hit triangle,
+    re-tested by hint_fn, whose hit distance becomes the per-ray t_max of
+    the primary traversal; [:, 1] / [:, 2] the bounce-0 NEE / env-NEE
+    shadow blockers. prime_out holds this sample's hints in the same
+    layout (None without prime). With several lanes per pixel (spp-
+    batched wavefronts) one of them writes a pixel's hint; which one is
+    unspecified, and harmless because every hint is re-verified.
+    local_pix: per-lane row of `prime` (default: pixel_ids).
+    sample_window: distinct sample ids in the wavefront (sizes the
+    env-NEE table; default spp * frame_batch).
+    hint_fn(tri, o, d, t_min, t_max) -> (t, u, v, ok): the intersector's
+    own ray-triangle test (render.make_intersectors); default
+    Moller-Trumbore.
     """
     n = origins.shape[0]
     dev = origins.device
@@ -298,6 +473,21 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
     mat_rows = pack_material_rows(scene)
     pix, samp = pixel_ids, sample_ids
     use_tex_u = scene.has_textures and cfg.stochastic_texture_filtering
+    sample_window = sample_window or max(1, cfg.spp * cfg.frame_batch)
+    env_nee = (cfg.env_importance_sampling and cfg.sky == "envmap"
+               and scene.has_envmap)
+    rows_of = (pixel_ids if local_pix is None else local_pix).long()
+    prime_out = None
+    verify_rows = None
+    if prime is not None:
+        # one [T, 9] row (v0|v1|v2) per triangle: one gather per hint
+        verify_rows = torch.cat(scene.tri_vertices(
+            torch.arange(scene.n_tris, device=dev)), dim=1)
+        hint_fn = hint_fn or _mt_hint(verify_rows)
+        prime_out = torch.full_like(prime, -1)
+
+    def record(col, values):
+        prime_out[:, col].index_put_((rows_of,), values)
 
     def segment(state, depth, primary=False):
         """Trace + emission collection shared by every bounce."""
@@ -305,11 +495,42 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
         rays = rays + active.sum()
         o_eff = torch.where(active[..., None], o, 1e30)
         d_eff = torch.where(active[..., None], d, 1.0)
-        hit = intersect_fn(o_eff, d_eff, cfg.t_min, cfg.t_max,
-                           primary=primary)
+        if primary and prime is not None:
+            # verified hit prediction (path.py:716-748): the hinted
+            # triangle's hit distance bounds the traversal per ray, so
+            # K1/K2 only visit clusters in front of it. The bound is the
+            # next float above it: a triangle at exactly the same t (a
+            # coplanar neighbour hit on their shared edge) is then chosen
+            # by the traversal's own order, as without the hint. The
+            # prediction stands where the traversal finds nothing.
+            pt = prime[rows_of, 0]
+            tp, up, vp, okp = hint_fn(pt, o_eff, d_eff, cfg.t_min,
+                                      cfg.t_max)
+            okp = okp & (pt >= 0)
+            tp = torch.where(okp, tp, torch.inf)
+            bound = torch.nextafter(tp, torch.full_like(tp, torch.inf))
+            hit = intersect_fn(o_eff, d_eff, cfg.t_min,
+                               torch.clamp(bound, max=cfg.t_max),
+                               primary=primary)
+            use_p = okp & ~hit.valid
+            hit = isect.Hit(t=torch.where(use_p, tp, hit.t),
+                            tri=torch.where(use_p, pt, hit.tri),
+                            u=torch.where(use_p, up, hit.u),
+                            v=torch.where(use_p, vp, hit.v))
+            record(0, torch.where(hit.valid & active, hit.tri, -1))
+        else:
+            hit = intersect_fn(o_eff, d_eff, cfg.t_min, cfg.t_max,
+                               primary=primary)
         hit_ok = hit.valid & active
         missed = active & ~hit.valid
-        sky_rad = sky_mod.sky_radiance(cfg, d)
+        sky_rad = sky_mod.sky_radiance(cfg, d, scene.envmap,
+                                       scene.envmap_blocks)
+        if env_nee:
+            # MIS against the env NEE strategy (delta segments weight 1)
+            p_env = envlight.env_pdf(scene.env_pdf, d)
+            w_sky = torch.where(torch.isinf(prev_pdf), 1.0,
+                                _power_heuristic(prev_pdf, p_env))
+            sky_rad = sky_rad * w_sky[..., None]
         radiance = radiance + torch.where(missed[..., None],
                                           throughput * sky_rad, 0.0)
         active = hit_ok
@@ -333,6 +554,7 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
         state, surf = segment(state, depth, primary)
         o, d, throughput, radiance, active, prev_pdf, rays = state
         view = -d
+        primed = primary and prime is not None
 
         # alpha stochastic transparency (raygen.rgen:143-146)
         u_alpha = rng.uniform1(pix, samp, depth, rng.SALT_ALPHA, cfg.seed,
@@ -358,11 +580,32 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
         # NEE (raygen.rgen:168-261)
         shade = active & ~passthrough & ~is_dielectric
         if scene.has_lights:
-            nee = _nee(scene, cfg, surf, view, pix, samp, depth,
-                       occluded_fn, shade, primary)
+            if primed:
+                nee, new_blk = _nee(scene, cfg, surf, view, pix, samp, depth,
+                                    occluded_fn, shade, primary,
+                                    prime_blk=prime[rows_of, 1],
+                                    verify_rows=verify_rows)
+                record(1, new_blk)
+            else:
+                nee = _nee(scene, cfg, surf, view, pix, samp, depth,
+                           occluded_fn, shade, primary)
             radiance = radiance + torch.where(shade[..., None],
                                               throughput * nee, 0.0)
             rays = rays + shade.sum()
+        if env_nee:
+            if primed:
+                env_c, new_blk, traced = _nee_env(
+                    scene, cfg, surf, view, pix, samp, depth, occluded_fn,
+                    shade, throughput, sample_window, primary,
+                    prime_blk=prime[rows_of, 2], verify_rows=verify_rows)
+                record(2, new_blk)
+            else:
+                env_c, traced = _nee_env(
+                    scene, cfg, surf, view, pix, samp, depth, occluded_fn,
+                    shade, throughput, sample_window, primary)
+            radiance = radiance + torch.where(shade[..., None],
+                                              throughput * env_c, 0.0)
+            rays = rays + traced.sum()   # only queries actually resolved
 
         # BSDF sampling (raygen.rgen:263-283)
         u_lobe = rng.uniform1(pix, samp, depth, rng.SALT_BSDF_LOBE,
@@ -420,4 +663,4 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
             state = bounce(depth, state)
     state, _ = segment(state, cfg.max_depth - 1,
                        primary=(cfg.max_depth == 1))
-    return state[3], state[6]
+    return state[3], state[6], prime_out

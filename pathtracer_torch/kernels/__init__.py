@@ -1,12 +1,14 @@
 """Traversal kernels and their host side.
 
-LAUNCHES counts kernel launches per wrapper (cull.tile_cull,
-sweep.sweep_closest, sweep.sweep_occluded): each wrapper adds one where
+LAUNCHES counts kernel launches per kernel (cull.tile_cull,
+sweep.sweep_closest, sweep.sweep_occluded, and sweep.sweep_occluded with
+want_blocker as "sweep_occluded_blocker"): each wrapper adds one where
 it launches its CUDA kernel and nowhere else, so a run can show that the
 main path went through the kernels.
 """
 
-LAUNCHES = {"tile_cull": 0, "sweep_closest": 0, "sweep_occluded": 0}
+LAUNCHES = {"tile_cull": 0, "sweep_closest": 0, "sweep_occluded": 0,
+            "sweep_occluded_blocker": 0}
 
 
 def reset_launch_counts():

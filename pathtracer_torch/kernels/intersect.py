@@ -88,13 +88,19 @@ def intersect_brute(o, d, tri_v0, tri_v1, tri_v2, t_min, t_max,
 
 
 def occluded_brute(o, d, t_max, tri_v0, tri_v1, tri_v2,
-                   tri_chunk: int = 256):
-    """Any front-facing hit with 0 < t < t_max per ray -> bool[N]."""
+                   tri_chunk: int = 256, want_blocker: bool = False):
+    """Any front-facing hit with 0 < t < t_max per ray -> bool[N].
+
+    want_blocker: also return i32[N], the lowest index of a blocking
+    triangle (-1 where open) - the shadow-priming hint. On scenes of at
+    most tri_chunk triangles this is the JAX package's choice exactly.
+    """
     n = o.shape[0]
     t_max = torch.as_tensor(t_max, dtype=torch.float32,
                             device=o.device).expand(n)
     tv0, tv1, tv2 = _pad_tris(tri_v0, tri_v1, tri_v2, tri_chunk)
     blocked = torch.zeros(n, dtype=torch.bool, device=o.device)
+    btri = torch.full((n,), -1, dtype=torch.int32, device=o.device)
     for c0 in range(0, tv0.shape[0], tri_chunk):
         v0c = tv0[c0:c0 + tri_chunk]
         v1c = tv1[c0:c0 + tri_chunk]
@@ -105,5 +111,10 @@ def occluded_brute(o, d, t_max, tri_v0, tri_v1, tri_v2,
         gn = vmath.cross(v1c - v0c, v2c - v0c)[None]
         front = vmath.dot(d[:, None, :], gn) < 0.0
         hit = hit & front & (t < t_max[:, None])
-        blocked = blocked | hit.any(dim=1)
-    return blocked
+        any_hit = hit.any(dim=1)
+        if want_blocker:
+            first = torch.argmax(hit.to(torch.uint8), dim=1)   # first True
+            btri = torch.where(any_hit & ~blocked,
+                               (c0 + first).to(torch.int32), btri)
+        blocked = blocked | any_hit
+    return (blocked, btri) if want_blocker else blocked

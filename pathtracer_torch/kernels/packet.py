@@ -14,9 +14,8 @@ Per traversal call:
 
 backend "pallas" runs the kernels of cull.py / sweep.py (CUDA kernels
 for CUDA tensors, their plain versions on the CPU); backend "xla" runs
-the plain lockstep sweep of the JAX package (packet.py:680-827), which
-tests CLUSTERS_PER_ITER columns per iteration with Moller-Trumbore on the
-[C, K, 12] blocks.
+those plain versions on any device. occluded_clusters(...,
+want_blocker=True) also returns a blocker-triangle hint per ray (K3b).
 """
 
 from __future__ import annotations
@@ -25,12 +24,10 @@ import torch
 
 from pathtracer_torch.accel import morton as morton_mod
 from pathtracer_torch.kernels import cull, sweep
-from pathtracer_torch.kernels.intersect import DET_EPS, Hit
-from pathtracer_torch.utils import vmath
+from pathtracer_torch.kernels.intersect import Hit
 
 TILE_RAYS = 64            # rays per tile (packet width)
 CHUNK_TILES = 2048        # tiles per launch = the dead-chunk skip granule
-CLUSTERS_PER_ITER = 2     # lockstep ("xla") sweep columns per iteration
 
 # Pad lanes are PARKED rays: origin at _PARK, unit direction, t_max 0.
 _PARK = 1e30
@@ -81,18 +78,12 @@ def _scene_exit(accel, o, d, t_max):
     return torch.minimum(torch.clamp(t_far * 1.0001 + 1e-3, min=0.0), t_max)
 
 
-def _sorted_schedule(tile_tnear, cpi):
-    """Sort each tile's clusters near to far, padded to a cpi multiple.
+def _sorted_schedule(tile_tnear):
+    """Sort each tile's clusters near to far.
 
-    Returns (st f32, si i32) [tiles, C']; unvisited entries are +inf with
+    Returns (st f32, si i32) [tiles, C]; unvisited entries are +inf with
     id 0 (a harmless re-test of cluster 0).
     """
-    tiles, c = tile_tnear.shape
-    pad = (-c) % cpi
-    if pad:
-        tile_tnear = torch.cat(
-            [tile_tnear, torch.full((tiles, pad), torch.inf,
-                                    device=tile_tnear.device)], dim=1)
     st, si = torch.sort(tile_tnear, dim=1, stable=True)
     si = torch.where(torch.isfinite(st), si, 0).to(torch.int32)
     return st.contiguous(), si.contiguous()
@@ -152,145 +143,54 @@ def _tile_rays6(o, d, n_tiles, tile_rays):
                      dim=2).transpose(1, 2).contiguous()
 
 
-# --- the lockstep ("xla") sweep, packet.py:521-599 and 680-827 -----------
-
-def _fetch_blocks(accel, cids):
-    """Gather + flatten CPI cluster blocks per tile: [tiles, CPI*K, 12]."""
-    blk = accel.blocks[cids.long()]
-    s = blk.shape
-    return blk.reshape(s[0], s[1] * s[2], s[3])
-
-
-def _mt_test(block, o, d):
-    """Moller-Trumbore of [tiles, R] rays against [tiles, Kc] block rows."""
-    v0 = block[:, None, :, 0:3]
-    e1 = block[:, None, :, 3:6]
-    e2 = block[:, None, :, 6:9]
-    ob = o[:, :, None, :]
-    db = d[:, :, None, :]
-    pvec = vmath.cross(db, e2)
-    det = vmath.dot(e1, pvec)
-    ok_det = det.abs() > DET_EPS
-    inv_det = torch.where(ok_det, torch.reciprocal(det), 0.0)
-    tvec = ob - v0
-    u = vmath.dot(tvec, pvec) * inv_det
-    qvec = vmath.cross(tvec, e1)
-    v = vmath.dot(db, qvec) * inv_det
-    t = vmath.dot(e2, qvec) * inv_det
-    ok = ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-    return t, u, v, ok, e1, e2, db
-
-
-def _mt_closest(block, o, d, t_min, t_max):
-    t, u, v, ok, *_ = _mt_test(block, o, d)
-    ok = ok & (t > t_min) & (t < t_max[:, :, None])
-    t = torch.where(ok, t, torch.inf)
-    tid = torch.round(block[:, :, 9]).to(torch.int32) - 1    # [tiles, Kc]
-    tj, j = torch.min(t, dim=-1)
-    uj = torch.gather(u, 2, j[..., None])[..., 0]
-    vj = torch.gather(v, 2, j[..., None])[..., 0]
-    idj = torch.gather(tid, 1, j)
-    idj = torch.where(torch.isfinite(tj), idj, -1)
-    return tj, uj, vj, idj
-
-
-def _mt_any_front(block, o, d, t_max):
-    t, _, _, ok, e1, e2, db = _mt_test(block, o, d)
-    front = vmath.dot(db, vmath.cross(e1, e2)) < 0.0
-    ok = ok & (t > 0.0) & (t < t_max[:, :, None]) & front
-    return ok.any(dim=-1)
-
-
-def _lockstep_closest(accel, st, si, ot, dt, t_cap, t_min, cpi):
-    n_cols = st.shape[1]
-    best_t = t_cap.clone()
-    best_tri = torch.full_like(t_cap, -1, dtype=torch.int32)
-    best_u = torch.zeros_like(t_cap)
-    best_v = torch.zeros_like(t_cap)
-    j = 0
-    while j < n_cols and bool((st[:, j] < best_t.amax(dim=1)).any()):
-        block = _fetch_blocks(accel, si[:, j:j + cpi])
-        t, u, v, tri = _mt_closest(block, ot, dt, t_min, best_t)
-        better = (t < best_t) & (tri >= 0)
-        best_t = torch.where(better, t, best_t)
-        best_tri = torch.where(better, tri, best_tri)
-        best_u = torch.where(better, u, best_u)
-        best_v = torch.where(better, v, best_v)
-        j += cpi
-    return best_t, best_tri, best_u, best_v
-
-
-def _lockstep_occluded(accel, st, si, ot, dt, tm, cpi):
-    n_cols = st.shape[1]
-    blocked = torch.zeros_like(tm, dtype=torch.bool)
-    j = 0
-    while j < n_cols:
-        live = (st[:, j] < torch.inf) & (~blocked).any(dim=1)
-        if not bool(live.any()):
-            break
-        block = _fetch_blocks(accel, si[:, j:j + cpi])
-        newly = _mt_any_front(block, ot, dt, tm)
-        blocked = blocked | (newly & live[:, None])
-        j += cpi
-    return blocked
-
-
 # --- per-chunk bodies ----------------------------------------------------
 
-def _closest_chunk(accel, o, d, t_max, t_min, tile_rays, cpi, backend):
-    n = o.shape[0]
-    n_tiles = n // tile_rays
-    inv_d = _safe_inv(d)
+def _chunk_schedule(accel, o, d, t_max, t_min, tile_rays, backend):
+    """K1 cull + per-tile schedule sort of one chunk -> (n_tiles, st, si)."""
+    n_tiles = o.shape[0] // tile_rays
     cull_fn = cull.tile_cull if backend == "pallas" else cull.tile_cull_plain
-    tile_tnear = cull_fn(accel.aabb_lo, accel.aabb_hi, o, inv_d, t_max,
-                         t_min=t_min, n_tiles=n_tiles, tile_rays=tile_rays)
+    tile_tnear = cull_fn(accel.aabb_lo, accel.aabb_hi, o, _safe_inv(d),
+                         t_max, t_min=t_min, n_tiles=n_tiles,
+                         tile_rays=tile_rays)
+    return (n_tiles,) + _sorted_schedule(tile_tnear)
+
+
+def _closest_chunk(accel, o, d, t_max, t_min, tile_rays, backend):
+    n = o.shape[0]
+    n_tiles, st, si = _chunk_schedule(accel, o, d, t_max, t_min, tile_rays,
+                                      backend)
     t_cap = _scene_exit(accel, o, d, t_max).reshape(n_tiles, tile_rays)
-    if backend == "pallas":
-        st, si = _sorted_schedule(tile_tnear, 1)
-        t, tri, u, v = sweep.sweep_closest(
-            st, si, _tile_rays6(o, d, n_tiles, tile_rays),
-            t_cap.contiguous(), accel.blocks_t, t_min)
-    else:
-        st, si = _sorted_schedule(tile_tnear, cpi)
-        t, tri, u, v = _lockstep_closest(
-            accel, st, si, o.reshape(n_tiles, tile_rays, 3),
-            d.reshape(n_tiles, tile_rays, 3), t_cap, t_min, cpi)
+    sweep_fn = (sweep.sweep_closest if backend == "pallas"
+                else sweep.sweep_closest_plain)
+    t, tri, u, v = sweep_fn(st, si, _tile_rays6(o, d, n_tiles, tile_rays),
+                            t_cap.contiguous(), accel.blocks_t, t_min)
     t = torch.where(tri >= 0, t, torch.inf)
     return t.reshape(n), tri.reshape(n), u.reshape(n), v.reshape(n)
 
 
-def _occluded_chunk(accel, o, d, t_max, tile_rays, cpi, backend):
+def _occluded_chunk(accel, o, d, t_max, tile_rays, backend, want_blocker):
     n = o.shape[0]
-    n_tiles = n // tile_rays
-    inv_d = _safe_inv(d)
-    cull_fn = cull.tile_cull if backend == "pallas" else cull.tile_cull_plain
-    tile_tnear = cull_fn(accel.aabb_lo, accel.aabb_hi, o, inv_d, t_max,
-                         t_min=0.0, n_tiles=n_tiles, tile_rays=tile_rays)
-    tm = t_max.reshape(n_tiles, tile_rays)
-    if backend == "pallas":
-        st, si = _sorted_schedule(tile_tnear, 1)
-        blocked = sweep.sweep_occluded(
-            st, si, _tile_rays6(o, d, n_tiles, tile_rays), tm.contiguous(),
-            accel.blocks_t) > 0
-    else:
-        st, si = _sorted_schedule(tile_tnear, cpi)
-        blocked = _lockstep_occluded(
-            accel, st, si, o.reshape(n_tiles, tile_rays, 3),
-            d.reshape(n_tiles, tile_rays, 3), tm, cpi)
-    return (blocked.reshape(n),)
+    n_tiles, st, si = _chunk_schedule(accel, o, d, t_max, 0.0, tile_rays,
+                                      backend)
+    sweep_fn = (sweep.sweep_occluded if backend == "pallas"
+                else sweep.sweep_occluded_plain)
+    out = sweep_fn(st, si, _tile_rays6(o, d, n_tiles, tile_rays),
+                   t_max.reshape(n_tiles, tile_rays).contiguous(),
+                   accel.blocks_t, want_blocker=want_blocker)
+    if want_blocker:
+        return (out[0] > 0).reshape(n), out[1].reshape(n)
+    return ((out > 0).reshape(n),)
 
 
 def intersect_clusters(accel, o, d, t_min, t_max, sort_rays: bool = True,
-                       tile_rays: int = None, cpi: int = None,
-                       chunk_rays: int = None, backend: str = "xla",
-                       dir_bits: int = 3) -> Hit:
+                       tile_rays: int = None, chunk_rays: int = None,
+                       backend: str = "xla", dir_bits: int = 3) -> Hit:
     """Closest hit of rays o/d [N,3] via packet traversal.
 
     t_max may be a scalar or per-ray [N]. dir_bits: direction bits per
     axis of the coherence key (3 for closest calls).
     """
     tile_rays = tile_rays or TILE_RAYS
-    cpi = cpi or CLUSTERS_PER_ITER
     chunk_rays = chunk_rays or CHUNK_TILES * tile_rays
     n = o.shape[0]
     t_max = _per_ray(t_max, o)
@@ -304,7 +204,7 @@ def intersect_clusters(accel, o, d, t_min, t_max, sort_rays: bool = True,
                                           device=o.device), z, z)
 
     t, tri, u, v = _chunk_map(
-        lambda r: _closest_chunk(accel, *r, t_min, tile_rays, cpi, backend),
+        lambda r: _closest_chunk(accel, *r, t_min, tile_rays, backend),
         (o, d, t_max), n, tile_rays, chunk_rays, dead)
     if order is not None:
         t, tri, u, v = (_unsort(order, x) for x in (t, tri, u, v))
@@ -312,12 +212,15 @@ def intersect_clusters(accel, o, d, t_min, t_max, sort_rays: bool = True,
 
 
 def occluded_clusters(accel, o, d, t_max, sort_rays: bool = True,
-                      tile_rays: int = None, cpi: int = None,
-                      chunk_rays: int = None, backend: str = "xla",
-                      dir_bits: int = 2):
-    """Any-hit (front-facing) visibility via packet traversal -> bool[N]."""
+                      tile_rays: int = None, chunk_rays: int = None,
+                      backend: str = "xla", dir_bits: int = 2,
+                      want_blocker: bool = False):
+    """Any-hit (front-facing) visibility via packet traversal -> bool[N].
+
+    want_blocker: return (blocked, btri i32[N]) with a blocking
+    triangle's id per ray (-1 open, and -1 in skipped dead chunks).
+    """
     tile_rays = tile_rays or TILE_RAYS
-    cpi = cpi or CLUSTERS_PER_ITER
     chunk_rays = chunk_rays or CHUNK_TILES * tile_rays
     n = o.shape[0]
     t_max = _per_ray(t_max, o)
@@ -326,11 +229,16 @@ def occluded_clusters(accel, o, d, t_max, sort_rays: bool = True,
         order, o, d, t_max = _coherence_sort(accel, o, d, t_max, dir_bits)
 
     def dead(m):
-        return (torch.zeros(m, dtype=torch.bool, device=o.device),)
+        blocked = torch.zeros(m, dtype=torch.bool, device=o.device)
+        if want_blocker:
+            return blocked, torch.full((m,), -1, dtype=torch.int32,
+                                       device=o.device)
+        return (blocked,)
 
-    (blocked,) = _chunk_map(
-        lambda r: _occluded_chunk(accel, *r, tile_rays, cpi, backend),
+    out = _chunk_map(
+        lambda r: _occluded_chunk(accel, *r, tile_rays, backend,
+                                  want_blocker),
         (o, d, t_max), n, tile_rays, chunk_rays, dead)
     if order is not None:
-        blocked = _unsort(order, blocked)
-    return blocked
+        out = tuple(_unsort(order, x) for x in out)
+    return out if want_blocker else out[0]

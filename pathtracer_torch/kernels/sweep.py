@@ -1,4 +1,4 @@
-"""K2 closest sweep and K3 occlusion sweep (counterpart of pathtracer/kernels/pallas_sweep.py).
+"""K2 closest sweep and K3/K3b occlusion sweeps (counterpart of pathtracer/kernels/pallas_sweep.py).
 
 Both walk each tile's near-to-far cluster schedule st/si [tiles, Cs]
 and test the tile's rays against the clusters' Baldwin-Weber rows
@@ -11,6 +11,10 @@ blocks_t [C, 16, K] (accel/cluster.py):
   sweep_occluded(st, si, rays, t_max_rays, blocks_t) -> blocked i32:
       any front-facing hit with 0 < t < t_max; a tile stops when every
       ray is blocked or the schedule reaches +inf.
+  sweep_occluded(..., want_blocker=True) -> (blocked, btri i32) (K3b):
+      btri is -1 where open, else the triangle of the blocking lane with
+      the smallest t (lowest lane on a tie) in the first schedule column
+      where the ray became blocked.
 
 For CPU tensors the wrappers run the plain versions; for CUDA tensors
 they launch csrc/sweep.cu or raise. The plain versions run all tiles in
@@ -56,12 +60,48 @@ def _bw_lane(blk, o, d, t_min, best_t):
     return torch.where(ok, t, torch.inf), u, v, denom
 
 
+def bw_rows_by_triangle(blocks_t, n_tris: int):
+    """Each triangle's Baldwin-Weber rows f32[T, 12], read off its cluster
+    slots (a triangle that spatial splits put in several clusters has the
+    same rows in each)."""
+    c, rows, k = blocks_t.shape
+    slots = blocks_t.transpose(1, 2).reshape(c * k, rows)
+    ids = torch.round(slots[:, 12]).to(torch.int64) - 1
+    real = ids >= 0
+    out = torch.zeros((n_tris, 12), dtype=torch.float32,
+                      device=blocks_t.device)
+    out[ids[real]] = slots[real, :12]
+    return out
+
+
+def bw_hit(rows, o, d, t_min, t_max, front_only=False):
+    """One Baldwin-Weber test per ray against its own triangle rows
+    [N, 12], with the sweeps' arithmetic -> (t, u, v, ok) [N]; t_max is
+    a scalar or per ray. front_only: also require a front-facing hit
+    (denom < 0), the occlusion sweeps' policy."""
+    if isinstance(t_max, torch.Tensor):
+        t_max = t_max.reshape(-1, 1, 1)
+    blk = rows[:, :, None]
+    t, u, v, denom = _bw_lane(
+        blk, tuple(o[:, i, None, None] for i in range(3)),
+        tuple(d[:, i, None, None] for i in range(3)), t_min, t_max)
+    t, u, v = t[:, 0, 0], u[:, 0, 0], v[:, 0, 0]
+    ok = torch.isfinite(t)
+    if front_only:
+        ok = ok & (denom[:, 0, 0] < 0.0)
+    return t, u, v, ok
+
+
 def _tile_block(tile_rays, k):
     return max(1, _PAIR_BUDGET // (tile_rays * k))
 
 
-def sweep_closest_plain(st, si, rays, t_cap, blocks_t, t_min):
-    """Plain PyTorch K2 (lockstep over tiles, blocked to bound memory)."""
+def sweep_closest_plain(st, si, rays, t_cap, blocks_t, t_min, visited=None):
+    """Plain PyTorch K2 (lockstep over tiles, blocked to bound memory).
+
+    visited: optional int64[tiles], incremented by the schedule columns
+    each tile sweeps before its stop rule fires (the kernel's work).
+    """
     tiles, cs = st.shape
     r = rays.shape[2]
     k = blocks_t.shape[2]
@@ -84,6 +124,8 @@ def sweep_closest_plain(st, si, rays, t_cap, blocks_t, t_min):
             live = live & (st[a:b, j] < best_t.amax(dim=1))
             if j % _STOP_CHECK == 0 and not bool(live.any()):
                 break
+            if visited is not None:
+                visited[a:b] += live
             blk = blocks_t[si[a:b, j].long()]                 # [tb, 16, K]
             t, u, v, _ = _bw_lane(blk, o, d, t_min, best_t[:, :, None])
             tid = torch.round(blk[:, 12, :]).to(torch.int32) - 1   # [tb, K]
@@ -100,13 +142,16 @@ def sweep_closest_plain(st, si, rays, t_cap, blocks_t, t_min):
     return out_t, out_tri, out_u, out_v
 
 
-def sweep_occluded_plain(st, si, rays, t_max_rays, blocks_t):
-    """Plain PyTorch K3 (lockstep over tiles, blocked to bound memory)."""
+def sweep_occluded_plain(st, si, rays, t_max_rays, blocks_t,
+                         want_blocker=False, visited=None):
+    """Plain PyTorch K3 / K3b (lockstep over tiles, blocked to bound
+    memory); visited as in sweep_closest_plain."""
     tiles, cs = st.shape
     r = rays.shape[2]
     k = blocks_t.shape[2]
     dev = st.device
     out = torch.zeros((tiles, r), dtype=torch.bool, device=dev)
+    out_btri = torch.full((tiles, r), -1, dtype=torch.int32, device=dev)
     tb = _tile_block(r, k)
     for a in range(0, tiles, tb):
         b = min(tiles, a + tb)
@@ -114,17 +159,28 @@ def sweep_occluded_plain(st, si, rays, t_max_rays, blocks_t):
         d = tuple(rays[a:b, i, :, None] for i in range(3, 6))
         tm = t_max_rays[a:b, :, None]
         blocked = out[a:b]
+        btri = out_btri[a:b]
         live = torch.ones(b - a, dtype=torch.bool, device=dev)
         for j in range(cs):
             live = live & (st[a:b, j] < torch.inf) \
                 & (~blocked).any(dim=1)
             if j % _STOP_CHECK == 0 and not bool(live.any()):
                 break
+            if visited is not None:
+                visited[a:b] += live
             blk = blocks_t[si[a:b, j].long()]
             t, _, _, denom = _bw_lane(blk, o, d, 0.0, torch.inf)
             hit = torch.isfinite(t) & (denom < 0.0) & (t < tm)
-            blocked |= hit.any(dim=2) & live[:, None]
-    return out.to(torch.int32)
+            newly = hit.any(dim=2) & live[:, None]
+            if want_blocker:
+                # first minimum of t over the hit lanes: lowest lane on ties
+                _, jj = torch.min(torch.where(hit, t, torch.inf), dim=2)
+                tid = torch.round(blk[:, 12, :]).to(torch.int32) - 1
+                btri.copy_(torch.where(newly & ~blocked,
+                                       torch.gather(tid, 1, jj), btri))
+            blocked |= newly
+    out = out.to(torch.int32)
+    return (out, out_btri) if want_blocker else out
 
 
 _SIG = {
@@ -137,6 +193,10 @@ _SIG = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+    "pt_sweep_occluded_blocker": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
 }
 
 
@@ -187,22 +247,32 @@ def sweep_closest(st, si, rays, t_cap, blocks_t, t_min):
     return out_t, out_tri, out_u, out_v
 
 
-def sweep_occluded(st, si, rays, t_max_rays, blocks_t):
-    """K3: blocked i32[tiles, R] (kernel on CUDA, plain on CPU)."""
+def sweep_occluded(st, si, rays, t_max_rays, blocks_t, want_blocker=False):
+    """K3: blocked i32[tiles, R]; K3b (want_blocker): (blocked, btri).
+
+    The CUDA kernels for CUDA tensors, the plain version for CPU ones.
+    """
     if st.device.type == "cpu":
-        return sweep_occluded_plain(st, si, rays, t_max_rays, blocks_t)
+        return sweep_occluded_plain(st, si, rays, t_max_rays, blocks_t,
+                                    want_blocker)
     if st.device.type != "cuda":
         raise ValueError(f"sweep_occluded: unsupported device {st.device}")
     tiles, cs, r, k = _check_inputs(st, si, rays, t_max_rays, blocks_t)
     dev = st.device
     out = torch.empty((tiles, r), dtype=torch.int32, device=dev)
+    btri = torch.empty_like(out) if want_blocker else None
     if tiles == 0:
-        return out
+        return (out, btri) if want_blocker else out
     lib = cuda_build.load("sweep", _SIG)
-    rc = lib.pt_sweep_occluded(
-        st.data_ptr(), si.data_ptr(), tiles, cs, rays.data_ptr(),
-        t_max_rays.data_ptr(), blocks_t.data_ptr(), k, r, out.data_ptr(),
-        cuda_build.stream_ptr(dev))
+    args = (st.data_ptr(), si.data_ptr(), tiles, cs, rays.data_ptr(),
+            t_max_rays.data_ptr(), blocks_t.data_ptr(), k, r, out.data_ptr())
+    if want_blocker:
+        rc = lib.pt_sweep_occluded_blocker(*args, btri.data_ptr(),
+                                           cuda_build.stream_ptr(dev))
+        cuda_build.check_launch(rc, "sweep_occluded_blocker")
+        LAUNCHES["sweep_occluded_blocker"] += 1
+        return out, btri
+    rc = lib.pt_sweep_occluded(*args, cuda_build.stream_ptr(dev))
     cuda_build.check_launch(rc, "sweep_occluded")
     LAUNCHES["sweep_occluded"] += 1
     return out

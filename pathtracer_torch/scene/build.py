@@ -2,17 +2,18 @@
 
 The same numpy pipeline as the JAX builder (mesh pool, materials SoA,
 emissive-triangle light CDF, u8 texture stack, per-material composite
-texels), ending in torch tensors on the requested device. Env maps are
-not ported yet (ROADMAP.md Queue 1, item 1).
+texels, env-map importance tables), ending in torch tensors on the
+requested device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
+from pathtracer_torch.scene.envlight import build_env_distribution
 from pathtracer_torch.scene.types import MAT_LAMBERTIAN, Scene, \
     scene_from_numpy
 
@@ -47,6 +48,7 @@ class SceneBuilder:
         self._face_material: List[np.ndarray] = []
         self.materials: List[MaterialDesc] = []
         self.textures: List[np.ndarray] = []  # each f32 [h, w, 4] raw values
+        self.envmap: Optional[np.ndarray] = None
         self._vertex_offset = 0
 
     def add_material(self, mat: MaterialDesc) -> int:
@@ -65,6 +67,10 @@ class SceneBuilder:
             data = np.concatenate([data, np.ones_like(data[..., :1])], axis=-1)
         self.textures.append(data)
         return len(self.textures) - 1
+
+    def set_envmap(self, data: np.ndarray):
+        """Equirect HDR radiance map f32 [h, w, 3] (linear)."""
+        self.envmap = np.asarray(data, np.float32)
 
     def add_mesh(self, positions, indices, material: int,
                  normals=None, uvs=None, tangents=None, transform=None):
@@ -222,6 +228,19 @@ class SceneBuilder:
                         m.normal_tex, h, w, (0.5, 0.5, 1, 1))
                 tex_comp = comp
 
+        envmap = (self.envmap if self.envmap is not None
+                  else np.zeros((1, 1, 3), np.float32))
+        env_mcdf, env_ccdf, env_pdf = build_env_distribution(envmap)
+        env_blocks = None
+        if self.envmap is not None:
+            # 2x2 bilinear-footprint rows: wrap x, clip y - the lookup's
+            # own index rules, so the filtered result is bit-identical
+            e = envmap
+            ex = np.concatenate([e[:, 1:], e[:, :1]], axis=1)   # x+1 wrap
+            ey = np.concatenate([e[1:], e[-1:]], axis=0)        # y+1 clip
+            exy = np.concatenate([ey[:, 1:], ey[:, :1]], axis=1)
+            env_blocks = np.concatenate([e, ex, ey, exy], axis=2)
+
         return dict(
             positions=positions, normals=normals, uvs=uvs,
             tangents=tangents, indices=indices, face_material=face_material,
@@ -244,13 +263,17 @@ class SceneBuilder:
             light_area=l_area.astype(np.float32),
             light_cdf=cdf, light_pdf=pdf_sel,
             tri_light_pdf_area=tri_light_pdf_area,
+            envmap=envmap, envmap_blocks=env_blocks,
+            env_marginal_cdf=env_mcdf, env_cond_cdf=env_ccdf,
+            env_pdf=env_pdf,
             has_lights=has_lights,
             n_lights=int(n_lights) if has_lights else 0,
             has_textures=has_textures,
+            has_envmap=self.envmap is not None,
         )
 
-    def finalize(self, device="cpu") -> Scene:
-        return scene_from_numpy(self.finalize_numpy(), device)
+    def finalize(self, *, device) -> Scene:
+        return scene_from_numpy(self.finalize_numpy(), device=device)
 
 
 def _normalize_rows(a: np.ndarray) -> np.ndarray:

@@ -5,11 +5,9 @@ SceneBuilder, so both packages build identical arrays:
 
 - `cornell_box`: config 1 (and the config 3 materials suite);
 - `icosphere`: geodesic sphere used by the Cornell variants;
+- `bunny_like`: the perturbed-icosphere blob of configs 2 and 4;
 - `sponza_like`: the colonnaded atrium of the headline (config 5), with
   the optional procedural texture set.
-
-`bunny_like` (config 2) runs the LBVH intersector, which is not ported
-yet (ROADMAP.md Queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -121,6 +119,35 @@ def cornell_box(light_emission=15.0, spheres=False, materials_suite=False):
         sv, sf = icosphere(0.16, (0.67, 0.16, 0.65), 3)
         b.add_mesh(sv, sf, m2)
 
+    return b
+
+
+def bunny_like(subdivisions=6):
+    """~80k-tri smooth blob on a ground plane (BASELINE config 2 stand-in).
+
+    A perturbed icosphere: the Stanford bunny's triangle-count class
+    without the asset.
+    """
+    b = SceneBuilder()
+    grey = b.add_material(MaterialDesc(albedo=(0.7, 0.7, 0.7)))
+    body = b.add_material(MaterialDesc(albedo=(0.65, 0.55, 0.45)))
+    light = b.add_material(MaterialDesc(albedo=(1, 1, 1),
+                                        emission=(8, 8, 8)))
+
+    v, i = _quad([-4, 0, -4], [-4, 0, 4], [4, 0, 4], [4, 0, -4])
+    b.add_mesh(v, i, grey)
+
+    sv, sf = icosphere(1.0, (0, 0, 0), subdivisions)
+    # deterministic lumpy displacement breaks the perfect sphere
+    d = (1.0
+         + 0.15 * np.sin(3.0 * sv[:, 0]) * np.cos(2.0 * sv[:, 1])
+         + 0.1 * np.sin(5.0 * sv[:, 2] + 1.0))
+    sv = sv * d[:, None]
+    sv[:, 1] += 1.2
+    b.add_mesh(sv, sf, body)
+
+    v, i = _quad([-1, 3.5, -1], [1, 3.5, -1], [1, 3.5, 1], [-1, 3.5, 1])
+    b.add_mesh(v, i, light)
     return b
 
 

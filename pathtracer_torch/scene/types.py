@@ -1,8 +1,7 @@
 """Device scene tables (counterpart of pathtracer/scene/types.py).
 
 `Scene` is a plain dataclass of tensors on one device, with the JAX
-`Scene`'s field names. The env-map tables are not carried: env-map sky
-is not ported yet (ROADMAP.md Queue 1, item 1).
+`Scene`'s field names, env-map tables included.
 """
 
 from __future__ import annotations
@@ -24,9 +23,10 @@ TENSOR_FIELDS = (
     "mat_ior", "mat_alpha", "mat_type", "mat_albedo_tex", "mat_mr_tex",
     "mat_normal_tex", "textures", "tex_wh", "light_v0", "light_v1",
     "light_v2", "light_normal", "light_emission", "light_area",
-    "light_cdf", "light_pdf", "tri_light_pdf_area")
-OPTIONAL_FIELDS = ("tex_comp", "tex_comp_wh")
-META_FIELDS = ("has_lights", "n_lights", "has_textures")
+    "light_cdf", "light_pdf", "tri_light_pdf_area", "envmap",
+    "env_marginal_cdf", "env_cond_cdf", "env_pdf")
+OPTIONAL_FIELDS = ("tex_comp", "tex_comp_wh", "envmap_blocks")
+META_FIELDS = ("has_lights", "n_lights", "has_textures", "has_envmap")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +64,13 @@ class Scene:
     light_pdf: torch.Tensor      # f32 [L]
     tri_light_pdf_area: torch.Tensor  # f32 [T]
 
+    # Equirect env map (zeros [1, 1, 3] without one) and its importance
+    # tables (scene/envlight.build_env_distribution).
+    envmap: torch.Tensor            # f32 [H, W, 3]
+    env_marginal_cdf: torch.Tensor  # f32 [H]
+    env_cond_cdf: torch.Tensor      # f32 [H, W]
+    env_pdf: torch.Tensor           # f32 [H, W] solid-angle pdf
+
     # Packet-traversal accel (accel/cluster.py); one build serves both
     # the closest and the occlusion calls.
     clusters: Optional[object] = None
@@ -71,10 +78,14 @@ class Scene:
     # (torch has no general uint32), true dims i32 [M, 2].
     tex_comp: Optional[torch.Tensor] = None
     tex_comp_wh: Optional[torch.Tensor] = None
+    # 2x2 bilinear footprint of each env texel, f32 [H, W, 12] (x wraps,
+    # y clips): one row gather per env lookup. None without an env map.
+    envmap_blocks: Optional[torch.Tensor] = None
 
     has_lights: bool = False
     n_lights: int = 0
     has_textures: bool = False
+    has_envmap: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -119,13 +130,13 @@ def _tensor(a, device):
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def scene_from_numpy(fields: dict, device="cpu") -> Scene:
-    """Build a port Scene from the JAX Scene's arrays (as numpy) and meta.
+def scene_from_numpy(fields: dict, *, device) -> Scene:
+    """Build a port Scene on `device` from the JAX Scene's arrays (as
+    numpy) and meta.
 
     `fields` maps the JAX field names (TENSOR_FIELDS, OPTIONAL_FIELDS,
-    META_FIELDS) to numpy arrays / host values; env-map fields are
-    ignored. This is how a scene built by the JAX package is carried
-    across for a comparison.
+    META_FIELDS) to numpy arrays / host values. This is how a scene built
+    by the JAX package is carried across for a comparison.
     """
     kw = {k: _tensor(fields[k], device) for k in TENSOR_FIELDS}
     for k in OPTIONAL_FIELDS:
@@ -134,4 +145,5 @@ def scene_from_numpy(fields: dict, device="cpu") -> Scene:
     kw["has_lights"] = bool(fields["has_lights"])
     kw["n_lights"] = int(fields["n_lights"])
     kw["has_textures"] = bool(fields["has_textures"])
+    kw["has_envmap"] = bool(fields["has_envmap"])
     return Scene(**kw)

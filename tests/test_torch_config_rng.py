@@ -35,9 +35,9 @@ def test_render_config_fields_and_defaults_match():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(sky="hosek"), dict(sky="envmap"),
-    dict(env_importance_sampling=True), dict(sampler="sobol"),
-    dict(primary_priming=True), dict(denoise=True),
+    dict(sky="hosek"), dict(tonemap="reinhard"),
+    dict(sky="envmap", sampler="sobol"), dict(sampler="sobol"),
+    dict(primary_priming=True, intersector="bvh"), dict(denoise=True),
     dict(capture_gbuffer=True), dict(wavefront_sort=True),
     dict(intersector="bvh"), dict(spp_batch=True, frame_batch=2),
     dict(clamp_radiance=1.0), dict(aperture=0.1, focus_dist=1.0),
@@ -46,6 +46,15 @@ def test_render_config_fields_and_defaults_match():
 def test_config_rejects_unported_values(kw):
     with pytest.raises(ValueError, match="ROADMAP|requires"):
         tconfig.RenderConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(sky="envmap"), dict(sky="envmap", env_importance_sampling=True,
+                             env_nee_cell=1, env_shadow_rr=0.5),
+    dict(primary_priming=True)])
+def test_config_accepts_ported_slices(kw):
+    assert dataclasses.asdict(tconfig.RenderConfig(**kw)) == \
+        dataclasses.asdict(jconfig.RenderConfig(**kw))
 
 
 @pytest.mark.parametrize("kw", [dict(width=0), dict(spp=0),
@@ -140,7 +149,8 @@ def test_coherence_key_bit_exact(dir_bits):
     ja = jbuild_clusters(jnp.asarray(v0), jnp.asarray(v1), jnp.asarray(v2),
                          max_clusters=16)
     ta = accel_from_numpy(*(np.asarray(getattr(ja, f)) for f in
-                            ("aabb_lo", "aabb_hi", "blocks", "blocks_t")))
+                            ("aabb_lo", "aabb_hi", "blocks_t")),
+                          device="cpu")
     o = rng.uniform(-2, 2, (3000, 3)).astype(np.float32)
     d = rng.normal(size=(3000, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)

@@ -14,6 +14,7 @@ import torch
 from pathtracer_torch import kernels
 from pathtracer_torch.accel.cluster import build_clusters
 from pathtracer_torch.kernels import cull, packet, sweep
+from pathtracer_torch.kernels.intersect import ray_triangle
 
 pytestmark = pytest.mark.cuda
 
@@ -58,7 +59,7 @@ def test_kernels_match_plain_bit_for_bit(dev, n_tris, n_tiles, t_max):
     assert torch.equal(tn, cull.tile_cull_plain(accel.aabb_lo,
                                                 accel.aabb_hi, o, inv, tm,
                                                 **kw))
-    st, si = packet._sorted_schedule(tn, 1)
+    st, si = packet._sorted_schedule(tn)
     rays6 = packet._tile_rays6(o, d, n_tiles, 64)
     cap = packet._scene_exit(accel, o, d, tm).reshape(n_tiles, 64) \
         .contiguous()
@@ -72,7 +73,10 @@ def test_kernels_match_plain_bit_for_bit(dev, n_tris, n_tiles, t_max):
     occ = sweep.sweep_occluded(st, si, rays6, tm2, accel.blocks_t)
     assert torch.equal(occ, sweep.sweep_occluded_plain(st, si, rays6, tm2,
                                                        accel.blocks_t))
-    assert all(kernels.LAUNCHES[k] == before[k] + 1 for k in before)
+    assert all(kernels.LAUNCHES[k] == before[k] + 1
+               for k in ("tile_cull", "sweep_closest", "sweep_occluded"))
+    assert kernels.LAUNCHES["sweep_occluded_blocker"] == \
+        before["sweep_occluded_blocker"]
 
 
 def test_packet_traversal_on_cuda_matches_cpu(dev):
@@ -107,7 +111,7 @@ def test_wrappers_check_their_inputs(dev):
                        packet._safe_inv(d), tm, **kw)
     tn = cull.tile_cull(accel.aabb_lo, accel.aabb_hi, o,
                         packet._safe_inv(d), tm, **kw)
-    st, si = packet._sorted_schedule(tn, 1)
+    st, si = packet._sorted_schedule(tn)
     rays6 = packet._tile_rays6(o, d, 1, 64)
     with pytest.raises(ValueError):
         sweep.sweep_closest(st, si.long(), rays6, tm.reshape(1, 64),
@@ -130,9 +134,77 @@ def test_cornell_render_on_cuda_matches_cpu(dev):
     for device in ("cpu", dev):
         c = Camera(position=(0.5, 0.5, 2.2))
         c.look_at((0.5, 0.5, 0.0))
-        r = Renderer(cornell_box(materials_suite=True).finalize(), cfg, c,
+        r = Renderer(cornell_box(materials_suite=True).finalize(
+            device="cpu"), cfg, c,
                      device=device)
         imgs.append(r.run(1).accum.cpu().numpy())
     diff = np.abs(imgs[0] - imgs[1]).max(-1)
     assert (diff > 0.01).mean() <= 0.02
     assert abs(imgs[0].mean() - imgs[1].mean()) <= 1e-3 * imgs[0].mean()
+
+
+def test_blocker_kernel_matches_plain_bit_for_bit(dev):
+    """K3b: blocked and btri bit-equal to the plain version, blocked equal
+    to K3's, and every hint a front-facing blocker with 0 < t < t_max."""
+    v = _soup(3000, 8)
+    accel = build_clusters(*v).to(dev)
+    n_tiles = 40
+    o, d = _rays(64 * n_tiles, 9, dev, park_tail=70)
+    tm = torch.full((o.shape[0],), 1.5, device=dev)
+    tn = cull.tile_cull(accel.aabb_lo, accel.aabb_hi, o, packet._safe_inv(d),
+                        tm, t_min=0.0, n_tiles=n_tiles, tile_rays=64)
+    st, si = packet._sorted_schedule(tn)
+    rays6 = packet._tile_rays6(o, d, n_tiles, 64)
+    tm2 = tm.reshape(n_tiles, 64).contiguous()
+    before = kernels.LAUNCHES["sweep_occluded_blocker"]
+    blk, btri = sweep.sweep_occluded(st, si, rays6, tm2, accel.blocks_t,
+                                     want_blocker=True)
+    assert kernels.LAUNCHES["sweep_occluded_blocker"] == before + 1
+    pblk, pbtri = sweep.sweep_occluded_plain(st, si, rays6, tm2,
+                                             accel.blocks_t,
+                                             want_blocker=True)
+    assert torch.equal(blk, pblk) and torch.equal(btri, pbtri)
+    assert torch.equal(blk, sweep.sweep_occluded(st, si, rays6, tm2,
+                                                 accel.blocks_t))
+    assert torch.equal(btri >= 0, blk > 0) and bool((blk > 0).any())
+    hinted = (btri >= 0).reshape(-1)
+    ids = btri.reshape(-1)[hinted].long().cpu()
+    v0, v1, v2 = (x[ids] for x in v)
+    oc, dc = o[hinted].cpu(), d[hinted].cpu()
+    t, _, _, ok = ray_triangle(oc, dc, v0, v1, v2, 0.0, 1.5)
+    front = (dc * torch.cross(v1 - v0, v2 - v0, dim=1)).sum(1) < 0.0
+    assert bool((ok & front).all())
+
+
+def test_primed_render_on_cuda_matches_unprimed(dev):
+    """Priming on the card: the same image and the same ray count, and
+    the bounce-0 shadow batch went through K3b."""
+    import dataclasses
+
+    from pathtracer_torch.accel.cluster import build_scene_clusters
+    from pathtracer_torch.config import RenderConfig
+    from pathtracer_torch.integrator.camera import Camera
+    from pathtracer_torch.render import Renderer
+    from pathtracer_torch.scene.build import MaterialDesc
+    from pathtracer_torch.scene.procedural import cornell_box, icosphere
+
+    b = cornell_box()
+    sv, sf = icosphere(0.25, (0.5, 0.35, 0.2), 3)
+    b.add_mesh(sv, sf, b.add_material(MaterialDesc(albedo=(0.7, 0.6, 0.2),
+                                                   roughness=0.4)))
+    scene = build_scene_clusters(b.finalize(device="cpu"))
+    cfg = RenderConfig(width=16, height=16, spp=2, max_depth=3,
+                       spp_batch=True)
+    out = []
+    for c in (cfg, dataclasses.replace(cfg, primary_priming=True)):
+        cam = Camera(position=(0.5, 0.5, 2.2))
+        cam.look_at((0.5, 0.5, 0.0))
+        r = Renderer(scene, c, cam, device=dev)
+        kernels.reset_launch_counts()
+        r.run(2)
+        out.append((r.film.accum.cpu(), int(r.last_rays),
+                    kernels.LAUNCHES["sweep_occluded_blocker"]))
+    (base, rays_b, k3b_b), (primed, rays_p, k3b_p) = out
+    torch.testing.assert_close(primed, base, rtol=1e-5, atol=1e-6)
+    assert rays_p == rays_b
+    assert k3b_b == 0 and k3b_p > 0

@@ -27,11 +27,12 @@ _scenes = {}
 def _scenes_for(name):
     if name not in _scenes:
         if name == "sponza":
-            _scenes[name] = (jproc.sponza_like(4000, textured=True).finalize(),
-                             tproc.sponza_like(4000, textured=True).finalize())
+            jb = jproc.sponza_like(4000, textured=True)
+            tb = tproc.sponza_like(4000, textured=True)
         else:
-            _scenes[name] = (jproc.cornell_box(materials_suite=True).finalize(),
-                             tproc.cornell_box(materials_suite=True).finalize())
+            jb = jproc.cornell_box(materials_suite=True)
+            tb = tproc.cornell_box(materials_suite=True)
+        _scenes[name] = (jb.finalize(), tb.finalize(device="cpu"))
     return _scenes[name]
 
 
@@ -175,7 +176,7 @@ def test_trace_paths_matches_jax_bruteforce():
 
     jo, jd = jgen(jc.state(), w, h, 70.0, jnp.asarray(pix),
                   jnp.asarray(samp))
-    to, td = generate_primary_rays(c.state(), w, h, 70.0,
+    to, td = generate_primary_rays(c.state(device="cpu"), w, h, 70.0,
                                    torch.from_numpy(pix),
                                    torch.zeros(w * h, dtype=torch.int64))
     jv = js.tri_vertices(jnp.arange(js.n_tris))
@@ -187,12 +188,13 @@ def test_trace_paths_matches_jax_bruteforce():
             o, d, *jv, a, b),
         lambda o, d, m, primary=False, want_blocker=False:
             jisect.occluded_brute(o, d, m, *jv))
-    trad, trays = tpath.trace_paths(
+    trad, trays, _ = tpath.trace_paths(
         ts, RenderConfig(**cfg_kw), to, td, torch.from_numpy(pix),
         torch.zeros(w * h, dtype=torch.int64),
         lambda o, d, a, b, primary=False: tisect.intersect_brute(
             o, d, *tv, a, b),
-        lambda o, d, m, primary=False: tisect.occluded_brute(o, d, m, *tv))
+        lambda o, d, m, primary=False, want_blocker=False:
+            tisect.occluded_brute(o, d, m, *tv, want_blocker=want_blocker))
     jr, tr = np.asarray(jrad), trad.numpy()
     diff = np.abs(tr - jr).max(-1)
     assert (diff > 0.01).mean() <= 0.02

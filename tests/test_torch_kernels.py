@@ -45,7 +45,8 @@ def _rays(n, seed=1, park_tail=0):
 
 def _carry(ja):
     return accel_from_numpy(*(np.asarray(getattr(ja, f)) for f in
-                              ("aabb_lo", "aabb_hi", "blocks", "blocks_t")))
+                              ("aabb_lo", "aabb_hi", "blocks_t")),
+                            device="cpu")
 
 
 def _T(a):

@@ -70,9 +70,10 @@ def live_slice():
     fields = {k: (None if getattr(js, k) is None else np.asarray(
         getattr(js, k))) for k in TENSOR_FIELDS + OPTIONAL_FIELDS}
     fields.update({k: getattr(js, k) for k in META_FIELDS})
-    ts = scene_from_numpy(fields).with_clusters(accel_from_numpy(
-        *(np.asarray(getattr(js.clusters, f)) for f in
-          ("aabb_lo", "aabb_hi", "blocks", "blocks_t"))))
+    ts = scene_from_numpy(fields, device="cpu").with_clusters(
+        accel_from_numpy(*(np.asarray(getattr(js.clusters, f)) for f in
+                           ("aabb_lo", "aabb_hi", "blocks_t")),
+                         device="cpu"))
     return ts, kw, np.asarray(img), float(rays)
 
 
@@ -80,8 +81,8 @@ def live_slice():
 def test_slice_matches_live_jax_render(live_slice, backend):
     ts, kw, jimg, jrays = live_slice
     cfg = RenderConfig(traversal_backend=backend, **kw)
-    img, rays = trender.render_frame_batched(
-        ts, cfg, _cam(Camera, SPONZA_CAM).state(), 0)
+    img, rays, _ = trender.render_frame_batched(
+        ts, cfg, _cam(Camera, SPONZA_CAM).state(device="cpu"), 0)
     img = img.numpy()
     assert img.shape == jimg.shape and np.isfinite(img).all()
     assert img.mean() > 0.0
@@ -100,20 +101,21 @@ def test_golden_configs(idx, scene_fn, kw):
     Config 3 carries frame_batch > 1 there; without an env map that field
     only sizes the env-NEE window, so frame_batch=1 renders the same image.
     """
-    scene = tbuild(scene_fn().finalize())
+    scene = tbuild(scene_fn().finalize(device="cpu"))
     cfg = RenderConfig(width=64, height=64, spp=4, max_depth=6, **kw)
-    img = trender.render_frame(scene, cfg, _cam(Camera, BOX_CAM).state(), 0)
+    img = trender.render_frame(scene, cfg,
+                               _cam(Camera, BOX_CAM).state(device="cpu"), 0)
     golden = np.load(os.path.join(GOLDENS, f"config_{idx}_64.npz"))["img"]
     _assert_gate(img.numpy(), golden)
 
 
 def test_renderer_progressive_accumulation():
-    scene = tproc.cornell_box().finalize()
+    scene = tproc.cornell_box().finalize(device="cpu")
     cfg = RenderConfig(width=16, height=16, spp=1, max_depth=3)
     r = trender.Renderer(scene, cfg, _cam(Camera, BOX_CAM), device="cpu")
     film = r.run(2)
     assert film.frame == 2 and int(r.last_rays) > 0
-    cam = _cam(Camera, BOX_CAM).state()
+    cam = _cam(Camera, BOX_CAM).state(device="cpu")
     f0 = trender.render_frame(r.scene, cfg, cam, 0)
     f1 = trender.render_frame(r.scene, cfg, cam, 1)
     torch.testing.assert_close(film.accum, (f0 + f1) / 2, rtol=1e-6,
@@ -125,13 +127,14 @@ def test_renderer_progressive_accumulation():
 
 
 def test_pool_part_split_matches_single_pool(monkeypatch):
-    scene = tbuild(tproc.cornell_box(materials_suite=True).finalize())
+    scene = tbuild(tproc.cornell_box(materials_suite=True).finalize(
+        device="cpu"))
     cfg = RenderConfig(width=16, height=16, spp=2, max_depth=3,
                        spp_batch=True)
-    cam = _cam(Camera, BOX_CAM).state()
-    whole, rays = trender.render_frame_batched(scene, cfg, cam, 0)
+    cam = _cam(Camera, BOX_CAM).state(device="cpu")
+    whole, rays, _ = trender.render_frame_batched(scene, cfg, cam, 0)
     monkeypatch.setenv("PT_MAX_WAVEFRONT", "200")      # -> 3 spatial parts
-    split, rays_s = trender.render_frame_batched(scene, cfg, cam, 0)
+    split, rays_s, _ = trender.render_frame_batched(scene, cfg, cam, 0)
     assert int(rays) == int(rays_s)
     torch.testing.assert_close(split, whole, rtol=1e-5, atol=1e-5)
     per_sample = dataclasses.replace(cfg, spp_batch=False)
@@ -149,7 +152,8 @@ def test_port_runs_without_jax():
         "from pathtracer_torch.scene.procedural import cornell_box\n"
         "c = Camera(position=(0.5, 0.5, 2.2)); c.look_at((0.5, 0.5, 0.0))\n"
         "cfg = RenderConfig(width=16, height=16, spp=1, max_depth=3)\n"
-        "r = Renderer(cornell_box().finalize(), cfg, c, device='cpu')\n"
+        "r = Renderer(cornell_box().finalize(device='cpu'), cfg, c,\n"
+        "             device='cpu')\n"
         "m = float(r.run(1).accum.mean())\n"
         "bad = [k for k in sys.modules if k == 'pathtracer'\n"
         "       or k.startswith('pathtracer.') or k.startswith('jax')]\n"

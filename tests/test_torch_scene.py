@@ -3,7 +3,7 @@
 The port's builders re-home the JAX package's numpy generators, so the
 tables must come out identical: integer/u8 fields exact, f32 fields
 exact (the same numpy expressions), and the sahsplit accel (leaf order,
-ids, boxes, both block layouts) exact.
+ids, boxes, Baldwin-Weber rows) exact.
 """
 
 import numpy as np
@@ -33,7 +33,8 @@ _cache = {}
 def _pair(name):
     if name not in _cache:
         jf, tf = SCENES[name]
-        _cache[name] = (jbuild(jf().finalize()), tbuild(tf().finalize()))
+        _cache[name] = (jbuild(jf().finalize()),
+                        tbuild(tf().finalize(device="cpu")))
     return _cache[name]
 
 
@@ -65,7 +66,7 @@ def test_sahsplit_accel_matches_jax(name):
     js, ts = _pair(name)
     ja, ta = js.clusters, ts.clusters
     assert ta.n_clusters == ja.n_clusters and ta.n_clusters % 128 == 0
-    for f in ("aabb_lo", "aabb_hi", "blocks"):
+    for f in ("aabb_lo", "aabb_hi"):
         np.testing.assert_array_equal(getattr(ta, f).numpy(),
                                       np.asarray(getattr(ja, f)), err_msg=f)
     jb, tb = np.asarray(ja.blocks_t), ta.blocks_t.numpy()
@@ -80,11 +81,12 @@ def test_scene_and_accel_from_numpy_roundtrip():
     fields = {k: (None if getattr(js, k) is None else np.asarray(
         getattr(js, k))) for k in TENSOR_FIELDS + OPTIONAL_FIELDS}
     fields.update({k: getattr(js, k) for k in META_FIELDS})
-    carried = scene_from_numpy(fields)
+    carried = scene_from_numpy(fields, device="cpu")
     for f in TENSOR_FIELDS:
         assert torch.equal(getattr(carried, f), getattr(ts, f)), f
     acc = accel_from_numpy(*(np.asarray(getattr(js.clusters, f)) for f in
-                             ("aabb_lo", "aabb_hi", "blocks", "blocks_t")))
+                             ("aabb_lo", "aabb_hi", "blocks_t")),
+                           device="cpu")
     assert torch.equal(acc.blocks_t, ts.clusters.blocks_t)
     moved = carried.with_clusters(acc).to("cpu")
     assert moved.clusters.n_clusters == acc.n_clusters
@@ -113,5 +115,5 @@ def test_native_png_encode_roundtrip():
 
 
 def test_sponza_tri_count_class():
-    s = tproc.sponza_like(target_tris=50_000).finalize()
+    s = tproc.sponza_like(target_tris=50_000).finalize(device="cpu")
     assert 40_000 < s.n_tris < 70_000

@@ -47,7 +47,7 @@ def test_primary_rays_match_jax(w, h, fov):
     samp = np.full(w * h, 7, np.uint32)
     jo, jd = jcam.generate_primary_rays(jc.state(), w, h, fov,
                                         jnp.asarray(pix), jnp.asarray(samp))
-    to, td = tcam.generate_primary_rays(tc.state(), w, h, fov,
+    to, td = tcam.generate_primary_rays(tc.state(device="cpu"), w, h, fov,
                                         torch.from_numpy(pix),
                                         torch.from_numpy(samp.astype(
                                             np.int64)))
@@ -139,7 +139,7 @@ def test_gradient_sky_matches_jax():
 def test_film_matches_jax():
     rng = np.random.default_rng(9)
     frames = rng.uniform(0, 3, (3, 8, 6, 3)).astype(np.float32)
-    jf, tf = jfilm.new_film(6, 8), tfilm.new_film(6, 8)
+    jf, tf = jfilm.new_film(6, 8), tfilm.new_film(6, 8, device="cpu")
     for f in frames:
         jf = jfilm.accumulate(jf, jnp.asarray(f))
         tf = tfilm.accumulate(tf, torch.from_numpy(f))
