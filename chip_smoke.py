@@ -69,11 +69,17 @@ KERNELS = {
                                "(want_blocker=True)"),
 }
 UNPRIMED_KERNELS = ("tile_cull", "sweep_closest", "sweep_occluded")
-# Least-time model of one NVIDIA H100 SXM (NVIDIA's data sheet): FP32
-# outside the tensor cores and HBM3 bandwidth.
-PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
-CULL_OPS = 30   # per (ray, cluster): 6 sub, 6 mul, 10 min/max, 5 tests, 3
-BW_OPS = 40     # per (ray, triangle lane): the Baldwin-Weber test of bw_lane
+# Least-time model of one NVIDIA H100 SXM (NVIDIA's data sheet, 700 W):
+# 67e12 FP32 FLOP/s outside the tensor cores counts an FMA as two; the
+# kernels are built with -fmad=false (bit-exact against their plain
+# versions), so each mul, add, compare or min/max is one instruction, at
+# half that rate. HBM3 at 3.35e12 bytes/s.
+PEAK_FP32_INSTR, PEAK_BYTES = 67e12 / 2, 3.35e12
+# FP32 instructions per pair, counted off csrc/*.cu (a division as one):
+CULL_OPS = 28   # (ray, cluster): 6 sub, 6 mul, 10 min/max, 3 tests, 3
+BW_OPS = {"sweep_closest": 38,             # (ray, triangle): bw_lane
+          "sweep_occluded": 40,            # + denom < 0, t < t_max
+          "sweep_occluded_blocker": 40}
 
 
 def log(phase, **kw):
@@ -245,27 +251,30 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
-def bound_ms(name, args, visited):
+def bound_ms(name, args, pair_tests):
     """Least time of one call on the card, as (operations ms, bytes ms):
-    its FP32 operations over PEAK_FP32 and its bytes (each input read
-    once, each output written once) over PEAK_BYTES; the bound is the
-    larger. The sweeps' work is what this call's data needs: the schedule
-    columns its tiles visit."""
+    its FP32 instructions over PEAK_FP32_INSTR and its bytes (each input
+    read once, each output written once) over PEAK_BYTES; the bound is
+    the larger. Operations count what this call's data needs: K1 the
+    (ray, cluster) pairs of unparked rays and real clusters; the sweeps
+    the (ray, triangle) tests their plain versions count (pair_tests:
+    live rays, real lanes, K3 up to the first blocking lane)."""
     nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa
     if name == "tile_cull":
         lo, hi, o, inv_d, t_max = args
         tiles = t_max.numel() // 64
-        ops = o.shape[0] * lo.shape[0] * CULL_OPS
+        pairs = int((o[:, 0] < 1e29).sum()) * int((lo[:, 0] < 1e29).sum())
+        ops = pairs * CULL_OPS
         moved = nbytes(lo, hi, o, inv_d, t_max) + tiles * lo.shape[0] * 4
     else:
         st, si, rays, per_ray, blocks_t = args[:5]
-        k = blocks_t.shape[2]
-        ops = int(visited.sum()) * rays.shape[2] * k * BW_OPS
+        pairs = int(pair_tests)
+        ops = pairs * BW_OPS[name]
         outs = {"sweep_closest": 4, "sweep_occluded": 1,
                 "sweep_occluded_blocker": 2}[name]
         moved = (nbytes(st, si, rays, per_ray, blocks_t)
                  + outs * per_ray.numel() * 4)
-    return ops / PEAK_FP32 * 1e3, moved / PEAK_BYTES * 1e3
+    return ops / PEAK_FP32_INSTR * 1e3, moved / PEAK_BYTES * 1e3, pairs
 
 
 def phase_kernels(scene, cfg, cam):
@@ -277,15 +286,17 @@ def phase_kernels(scene, cfg, cam):
     from pathtracer_torch.utils import vmath
 
     stats = {k: {"ms": [], "plain_ms": [], "ops_ms": [], "bytes_ms": [],
-                 "bound_ms": [], "max_abs_err": 0.0, "calls": 0}
+                 "bound_ms": [], "pairs": [], "max_abs_err": 0.0,
+                 "calls": 0}
              for k in KERNELS}
 
-    def run_plain(name, args, kw, visited):
+    def run_plain(name, args, kw, pair_tests):
         if name == "tile_cull":
             return cull.tile_cull_plain(*args, **kw)
         if name == "sweep_closest":
-            return sweep.sweep_closest_plain(*args, visited=visited)
-        return sweep.sweep_occluded_plain(*args, visited=visited, **kw)
+            return sweep.sweep_closest_plain(*args, pair_tests=pair_tests)
+        return sweep.sweep_occluded_plain(*args, pair_tests=pair_tests,
+                                          **kw)
 
     def run_kernel(name, args, kw):
         if name == "tile_cull":
@@ -294,8 +305,7 @@ def phase_kernels(scene, cfg, cam):
             return sweep.sweep_closest(*args)
         return sweep.sweep_occluded(*args, **kw)
 
-    bw_rows = sweep.bw_rows_by_triangle(scene.clusters.blocks_t,
-                                        scene.n_tris)
+    bw_rows = scene.clusters.bw_rows
 
     def check_blocker_hints(label, args, out):
         """Every hint is a front-facing triangle with 0 < t < t_max under
@@ -328,9 +338,8 @@ def phase_kernels(scene, cfg, cam):
     def compare(name, label, args, kw, record=True):
         run_kernel(name, args, kw)                            # warm-up
         out, ms = timed(lambda: run_kernel(name, args, kw))
-        visited = (None if name == "tile_cull" else torch.zeros(
-            args[0].shape[0], dtype=torch.int64, device=DEVICE))
-        ref, ms_p = timed(lambda: run_plain(name, args, kw, visited))
+        pair_tests = torch.zeros((), dtype=torch.int64, device=DEVICE)
+        ref, ms_p = timed(lambda: run_plain(name, args, kw, pair_tests))
         if name == "tile_cull":
             if not torch.equal(out, ref):
                 bad = int((out != ref).sum())
@@ -373,7 +382,8 @@ def phase_kernels(scene, cfg, cam):
         s = stats[name]
         s["ms"].append(ms)
         s["plain_ms"].append(ms_p)
-        ops_ms, bytes_ms = bound_ms(name, args, visited)
+        ops_ms, bytes_ms, pairs = bound_ms(name, args, pair_tests)
+        s["pairs"].append(pairs)
         s["ops_ms"].append(ops_ms)
         s["bytes_ms"].append(bytes_ms)
         s["bound_ms"].append(max(ops_ms, bytes_ms))
@@ -408,7 +418,7 @@ def phase_kernels(scene, cfg, cam):
             raise PhaseError(f"{name}: never compared")
         mean = {k: sum(s[k]) / s["calls"]
                 for k in ("ms", "plain_ms", "ops_ms", "bytes_ms",
-                          "bound_ms")}
+                          "bound_ms", "pairs")}
         s.update(mean, bound_by=("operations" if mean["ops_ms"]
                                  >= mean["bytes_ms"] else "bytes"))
         log("kernel_vs_plain", kernel=name, chunks=s["calls"],

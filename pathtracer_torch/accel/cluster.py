@@ -10,6 +10,11 @@ Layouts are the JAX package's:
   aabb_lo/hi f32[C, 3]  clipped-union leaf boxes, pads at _PAD_POS
   blocks_t   f32[C, 16, K]  Baldwin-Weber rows n(3), d, r1(3), c1,
                             r2(3), c2, tri_id+1, pad(3)   (the sweeps)
+  bw_rows    f32[T', 12]    the port's: each triangle's Baldwin-Weber
+                            rows by id (T' = largest id + 1), read off
+                            blocks_t once, so a hint re-test
+                            (render.make_intersectors) does the sweeps'
+                            arithmetic with one gather
 The JAX accel's Moller-Trumbore `blocks` [C, K, 12] feed only its
 lockstep sweep, which the port does not have.
 """
@@ -36,6 +41,7 @@ class ClusterAccel:
     aabb_lo: torch.Tensor   # f32 [C, 3]
     aabb_hi: torch.Tensor   # f32 [C, 3]
     blocks_t: torch.Tensor  # f32 [C, 16, K]
+    bw_rows: torch.Tensor   # f32 [T', 12]
 
     @property
     def n_clusters(self) -> int:
@@ -55,7 +61,22 @@ def accel_from_numpy(aabb_lo, aabb_hi, blocks_t, *,
     """Carry a JAX ClusterAccel's arrays (as numpy) into the port."""
     t = [torch.from_numpy(np.array(a, np.float32)).to(device)
          for a in (aabb_lo, aabb_hi, blocks_t)]
-    return ClusterAccel(*t)
+    return ClusterAccel(*t, bw_rows=triangle_rows(t[2]))
+
+
+def triangle_rows(blocks_t):
+    """Each triangle's Baldwin-Weber rows f32[T', 12] by id, read off its
+    cluster slots (a triangle that spatial splits put in several clusters
+    has the same rows in each); rows of ids in no cluster stay 0, which
+    no ray hits."""
+    c, rows, k = blocks_t.shape
+    slots = blocks_t.transpose(1, 2).reshape(c * k, rows)
+    ids = torch.round(slots[:, 12]).to(torch.int64) - 1
+    real = ids >= 0
+    n = int(ids.max()) + 1 if bool(real.any()) else 0
+    out = torch.zeros((n, 12), dtype=torch.float32, device=blocks_t.device)
+    out[ids[real]] = slots[real, :12]
+    return out
 
 
 def build_clusters(v0, v1, v2) -> ClusterAccel:
@@ -153,7 +174,8 @@ def _finish_build(sv0, sv1, sv2, sid, k, pad, t) -> ClusterAccel:
     rows_bw = torch.cat([nrm, dpl, r1, c1, r2, c2, id_val, zeros, zeros,
                          zeros], dim=1)                     # [T, 16]
     bt = rows_bw.reshape(c, k, 16).transpose(1, 2).contiguous()
-    return ClusterAccel(aabb_lo=aabb_lo, aabb_hi=aabb_hi, blocks_t=bt)
+    return ClusterAccel(aabb_lo=aabb_lo, aabb_hi=aabb_hi, blocks_t=bt,
+                        bw_rows=triangle_rows(bt))
 
 
 def build_scene_clusters(scene):

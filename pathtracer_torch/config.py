@@ -5,11 +5,11 @@ carried across field by field. Values that select a feature this port
 does not implement yet raise `ValueError` naming the ROADMAP item that
 brings it.
 
-traversal_backend:
-  "pallas" - the hand-written traversal kernels (kernels/cull.py,
-             kernels/sweep.py): CUDA kernels for CUDA tensors, their
-             plain PyTorch versions for CPU tensors.
-  "xla"    - the same kernels' plain PyTorch versions, on any device.
+traversal_backend: only "pallas", the hand-written traversal kernels
+(kernels/cull.py, kernels/sweep.py): CUDA kernels for CUDA tensors,
+their plain PyTorch versions for CPU tensors. The JAX package's "xla"
+route is a lockstep Moller-Trumbore sweep; the port has no second route
+and rejects it.
 """
 
 from __future__ import annotations
@@ -105,6 +105,12 @@ class RenderConfig:
         if self.traversal_backend not in ("pallas", "xla"):
             raise ValueError(
                 f"unknown traversal backend: {self.traversal_backend!r}")
+        if self.traversal_backend == "xla":
+            raise ValueError(
+                "traversal_backend='xla' (the JAX package's lockstep sweep) "
+                "is not part of pathtracer_torch: 'pallas' runs the CUDA "
+                "kernels on CUDA tensors and their plain versions on CPU "
+                "tensors")
         if self.sampler not in ("pcg", "sobol"):
             raise ValueError(f"unknown sampler: {self.sampler!r}")
         if self.frame_batch < 1:

@@ -234,23 +234,22 @@ def _power_heuristic(pdf_a, pdf_b):
     return a2 / torch.clamp(a2 + pdf_b * pdf_b, min=1e-20)
 
 
-def _verify_blocker(prime_blk, verify_rows, s_orig, s_dir, s_tmax, valid,
+def _verify_blocker(prime_blk, hint_fn, s_orig, s_dir, s_tmax, valid,
                     occluded_fn, primary):
     """Shadow query through a blocker hint (path.py:526-552).
 
-    The hinted triangle is re-tested against THIS segment under the
-    traversal's policy (front-facing, 0 < t < s_tmax); a verified block
-    is conclusive and the lane parks out of the traversal. Failed hints
-    are kept (a new light sample may re-verify them); the traversal's own
+    The hinted triangle is re-tested against THIS segment by hint_fn, the
+    intersector's own arithmetic, under the traversal's policy
+    (front-facing, 0 < t < s_tmax), so a hint verifies exactly where the
+    traversal would find that triangle blocking; a verified block is
+    conclusive and the lane parks out of the traversal. Failed hints are
+    kept (a new light sample may re-verify them); the traversal's own
     blocker replaces a hint where it finds one. Returns (blocked,
     new_blk).
     """
-    brow = verify_rows[prime_blk.clamp(min=0).long()]
-    bv0, bv1, bv2 = brow[:, 0:3], brow[:, 3:6], brow[:, 6:9]
-    _, _, _, okb = isect.ray_triangle(s_orig, s_dir, bv0, bv1, bv2, 0.0,
-                                      s_tmax)
-    frontb = vmath.dot(s_dir, vmath.cross(bv1 - bv0, bv2 - bv0)) < 0.0
-    ver = okb & frontb & (prime_blk >= 0) & valid
+    _, _, _, okb = hint_fn(prime_blk, s_orig, s_dir, 0.0, s_tmax,
+                           front_only=True)
+    ver = okb & (prime_blk >= 0) & valid
     need = valid & ~ver
     o_t = torch.where(need[..., None], s_orig, 1e30)     # park resolved
     d_t = torch.where(need[..., None], s_dir, 1.0)
@@ -262,11 +261,11 @@ def _verify_blocker(prime_blk, verify_rows, s_orig, s_dir, s_tmax, valid,
 
 def _nee(scene: Scene, cfg: RenderConfig, surf: Surface, view, pixel,
          sample, depth, occluded_fn, shade, primary=False, prime_blk=None,
-         verify_rows=None):
+         hint_fn=None):
     """Next-event estimation to emissive triangles (raygen.rgen:168-261).
 
     Returns contrib/T [N,3]; with prime_blk (i32[N] blocker hints, -1 =
-    none) and verify_rows, (contrib, new_blk) with this sample's hints.
+    none) and hint_fn, (contrib, new_blk) with this sample's hints.
     """
     u_sel = rng.uniform1(pixel, sample, depth, rng.SALT_LIGHT_SELECT,
                          cfg.seed, cfg.sampler)
@@ -306,7 +305,7 @@ def _nee(scene: Scene, cfg: RenderConfig, surf: Surface, view, pixel,
     valid = geo_ok & shade
     new_blk = None
     if prime_blk is not None:
-        blocked, new_blk = _verify_blocker(prime_blk, verify_rows, s_orig,
+        blocked, new_blk = _verify_blocker(prime_blk, hint_fn, s_orig,
                                            s_dir, s_tmax, valid,
                                            occluded_fn, primary)
     else:
@@ -374,7 +373,7 @@ def _env_draw(scene: Scene, cfg: RenderConfig, pixel, sample, depth,
 def _nee_env(scene: Scene, cfg: RenderConfig, surf: Surface, view, pixel,
              sample, depth, occluded_fn, shade, throughput,
              sample_window: int = 1, primary=False, prime_blk=None,
-             verify_rows=None):
+             hint_fn=None):
     """Env-map NEE with MIS (path.py:328-456): one shadow ray toward a
     luminance-importance-sampled env direction.
 
@@ -406,7 +405,7 @@ def _nee_env(scene: Scene, cfg: RenderConfig, surf: Surface, view, pixel,
                         device=l_dir.device)
     new_blk = None
     if prime_blk is not None:
-        blocked, new_blk = _verify_blocker(prime_blk, verify_rows, s_orig,
+        blocked, new_blk = _verify_blocker(prime_blk, hint_fn, s_orig,
                                            l_dir, s_tmax, valid,
                                            occluded_fn, primary)
     else:
@@ -428,16 +427,6 @@ def _nee_env(scene: Scene, cfg: RenderConfig, surf: Surface, view, pixel,
         else (out, traced)
 
 
-def _mt_hint(verify_rows):
-    """Default primary-hint test: Moller-Trumbore on verify_rows [T, 9]."""
-    def hint_fn(tri, o, d, t_min, t_max):
-        row = verify_rows[tri.clamp(min=0).long()]
-        t, u, v, ok = isect.ray_triangle(o, d, row[:, 0:3], row[:, 3:6],
-                                         row[:, 6:9], t_min, t_max)
-        return t, u, v, ok
-    return hint_fn
-
-
 def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
                 pixel_ids, sample_ids, intersect_fn: Callable,
                 occluded_fn: Callable, prime=None, local_pix=None,
@@ -457,14 +446,16 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
     the primary traversal; [:, 1] / [:, 2] the bounce-0 NEE / env-NEE
     shadow blockers. prime_out holds this sample's hints in the same
     layout (None without prime). With several lanes per pixel (spp-
-    batched wavefronts) one of them writes a pixel's hint; which one is
-    unspecified, and harmless because every hint is re-verified.
+    batched wavefronts) a pixel keeps the largest of its lanes' hints
+    (an order-free reduction, so a frame's hints do not depend on the
+    scatter's order); any would do, because every hint is re-verified.
     local_pix: per-lane row of `prime` (default: pixel_ids).
     sample_window: distinct sample ids in the wavefront (sizes the
     env-NEE table; default spp * frame_batch).
-    hint_fn(tri, o, d, t_min, t_max) -> (t, u, v, ok): the intersector's
-    own ray-triangle test (render.make_intersectors); default
-    Moller-Trumbore.
+    hint_fn(tri, o, d, t_min, t_max, front_only=False) -> (t, u, v, ok):
+    the intersector's own ray-triangle test (render.make_intersectors),
+    for primary hits and (front_only) shadow blockers alike; default
+    Moller-Trumbore (intersect.hint_test).
     """
     n = origins.shape[0]
     dev = origins.device
@@ -478,16 +469,14 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
                and scene.has_envmap)
     rows_of = (pixel_ids if local_pix is None else local_pix).long()
     prime_out = None
-    verify_rows = None
     if prime is not None:
-        # one [T, 9] row (v0|v1|v2) per triangle: one gather per hint
-        verify_rows = torch.cat(scene.tri_vertices(
-            torch.arange(scene.n_tris, device=dev)), dim=1)
-        hint_fn = hint_fn or _mt_hint(verify_rows)
+        if hint_fn is None:
+            hint_fn = isect.hint_test(*scene.tri_vertices(
+                torch.arange(scene.n_tris, device=dev)))
         prime_out = torch.full_like(prime, -1)
 
     def record(col, values):
-        prime_out[:, col].index_put_((rows_of,), values)
+        prime_out[:, col].scatter_reduce_(0, rows_of, values, "amax")
 
     def segment(state, depth, primary=False):
         """Trace + emission collection shared by every bounce."""
@@ -584,7 +573,7 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
                 nee, new_blk = _nee(scene, cfg, surf, view, pix, samp, depth,
                                     occluded_fn, shade, primary,
                                     prime_blk=prime[rows_of, 1],
-                                    verify_rows=verify_rows)
+                                    hint_fn=hint_fn)
                 record(1, new_blk)
             else:
                 nee = _nee(scene, cfg, surf, view, pix, samp, depth,
@@ -597,7 +586,7 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
                 env_c, new_blk, traced = _nee_env(
                     scene, cfg, surf, view, pix, samp, depth, occluded_fn,
                     shade, throughput, sample_window, primary,
-                    prime_blk=prime[rows_of, 2], verify_rows=verify_rows)
+                    prime_blk=prime[rows_of, 2], hint_fn=hint_fn)
                 record(2, new_blk)
             else:
                 env_c, traced = _nee_env(

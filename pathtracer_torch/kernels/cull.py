@@ -7,8 +7,7 @@ pass (tn <= tf) & (tf >= t_min) & (tn <= t_max); +inf where none does.
 
 For CPU tensors it runs `tile_cull_plain`; for CUDA tensors it launches
 the kernel in csrc/cull.cu or raises. The two agree bit for bit (sub,
-mul, min and max only). The plain version is also the "xla" backend's
-cull (packet.py), the counterpart of packet._tile_cull.
+mul, min and max only).
 """
 
 from __future__ import annotations

@@ -51,6 +51,21 @@ def ray_triangle(o, d, v0, v1, v2, t_min, t_max):
     return t, u, v, hit
 
 
+def hint_test(tri_v0, tri_v1, tri_v2):
+    """The brute route's hint re-test: hint_fn(tri, o, d, t_min, t_max,
+    front_only=False) -> (t, u, v, ok), Moller-Trumbore of each ray
+    against its own triangle; front_only adds occluded_brute's
+    front-facing test."""
+    def hint_fn(tri, o, d, t_min, t_max, front_only=False):
+        i = tri.clamp(min=0).long()
+        v0, v1, v2 = tri_v0[i], tri_v1[i], tri_v2[i]
+        t, u, v, ok = ray_triangle(o, d, v0, v1, v2, t_min, t_max)
+        if front_only:
+            ok = ok & (vmath.dot(d, vmath.cross(v1 - v0, v2 - v0)) < 0.0)
+        return t, u, v, ok
+    return hint_fn
+
+
 def _pad_tris(tri_v0, tri_v1, tri_v2, tri_chunk):
     pad = (-tri_v0.shape[0]) % tri_chunk
     if pad:

@@ -12,10 +12,10 @@ Per traversal call:
    the per-ray scene-exit cap;
 4. unsort by scattering through the inverse permutation.
 
-backend "pallas" runs the kernels of cull.py / sweep.py (CUDA kernels
-for CUDA tensors, their plain versions on the CPU); backend "xla" runs
-those plain versions on any device. occluded_clusters(...,
-want_blocker=True) also returns a blocker-triangle hint per ray (K3b).
+Step 3's kernels are the wrappers of cull.py / sweep.py: the CUDA
+kernels for CUDA tensors, their plain versions for CPU tensors.
+occluded_clusters(..., want_blocker=True) also returns a
+blocker-triangle hint per ray (K3b).
 """
 
 from __future__ import annotations
@@ -145,38 +145,33 @@ def _tile_rays6(o, d, n_tiles, tile_rays):
 
 # --- per-chunk bodies ----------------------------------------------------
 
-def _chunk_schedule(accel, o, d, t_max, t_min, tile_rays, backend):
+def _chunk_schedule(accel, o, d, t_max, t_min, tile_rays):
     """K1 cull + per-tile schedule sort of one chunk -> (n_tiles, st, si)."""
     n_tiles = o.shape[0] // tile_rays
-    cull_fn = cull.tile_cull if backend == "pallas" else cull.tile_cull_plain
-    tile_tnear = cull_fn(accel.aabb_lo, accel.aabb_hi, o, _safe_inv(d),
-                         t_max, t_min=t_min, n_tiles=n_tiles,
-                         tile_rays=tile_rays)
+    tile_tnear = cull.tile_cull(accel.aabb_lo, accel.aabb_hi, o,
+                                _safe_inv(d), t_max, t_min=t_min,
+                                n_tiles=n_tiles, tile_rays=tile_rays)
     return (n_tiles,) + _sorted_schedule(tile_tnear)
 
 
-def _closest_chunk(accel, o, d, t_max, t_min, tile_rays, backend):
+def _closest_chunk(accel, o, d, t_max, t_min, tile_rays):
     n = o.shape[0]
-    n_tiles, st, si = _chunk_schedule(accel, o, d, t_max, t_min, tile_rays,
-                                      backend)
+    n_tiles, st, si = _chunk_schedule(accel, o, d, t_max, t_min, tile_rays)
     t_cap = _scene_exit(accel, o, d, t_max).reshape(n_tiles, tile_rays)
-    sweep_fn = (sweep.sweep_closest if backend == "pallas"
-                else sweep.sweep_closest_plain)
-    t, tri, u, v = sweep_fn(st, si, _tile_rays6(o, d, n_tiles, tile_rays),
-                            t_cap.contiguous(), accel.blocks_t, t_min)
+    t, tri, u, v = sweep.sweep_closest(
+        st, si, _tile_rays6(o, d, n_tiles, tile_rays), t_cap.contiguous(),
+        accel.blocks_t, t_min)
     t = torch.where(tri >= 0, t, torch.inf)
     return t.reshape(n), tri.reshape(n), u.reshape(n), v.reshape(n)
 
 
-def _occluded_chunk(accel, o, d, t_max, tile_rays, backend, want_blocker):
+def _occluded_chunk(accel, o, d, t_max, tile_rays, want_blocker):
     n = o.shape[0]
-    n_tiles, st, si = _chunk_schedule(accel, o, d, t_max, 0.0, tile_rays,
-                                      backend)
-    sweep_fn = (sweep.sweep_occluded if backend == "pallas"
-                else sweep.sweep_occluded_plain)
-    out = sweep_fn(st, si, _tile_rays6(o, d, n_tiles, tile_rays),
-                   t_max.reshape(n_tiles, tile_rays).contiguous(),
-                   accel.blocks_t, want_blocker=want_blocker)
+    n_tiles, st, si = _chunk_schedule(accel, o, d, t_max, 0.0, tile_rays)
+    out = sweep.sweep_occluded(
+        st, si, _tile_rays6(o, d, n_tiles, tile_rays),
+        t_max.reshape(n_tiles, tile_rays).contiguous(), accel.blocks_t,
+        want_blocker=want_blocker)
     if want_blocker:
         return (out[0] > 0).reshape(n), out[1].reshape(n)
     return ((out > 0).reshape(n),)
@@ -184,7 +179,7 @@ def _occluded_chunk(accel, o, d, t_max, tile_rays, backend, want_blocker):
 
 def intersect_clusters(accel, o, d, t_min, t_max, sort_rays: bool = True,
                        tile_rays: int = None, chunk_rays: int = None,
-                       backend: str = "xla", dir_bits: int = 3) -> Hit:
+                       dir_bits: int = 3) -> Hit:
     """Closest hit of rays o/d [N,3] via packet traversal.
 
     t_max may be a scalar or per-ray [N]. dir_bits: direction bits per
@@ -204,7 +199,7 @@ def intersect_clusters(accel, o, d, t_min, t_max, sort_rays: bool = True,
                                           device=o.device), z, z)
 
     t, tri, u, v = _chunk_map(
-        lambda r: _closest_chunk(accel, *r, t_min, tile_rays, backend),
+        lambda r: _closest_chunk(accel, *r, t_min, tile_rays),
         (o, d, t_max), n, tile_rays, chunk_rays, dead)
     if order is not None:
         t, tri, u, v = (_unsort(order, x) for x in (t, tri, u, v))
@@ -213,8 +208,7 @@ def intersect_clusters(accel, o, d, t_min, t_max, sort_rays: bool = True,
 
 def occluded_clusters(accel, o, d, t_max, sort_rays: bool = True,
                       tile_rays: int = None, chunk_rays: int = None,
-                      backend: str = "xla", dir_bits: int = 2,
-                      want_blocker: bool = False):
+                      dir_bits: int = 2, want_blocker: bool = False):
     """Any-hit (front-facing) visibility via packet traversal -> bool[N].
 
     want_blocker: return (blocked, btri i32[N]) with a blocking
@@ -236,8 +230,7 @@ def occluded_clusters(accel, o, d, t_max, sort_rays: bool = True,
         return (blocked,)
 
     out = _chunk_map(
-        lambda r: _occluded_chunk(accel, *r, tile_rays, backend,
-                                  want_blocker),
+        lambda r: _occluded_chunk(accel, *r, tile_rays, want_blocker),
         (o, d, t_max), n, tile_rays, chunk_rays, dead)
     if order is not None:
         out = tuple(_unsort(order, x) for x in out)

@@ -60,20 +60,6 @@ def _bw_lane(blk, o, d, t_min, best_t):
     return torch.where(ok, t, torch.inf), u, v, denom
 
 
-def bw_rows_by_triangle(blocks_t, n_tris: int):
-    """Each triangle's Baldwin-Weber rows f32[T, 12], read off its cluster
-    slots (a triangle that spatial splits put in several clusters has the
-    same rows in each)."""
-    c, rows, k = blocks_t.shape
-    slots = blocks_t.transpose(1, 2).reshape(c * k, rows)
-    ids = torch.round(slots[:, 12]).to(torch.int64) - 1
-    real = ids >= 0
-    out = torch.zeros((n_tris, 12), dtype=torch.float32,
-                      device=blocks_t.device)
-    out[ids[real]] = slots[real, :12]
-    return out
-
-
 def bw_hit(rows, o, d, t_min, t_max, front_only=False):
     """One Baldwin-Weber test per ray against its own triangle rows
     [N, 12], with the sweeps' arithmetic -> (t, u, v, ok) [N]; t_max is
@@ -96,11 +82,15 @@ def _tile_block(tile_rays, k):
     return max(1, _PAIR_BUDGET // (tile_rays * k))
 
 
-def sweep_closest_plain(st, si, rays, t_cap, blocks_t, t_min, visited=None):
+def sweep_closest_plain(st, si, rays, t_cap, blocks_t, t_min,
+                        pair_tests=None):
     """Plain PyTorch K2 (lockstep over tiles, blocked to bound memory).
 
-    visited: optional int64[tiles], incremented by the schedule columns
-    each tile sweeps before its stop rule fires (the kernel's work).
+    pair_tests: optional int64 0-d tensor, incremented by the (ray,
+    triangle) tests this call's data needs - the work a bound counts: in
+    each column the stop rule lets a tile visit, every ray whose best t
+    still lies beyond the column's entry, against each real triangle of
+    the cluster (pad lanes excluded).
     """
     tiles, cs = st.shape
     r = rays.shape[2]
@@ -124,9 +114,11 @@ def sweep_closest_plain(st, si, rays, t_cap, blocks_t, t_min, visited=None):
             live = live & (st[a:b, j] < best_t.amax(dim=1))
             if j % _STOP_CHECK == 0 and not bool(live.any()):
                 break
-            if visited is not None:
-                visited[a:b] += live
             blk = blocks_t[si[a:b, j].long()]                 # [tb, 16, K]
+            if pair_tests is not None:
+                need = live[:, None] & (st[a:b, j, None] < best_t)
+                pair_tests += (need.sum(1)
+                               * (blk[:, 12, :] > 0.5).sum(1)).sum()
             t, u, v, _ = _bw_lane(blk, o, d, t_min, best_t[:, :, None])
             tid = torch.round(blk[:, 12, :]).to(torch.int32) - 1   # [tb, K]
             tj, jj = torch.min(t, dim=2)                      # first minimum
@@ -143,9 +135,11 @@ def sweep_closest_plain(st, si, rays, t_cap, blocks_t, t_min, visited=None):
 
 
 def sweep_occluded_plain(st, si, rays, t_max_rays, blocks_t,
-                         want_blocker=False, visited=None):
+                         want_blocker=False, pair_tests=None):
     """Plain PyTorch K3 / K3b (lockstep over tiles, blocked to bound
-    memory); visited as in sweep_closest_plain."""
+    memory). pair_tests as in sweep_closest_plain, for the rays not yet
+    blocked with t_max > 0: K3 needs a cluster's real triangles up to the
+    first blocking one, K3b all of them (its rule takes the nearest)."""
     tiles, cs = st.shape
     r = rays.shape[2]
     k = blocks_t.shape[2]
@@ -166,12 +160,20 @@ def sweep_occluded_plain(st, si, rays, t_max_rays, blocks_t,
                 & (~blocked).any(dim=1)
             if j % _STOP_CHECK == 0 and not bool(live.any()):
                 break
-            if visited is not None:
-                visited[a:b] += live
             blk = blocks_t[si[a:b, j].long()]
             t, _, _, denom = _bw_lane(blk, o, d, 0.0, torch.inf)
             hit = torch.isfinite(t) & (denom < 0.0) & (t < tm)
             newly = hit.any(dim=2) & live[:, None]
+            if pair_tests is not None:
+                real = blk[:, 12, :] > 0.5                    # [tb, K]
+                n_real = real.sum(1, keepdim=True)
+                per = n_real.expand(-1, r)
+                if not want_blocker:   # up to the first blocking lane
+                    first = torch.argmax(hit.to(torch.uint8), dim=2)
+                    per = torch.where(hit.any(dim=2), torch.gather(
+                        torch.cumsum(real, 1), 1, first), per)
+                need = live[:, None] & ~blocked & (tm[..., 0] > 0.0)
+                pair_tests += (need * per).sum()
             if want_blocker:
                 # first minimum of t over the hit lanes: lowest lane on ties
                 _, jj = torch.min(torch.where(hit, t, torch.inf), dim=2)

@@ -68,6 +68,14 @@ def test_config_validation_matches_jax(kw):
         tconfig.RenderConfig(**kw)
 
 
+def test_config_rejects_xla_backend():
+    """The JAX package's lockstep "xla" traversal has no counterpart in
+    the port: one route, the kernel wrappers, serves CPU and CUDA."""
+    assert jconfig.RenderConfig(traversal_backend="xla")
+    with pytest.raises(ValueError, match="not part of pathtracer_torch"):
+        tconfig.RenderConfig(traversal_backend="xla")
+
+
 def _words(shape, seed):
     rng = np.random.default_rng(seed)
     w = rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(

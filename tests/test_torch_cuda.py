@@ -85,16 +85,13 @@ def test_packet_traversal_on_cuda_matches_cpu(dev):
     tm = torch.full((5000,), 2.0)
     for sort in (True, False):
         hc = packet.intersect_clusters(accel, o, d, 1e-3, 1e20,
-                                       backend="pallas", sort_rays=sort)
-        hg = packet.intersect_clusters(accel.to(dev), o.to(dev), d.to(dev),
-                                       1e-3, 1e20, backend="pallas",
                                        sort_rays=sort)
+        hg = packet.intersect_clusters(accel.to(dev), o.to(dev), d.to(dev),
+                                       1e-3, 1e20, sort_rays=sort)
         assert torch.equal(hg.tri.cpu(), hc.tri)
-        oc = packet.occluded_clusters(accel, o, d, tm, backend="pallas",
-                                      sort_rays=sort)
+        oc = packet.occluded_clusters(accel, o, d, tm, sort_rays=sort)
         og = packet.occluded_clusters(accel.to(dev), o.to(dev), d.to(dev),
-                                      tm.to(dev), backend="pallas",
-                                      sort_rays=sort)
+                                      tm.to(dev), sort_rays=sort)
         assert torch.equal(og.cpu(), oc)
 
 
@@ -145,7 +142,9 @@ def test_cornell_render_on_cuda_matches_cpu(dev):
 
 def test_blocker_kernel_matches_plain_bit_for_bit(dev):
     """K3b: blocked and btri bit-equal to the plain version, blocked equal
-    to K3's, and every hint a front-facing blocker with 0 < t < t_max."""
+    to K3's, and every hint a front-facing blocker with 0 < t < t_max
+    under Moller-Trumbore - or, on a triangle edge where the two tests
+    round apart, under the sweep's own Baldwin-Weber test."""
     v = _soup(3000, 8)
     accel = build_clusters(*v).to(dev)
     n_tiles = 40
@@ -172,8 +171,11 @@ def test_blocker_kernel_matches_plain_bit_for_bit(dev):
     v0, v1, v2 = (x[ids] for x in v)
     oc, dc = o[hinted].cpu(), d[hinted].cpu()
     t, _, _, ok = ray_triangle(oc, dc, v0, v1, v2, 0.0, 1.5)
-    front = (dc * torch.cross(v1 - v0, v2 - v0, dim=1)).sum(1) < 0.0
-    assert bool((ok & front).all())
+    ok = ok & ((dc * torch.cross(v1 - v0, v2 - v0, dim=1)).sum(1) < 0.0)
+    edge = ~ok
+    ok[edge] = sweep.bw_hit(accel.bw_rows.cpu()[ids[edge]], oc[edge],
+                            dc[edge], 0.0, 1.5, front_only=True)[3]
+    assert bool(ok.all())
 
 
 def test_primed_render_on_cuda_matches_unprimed(dev):

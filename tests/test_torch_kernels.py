@@ -4,7 +4,7 @@ CPU: each kernel's plain PyTorch version against the JAX Pallas kernel
 run in interpret mode on identical inputs (K1 bit-exact, K2 tri-exact
 with t/u/v within a few roundings of their summed terms, K3 exact), and
 the port's
-packet traversal on both backends against the JAX brute-force oracle
+packet traversal against the JAX brute-force oracle
 (tri / blocked exact, t within rtol 1e-4). The CUDA kernels themselves
 are held to their plain versions in tests/test_torch_cuda.py.
 """
@@ -159,6 +159,62 @@ def test_sweep_occluded_plain_matches_pallas_interpret(seed, max_c):
     assert 0 < ref.sum() < ref.size
 
 
+@pytest.mark.parametrize("kind", ["closest", "occluded", "blocker"])
+def test_plain_sweeps_count_needed_pair_tests(kind):
+    """pair_tests counts what the data needs, checked on one cluster of
+    100 triangles (28 pad lanes) and one tile with 10 parked rays: K2
+    counts the rays whose cap lies beyond the cluster's entry, K3 each
+    open ray's triangles up to its first blocking lane, K3b the whole
+    cluster for every open ray - never the pad lanes, the pad clusters
+    (parked rays, at 1e30 like the pads' boxes, enter those at t = 0)
+    or the parked rays."""
+    rng = np.random.default_rng(21)
+    v0 = rng.uniform(-0.5, 0.5, (100, 3)).astype(np.float32)
+    v = [v0, v0 + rng.uniform(-0.3, 0.3, (100, 3)).astype(np.float32),
+         v0 + rng.uniform(-0.3, 0.3, (100, 3)).astype(np.float32)]
+    accel = tbuild(*(_T(x) for x in v))
+    real = torch.nonzero(accel.aabb_lo[:, 0] < 1e29)[:, 0]
+    assert real.numel() == 1 and accel.n_clusters == 128
+    o, d = (_T(x) for x in _rays(64, seed=22, park_tail=10))
+    tm = torch.full((64,), 2.0)
+    tm[-10:] = 0.0
+    tn = cull.tile_cull(accel.aabb_lo, accel.aabb_hi, o, packet._safe_inv(d),
+                        tm, t_min=0.0, n_tiles=1, tile_rays=64)
+    st, si = packet._sorted_schedule(tn)
+    col = int(torch.nonzero(si[0] == real[0])[0, 0])
+    assert torch.isfinite(st[0, col])
+    assert int(torch.isfinite(st).sum()) == 128   # the 127 pads at t = 0
+    rays6 = packet._tile_rays6(o, d, 1, 64)
+    count = torch.zeros((), dtype=torch.int64)
+    lanes = accel.blocks_t[real[0]]                    # [16, K]
+    ids = torch.round(lanes[12]).long() - 1
+    assert int((ids >= 0).sum()) == 100 and bool((ids[100:] < 0).all())
+    if kind == "closest":
+        cap = packet._scene_exit(accel, o, d, tm).reshape(1, 64)
+        sweep.sweep_closest_plain(st, si, rays6, cap.contiguous(),
+                                  accel.blocks_t, 0.0, pair_tests=count)
+        want = int((cap[0] > st[0, col]).sum()) * 100
+    else:
+        sweep.sweep_occluded_plain(st, si, rays6, tm.reshape(1, 64),
+                                   accel.blocks_t,
+                                   want_blocker=kind == "blocker",
+                                   pair_tests=count)
+        want = 0
+        for r in range(54):                 # the 10 parked rays need none
+            n = 100
+            if kind == "occluded":
+                for lane in range(100):
+                    ok = sweep.bw_hit(accel.bw_rows[ids[lane:lane + 1]],
+                                      o[r:r + 1], d[r:r + 1], 0.0, 2.0,
+                                      front_only=True)[3]
+                    if bool(ok[0]):
+                        n = lane + 1
+                        break
+            want += n
+        assert kind == "blocker" or want < 5400   # some rays blocked
+    assert int(count) == want > 0
+
+
 # --- packet traversal end to end -----------------------------------------
 
 _SOUP = _soup(300)
@@ -173,9 +229,8 @@ def _oracle(v, o, d, t_max=2.0):
     return hr, np.asarray(obr)
 
 
-@pytest.mark.parametrize("backend", ["pallas", "xla"])
 @pytest.mark.parametrize("accel_src", ["jax_morton", "port_sahsplit"])
-def test_packet_traversal_matches_bruteforce(backend, accel_src):
+def test_packet_traversal_matches_bruteforce(accel_src):
     v = _SOUP
     o, d = _RAYS
     if accel_src == "jax_morton":
@@ -183,35 +238,31 @@ def test_packet_traversal_matches_bruteforce(backend, accel_src):
     else:
         accel = tbuild(*(_T(x) for x in v))
     hr, obr = _oracle(v, o, d)
-    hp = packet.intersect_clusters(accel, _T(o), _T(d), 1e-3, 1e20,
-                                   backend=backend)
+    hp = packet.intersect_clusters(accel, _T(o), _T(d), 1e-3, 1e20)
     np.testing.assert_array_equal(hp.tri.numpy(), np.asarray(hr.tri))
     both = np.asarray(hr.tri) >= 0
     assert both.sum() > 0
     np.testing.assert_allclose(hp.t.numpy()[both], np.asarray(hr.t)[both],
                                rtol=1e-4, atol=1e-5)
     op = packet.occluded_clusters(accel, _T(o), _T(d),
-                                  torch.full((len(o),), 2.0), backend=backend)
+                                  torch.full((len(o),), 2.0))
     np.testing.assert_array_equal(op.numpy(), obr)
 
 
-@pytest.mark.parametrize("backend", ["pallas", "xla"])
-def test_packet_ragged_and_tiny(backend):
+def test_packet_ragged_and_tiny():
     v = _soup(33, seed=7)
     accel = _carry(jbuild(*(jnp.asarray(x) for x in v), max_clusters=4))
     for n in (1, 130, 257):
         o, d = _rays(n, seed=n)
         hr, obr = _oracle(v, o, d)
-        hp = packet.intersect_clusters(accel, _T(o), _T(d), 1e-3, 1e20,
-                                       backend=backend)
+        hp = packet.intersect_clusters(accel, _T(o), _T(d), 1e-3, 1e20)
         np.testing.assert_array_equal(hp.tri.numpy(), np.asarray(hr.tri))
         op = packet.occluded_clusters(accel, _T(o), _T(d),
-                                      torch.full((n,), 2.0), backend=backend)
+                                      torch.full((n,), 2.0))
         np.testing.assert_array_equal(op.numpy(), obr)
 
 
-@pytest.mark.parametrize("backend", ["pallas", "xla"])
-def test_packet_small_chunks_and_dead_chunks(backend):
+def test_packet_small_chunks_and_dead_chunks():
     """Several chunks, one of them all parked (skipped), unsorted primary."""
     v = _SOUP
     o, d = _rays(640, seed=9)
@@ -220,13 +271,11 @@ def test_packet_small_chunks_and_dead_chunks(backend):
     hr, obr = _oracle(v, o, d)
     for sort in (True, False):
         hp = packet.intersect_clusters(accel, _T(o), _T(d), 1e-3, 1e20,
-                                       backend=backend, sort_rays=sort,
-                                       chunk_rays=128)
+                                       sort_rays=sort, chunk_rays=128)
         np.testing.assert_array_equal(hp.tri.numpy(), np.asarray(hr.tri))
         op = packet.occluded_clusters(accel, _T(o), _T(d),
                                       torch.full((640,), 2.0),
-                                      backend=backend, sort_rays=sort,
-                                      chunk_rays=128)
+                                      sort_rays=sort, chunk_rays=128)
         np.testing.assert_array_equal(op.numpy(), obr)
     assert packet.chunk_live(_T(o), 128) == [True, False, True, True, True]
 
@@ -267,10 +316,8 @@ def test_packet_schedule_longer_than_128_columns():
                         packet._safe_inv(_T(d)), torch.full((64,), 1e20),
                         t_min=1e-3, n_tiles=n_tiles, tile_rays=64)
     assert int(torch.isfinite(tn).sum()) > 120
-    for backend in ("pallas", "xla"):
-        hp = packet.intersect_clusters(accel, _T(o), _T(d), 1e-3, 1e20,
-                                       backend=backend)
-        np.testing.assert_array_equal(hp.tri.numpy(), np.asarray(hr.tri))
+    hp = packet.intersect_clusters(accel, _T(o), _T(d), 1e-3, 1e20)
+    np.testing.assert_array_equal(hp.tri.numpy(), np.asarray(hr.tri))
 
 
 def test_brute_force_matches_jax():

@@ -2,9 +2,9 @@
 
 - occluded_brute(want_blocker=True): blocked and the blocker id (the
   lowest-index blocking triangle) exactly equal to JAX's;
-- the plain K3b sweep and occluded_clusters(want_blocker=True) on both
-  backends: blocked equal to K3 / the brute oracle, -1 exactly where
-  open, and every hint re-verifies;
+- the plain K3b sweep and occluded_clusters(want_blocker=True): blocked
+  equal to K3 / the brute oracle, -1 exactly where open, and every hint
+  re-verifies;
 - priming is exact: primed against unprimed renders (per-sample and
   spp-batched, across Renderer frames, with env NEE) give the same image
   (rtol 1e-5, atol 1e-6) and the same ray count - the JAX package's own
@@ -132,35 +132,60 @@ def test_sweep_occluded_plain_blocker():
     st, si = packet._sorted_schedule(tn)
     args = (st, si, packet._tile_rays6(o, d, n_tiles, 64),
             tm.reshape(n_tiles, 64).contiguous(), accel.blocks_t)
-    visited = torch.zeros(n_tiles, dtype=torch.int64)
-    blocked, btri = sweep.sweep_occluded_plain(*args, want_blocker=True,
-                                               visited=visited)
+    blocked, btri = sweep.sweep_occluded_plain(*args, want_blocker=True)
     assert torch.equal(blocked, sweep.sweep_occluded_plain(*args))
-    assert int(visited.sum()) > 0
     hints = _assert_hints_verify(
         btri.reshape(-1), blocked.reshape(-1) > 0, o, d, tm, v,
-        sweep.bw_rows_by_triangle(accel.blocks_t, 600))
+        accel.bw_rows)
     assert 0 < hints < 450
 
 
-@pytest.mark.parametrize("backend", ["pallas", "xla"])
-def test_occluded_clusters_blocker(backend):
-    """Both backends, sorted and unsorted, with a skipped all-parked
-    chunk: blocked equals the brute oracle and every hint verifies."""
+def test_occluded_clusters_blocker():
+    """Sorted and unsorted, with a skipped all-parked chunk: blocked
+    equals the brute oracle and every hint verifies."""
     v = _soup(700, 5)
     accel = build_clusters(*v)
     o, d = _rays(640, 6, park=((128, 320),))
     tm = np.full(640, 1.5, np.float32)
     ref = np.asarray(joccluded(jnp.asarray(o), jnp.asarray(d),
                                jnp.asarray(tm), *(jnp.asarray(x) for x in v)))
-    rows = sweep.bw_rows_by_triangle(accel.blocks_t, 700)
     for sort in (True, False):
         blocked, btri = packet.occluded_clusters(
-            accel, _T(o), _T(d), _T(tm), backend=backend, sort_rays=sort,
-            chunk_rays=128, want_blocker=True)
+            accel, _T(o), _T(d), _T(tm), sort_rays=sort, chunk_rays=128,
+            want_blocker=True)
         np.testing.assert_array_equal(blocked.numpy(), ref)
         assert (btri[128:320] == -1).all()
-        _assert_hints_verify(btri, blocked, _T(o), _T(d), _T(tm), v, rows)
+        _assert_hints_verify(btri, blocked, _T(o), _T(d), _T(tm), v,
+                             accel.bw_rows)
+
+
+@pytest.mark.parametrize("intersector", ["brute", "cluster"])
+def test_route_hints_verify_with_route_test(intersector):
+    """Each route's blocker hints pass that route's own hint test
+    (front_only) on the same segment, with no edge exception: shadow
+    hints are verified in the arithmetic the traversal decides with."""
+    from pathtracer_torch.scene.build import SceneBuilder
+
+    n_tris = 250 if intersector == "brute" else 700
+    v = _soup(n_tris, 12)
+    b = SceneBuilder()
+    b.add_mesh(np.concatenate(v), np.arange(3 * n_tris).reshape(3, -1).T, 0)
+    scene = b.finalize(device="cpu")
+    if intersector == "cluster":
+        scene = tbuild(scene)
+    cfg = RenderConfig(intersector=intersector)
+    _, occluded_fn, hint_fn = trender.make_intersectors(scene, cfg)
+    o, d = (_T(x) for x in _rays(2000, 13))
+    tm = torch.full((2000,), 1.5)
+    blocked, btri = occluded_fn(o, d, tm, want_blocker=True)
+    assert torch.equal(btri >= 0, blocked) and int(blocked.sum()) > 50
+    sel = btri >= 0
+    ok = hint_fn(btri[sel], o[sel], d[sel], 0.0, tm[sel], front_only=True)[3]
+    assert bool(ok.all())
+    # a back-facing hit is not a blocker: reversed rays reject it
+    back = hint_fn(btri[sel], o[sel], -d[sel], -torch.inf, torch.inf,
+                   front_only=True)[3]
+    assert not bool(back.any())
 
 
 # --- priming is exact -----------------------------------------------------

@@ -77,10 +77,9 @@ def live_slice():
     return ts, kw, np.asarray(img), float(rays)
 
 
-@pytest.mark.parametrize("backend", ["pallas", "xla"])
-def test_slice_matches_live_jax_render(live_slice, backend):
+def test_slice_matches_live_jax_render(live_slice):
     ts, kw, jimg, jrays = live_slice
-    cfg = RenderConfig(traversal_backend=backend, **kw)
+    cfg = RenderConfig(**kw)
     img, rays, _ = trender.render_frame_batched(
         ts, cfg, _cam(Camera, SPONZA_CAM).state(device="cpu"), 0)
     img = img.numpy()

@@ -76,6 +76,23 @@ def test_sahsplit_accel_matches_jax(name):
     np.testing.assert_array_equal(tb, jb)
 
 
+@pytest.mark.parametrize("name", list(SCENES))
+def test_accel_bw_rows_by_triangle(name):
+    """bw_rows holds each triangle's Baldwin-Weber rows of blocks_t, the
+    same on a built accel and on one carried from the JAX package."""
+    js, ts = _pair(name)
+    rows = ts.clusters.bw_rows
+    assert rows.shape == (ts.n_tris, 12)
+    slots = ts.clusters.blocks_t.transpose(1, 2).reshape(-1, 16)
+    real = slots[:, 12] > 0.5
+    ids = torch.round(slots[real, 12]).long() - 1
+    assert torch.equal(rows[ids], slots[real, :12])
+    carried = accel_from_numpy(*(np.asarray(getattr(js.clusters, f)) for f in
+                                 ("aabb_lo", "aabb_hi", "blocks_t")),
+                               device="cpu")
+    assert torch.equal(carried.bw_rows, rows)
+
+
 def test_scene_and_accel_from_numpy_roundtrip():
     js, ts = _pair("materials")
     fields = {k: (None if getattr(js, k) is None else np.asarray(
