@@ -14,16 +14,26 @@ Drives pathtracer_torch's paths on the card and checks them:
    blocker hints) in chunks of a primed headline frame's bounce-0 shadow
    batch (bit-exact blocked and btri, blocked equal to K3's, every hint a
    front-facing blocker with 0 < t < t_max), and K1/K2 once more on that
-   frame's primary batch, whose t_max is per ray;
+   frame's primary batch, whose t_max is per ray; K4 (the block-gated
+   cull) on every replayed K1 chunk at blk 128 and 256, bit-exact against
+   its plain version and against K1, its block mask equal to
+   sc_mask_plain, with the share of (tile, block) pairs it skips;
 3. the config 1-5 golden gates at 64x64, 4 spp, through the kernels
    (robust gate of benchmarks/run_configs.py);
 4. the headline - textured sponza_like (~262k triangles), 1920x1080,
-   4 spp, depth 6, spp-batched - unprimed and then primed: one warm-up
-   frame and --frames timed frames each through Renderer, launch counts
-   reset just before and read just after each run; the primed film must
-   pass the gate against the unprimed one with the same ray counts;
-5. config 4 at its published size (1024x1024, 1 spp, depth 6, env-map
-   NEE; frame_batch 1), unprimed and primed.
+   4 spp, depth 6, spp-batched - unprimed with K1, unprimed with
+   PT_CULL_SKIP=1 (K4 only: same ray counts frame for frame, film within
+   the gate), and primed: one warm-up frame and --frames timed frames
+   each through Renderer, launch counts reset just before and read just
+   after each run; the primed film must pass the gate against the
+   unprimed one with the same ray counts;
+5. config 4 at BASELINE's size and frame batch (1024x1024, 1 spp, depth
+   6, env-map NEE, frame_batch = saturating_frame_batch = 8), unprimed
+   and primed, and one 8-frame step held to 8 single-frame steps (gate,
+   equal rays);
+6. config 3 at BASELINE's size (materials suite, 512x512, 4 spp, depth
+   6, frame_batch 8: two steps = 64 spp) with the denoiser: the denoised
+   display finite and in [0, 1], three AOVs.
 
 Prints one JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line,
@@ -50,6 +60,9 @@ RMSE_TOL, OUTLIER_TOL, MEAN_TOL = 5e-3, 0.02, 1e-3
 DEVICE = "cuda"
 # the headline: bench.py's textured sponza_like at 1080p (never cut)
 HEADLINE_TRIS, HEADLINE_W, HEADLINE_H = 262_000, 1920, 1080
+# BASELINE configs 4 and 3 (benchmarks/run_configs.py:103-116) at their
+# published sizes
+CONFIG4_SIZE, CONFIG3_SIZE = 1024, 512
 SPONZA_CAM = ((3.0, 4.5, 6.0), (14.0, 3.0, 6.0))
 BOX_CAM = ((0.5, 0.5, 2.2), (0.5, 0.5, 0.0))
 BUNNY_CAM = ((0.0, 2.0, 5.0), (0.0, 1.2, 0.0))
@@ -67,8 +80,13 @@ KERNELS = {
     "sweep_occluded_blocker": ("pathtracer_torch/csrc/sweep.cu",
                                "pathtracer/kernels/pallas_sweep.py:223 "
                                "(want_blocker=True)"),
+    "tile_cull_skip": ("pathtracer_torch/csrc/cull.cu",
+                       "pathtracer/kernels/pallas_cull.py:66"),
 }
 UNPRIMED_KERNELS = ("tile_cull", "sweep_closest", "sweep_occluded")
+PRIMED_KERNELS = UNPRIMED_KERNELS + ("sweep_occluded_blocker",)
+SKIP_KERNELS = ("tile_cull_skip", "sweep_closest", "sweep_occluded")
+SKIP_BLKS = (128, 256)   # K4 block widths replayed (PT_CULL_BLK default 128)
 # Least-time model of one NVIDIA H100 SXM (NVIDIA's data sheet, 700 W):
 # 67e12 FP32 FLOP/s outside the tensor cores counts an FMA as two; the
 # kernels are built with -fmad=false (bit-exact against their plain
@@ -260,10 +278,14 @@ def bound_ms(name, args, pair_tests):
     the (ray, triangle) tests their plain versions count (pair_tests:
     live rays, real lanes, K3 up to the first blocking lane)."""
     nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa
-    if name == "tile_cull":
+    if name in ("tile_cull", "tile_cull_skip"):
         lo, hi, o, inv_d, t_max = args
         tiles = t_max.numel() // 64
-        pairs = int((o[:, 0] < 1e29).sum()) * int((lo[:, 0] < 1e29).sum())
+        # K1: every unparked ray against every real cluster; K4: the
+        # (ray, box) tests of its plain version (NB union boxes plus the
+        # real clusters of kept blocks, per tile)
+        pairs = (int(pair_tests) if name == "tile_cull_skip" else
+                 int((o[:, 0] < 1e29).sum()) * int((lo[:, 0] < 1e29).sum()))
         ops = pairs * CULL_OPS
         moved = nbytes(lo, hi, o, inv_d, t_max) + tiles * lo.shape[0] * 4
     else:
@@ -285,10 +307,13 @@ def phase_kernels(scene, cfg, cam):
     from pathtracer_torch.render import render_frame_with_stats
     from pathtracer_torch.utils import vmath
 
-    stats = {k: {"ms": [], "plain_ms": [], "ops_ms": [], "bytes_ms": [],
-                 "bound_ms": [], "pairs": [], "max_abs_err": 0.0,
-                 "calls": 0}
-             for k in KERNELS}
+    def new_stats():
+        return {"ms": [], "plain_ms": [], "ops_ms": [], "bytes_ms": [],
+                "bound_ms": [], "pairs": [], "max_abs_err": 0.0, "calls": 0}
+
+    stats = {k: new_stats() for k in KERNELS}
+    skip_stats = {blk: dict(new_stats(), skip=[]) for blk in SKIP_BLKS}
+    cull_chunks = []     # every replayed K1 chunk, for K4
 
     def run_plain(name, args, kw, pair_tests):
         if name == "tile_cull":
@@ -335,9 +360,50 @@ def phase_kernels(scene, cfg, cam):
                                  "re-verify")
         return int(sel.sum()), int(edge.sum())
 
+    def record_stats(s, name, args, ms, ms_p, pair_tests, err):
+        s["ms"].append(ms)
+        s["plain_ms"].append(ms_p)
+        ops_ms, bytes_ms, pairs = bound_ms(name, args, pair_tests)
+        s["pairs"].append(pairs)
+        s["ops_ms"].append(ops_ms)
+        s["bytes_ms"].append(bytes_ms)
+        s["bound_ms"].append(max(ops_ms, bytes_ms))
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        s["calls"] += 1
+
+    def compare_skip(label, args, kw, blk):
+        """K4 on a K1 chunk: bit-exact vs its plain version and vs K1,
+        its mask equal to sc_mask_plain."""
+        n_tiles = kw["n_tiles"]
+        k1 = cull.tile_cull(*args, **kw)
+        nb = cull.union_boxes(args[0], args[1], blk)[0].shape[0]
+        mask = torch.empty((n_tiles, nb), dtype=torch.int32, device=DEVICE)
+
+        def kernel():
+            return cull.tile_cull_skip(*args, **kw, blk=blk, mask_out=mask)
+
+        kernel()                                              # warm-up
+        out, ms = timed(kernel)
+        pair_tests = torch.zeros((), dtype=torch.int64, device=DEVICE)
+        ref, ms_p = timed(lambda: cull.tile_cull_skip_plain(
+            *args, **kw, blk=blk, pair_tests=pair_tests))
+        for other, what in ((ref, "its plain version"), (k1, "K1")):
+            if not torch.equal(out, other):
+                raise PhaseError(f"K4 blk {blk} {label}: "
+                                 f"{int((out != other).sum())} entries "
+                                 f"differ from {what}")
+        if not torch.equal(mask, cull.sc_mask_plain(*args, **kw, blk=blk)):
+            raise PhaseError(f"K4 blk {blk} {label}: mask != sc_mask_plain")
+        s = skip_stats[blk]
+        record_stats(s, "tile_cull_skip", args, ms, ms_p, pair_tests, 0.0)
+        s["skip"].append(1.0 - float(mask.float().mean()))
+        return s["skip"][-1], ms
+
     def compare(name, label, args, kw, record=True):
         run_kernel(name, args, kw)                            # warm-up
         out, ms = timed(lambda: run_kernel(name, args, kw))
+        if name == "tile_cull":
+            cull_chunks.append((label, args, kw, ms))
         pair_tests = torch.zeros((), dtype=torch.int64, device=DEVICE)
         ref, ms_p = timed(lambda: run_plain(name, args, kw, pair_tests))
         if name == "tile_cull":
@@ -377,18 +443,8 @@ def phase_kernels(scene, cfg, cam):
                 blocked=int(out[0].sum()), hints_verified=hints,
                 hints_on_edges=edge)
             err = 0.0
-        if not record:
-            return
-        s = stats[name]
-        s["ms"].append(ms)
-        s["plain_ms"].append(ms_p)
-        ops_ms, bytes_ms, pairs = bound_ms(name, args, pair_tests)
-        s["pairs"].append(pairs)
-        s["ops_ms"].append(ops_ms)
-        s["bytes_ms"].append(bytes_ms)
-        s["bound_ms"].append(max(ops_ms, bytes_ms))
-        s["max_abs_err"] = max(s["max_abs_err"], err)
-        s["calls"] += 1
+        if record:
+            record_stats(stats[name], name, args, ms, ms_p, pair_tests, err)
 
     for b in capture_chunks(scene, cfg, cam):
         for args, kw in b["tile_cull"]:
@@ -413,7 +469,19 @@ def phase_kernels(scene, cfg, cam):
             compare("sweep_occluded_blocker", label, args, kw)
         log("kernels_batch", batch=label, chunks=b["chunks"],
             compared=len(b["tile_cull"]))
-    for name, s in stats.items():
+    # K4 on every replayed K1 chunk (unprimed primary, shadow0, bounce1;
+    # primed primary), at each block width
+    for label, args, kw, k1_ms in cull_chunks:
+        for blk in SKIP_BLKS:
+            if not cull.gated(args[0].shape[0], blk):
+                raise PhaseError(f"K4: {args[0].shape[0]} clusters do not "
+                                 f"gate at blk {blk}")
+            skip, ms = compare_skip(label, args, kw, blk)
+            log("k4_chunk", batch=label, blk=blk, skipped_blocks=skip,
+                ms=ms, k1_ms=k1_ms)
+    stats["tile_cull_skip"] = skip_stats[SKIP_BLKS[0]]
+
+    def summarize(name, s, **extra):
         if not s["calls"]:
             raise PhaseError(f"{name}: never compared")
         mean = {k: sum(s[k]) / s["calls"]
@@ -422,7 +490,16 @@ def phase_kernels(scene, cfg, cam):
         s.update(mean, bound_by=("operations" if mean["ops_ms"]
                                  >= mean["bytes_ms"] else "bytes"))
         log("kernel_vs_plain", kernel=name, chunks=s["calls"],
-            max_abs_err=s["max_abs_err"], bound_by=s["bound_by"], **mean)
+            max_abs_err=s["max_abs_err"], bound_by=s["bound_by"], **mean,
+            **extra)
+
+    for name, s in stats.items():
+        summarize(name, s)
+    for blk in SKIP_BLKS[1:]:
+        summarize("tile_cull_skip", skip_stats[blk], blk=blk)
+    for blk, s in skip_stats.items():
+        log("k4_skip_rate", blk=blk, mean=sum(s["skip"]) / len(s["skip"]),
+            per_chunk=s["skip"])
     return stats
 
 
@@ -503,40 +580,54 @@ def phase_goldens(tmp_dir):
         raise PhaseError(f"golden gate failed for configs {failed}")
 
 
-def drive(label, scene, cfg, cam, frames, need):
-    """One warm-up frame and `frames` timed frames through Renderer, with
-    the launch counts set to 0 just before and read just after."""
+def drive(label, scene, cfg, cam, frames, need, env=None):
+    """One warm-up step and `frames` timed steps through Renderer, with
+    the launch counts set to 0 just before and read just after; `env`
+    sets environment variables for the run. A step folds
+    cfg.frame_batch frames, so ms per frame is step time / frame_batch.
+    Returns (result dict, the Renderer)."""
     import torch
 
     from pathtracer_torch import kernels
     from pathtracer_torch.render import Renderer
 
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    r = Renderer(scene, cfg, cam, device=DEVICE)
-    t0 = time.perf_counter()
-    r.step()
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    times, rays = [], []
-    for _ in range(frames):
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        r = Renderer(scene, cfg, cam, device=DEVICE)
         t0 = time.perf_counter()
         r.step()
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        rays.append(int(r.last_rays))
-    counts = dict(kernels.LAUNCHES)
+        warm_s = time.perf_counter() - t0
+        times, rays = [], []
+        for _ in range(frames):
+            t0 = time.perf_counter()
+            r.step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            rays.append(int(r.last_rays))
+        counts = dict(kernels.LAUNCHES)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    f = cfg.frame_batch
     img = r.film.accum
     res = dict(width=cfg.width, height=cfg.height, spp=cfg.spp,
-               max_depth=cfg.max_depth, tris=scene.n_tris,
-               priming=cfg.primary_priming, warmup_s=warm_s,
-               frame_ms=[t * 1e3 for t in times],
-               ms_per_frame=sum(times) / len(times) * 1e3,
-               rays_per_frame=rays,
+               max_depth=cfg.max_depth, frame_batch=f, tris=scene.n_tris,
+               priming=cfg.primary_priming, env=env or {}, warmup_s=warm_s,
+               step_ms=[t * 1e3 for t in times],
+               ms_per_frame=sum(times) / len(times) / f * 1e3,
+               rays_per_step=rays,
                mrays_per_s=sum(rays) / sum(times) / 1e6,
                peak_mem_bytes=torch.cuda.max_memory_allocated(),
-               launches=counts, image_mean=float(img.mean()),
+               launches=counts, frames_folded=r.film.frame,
+               image_mean=float(img.mean()),
                image_finite=bool(torch.isfinite(img).all()))
     if r._prime is not None:
         res["hinted_pixels"] = [int((r._prime[:, i] >= 0).sum())
@@ -548,43 +639,126 @@ def drive(label, scene, cfg, cam, frames, need):
     missing = [k for k in need if counts[k] == 0]
     if missing:
         raise PhaseError(f"{label}: the path launched no {missing}")
-    return res, img.cpu().numpy()
+    return res, r
+
+
+def same_render(what, res, r, ref_res, ref_r):
+    """The film passes the gate against the reference run's and the ray
+    counts are equal step for step."""
+    gate = robust_gate(r.film.accum.cpu().numpy(),
+                       ref_r.film.accum.cpu().numpy())
+    log(what, ms=res["ms_per_frame"], ref_ms=ref_res["ms_per_frame"],
+        rays=res["rays_per_step"], ref_rays=ref_res["rays_per_step"],
+        **gate)
+    if not gate["ok"]:
+        raise PhaseError(f"{what}: film differs: {gate}")
+    if res["rays_per_step"] != ref_res["rays_per_step"]:
+        raise PhaseError(f"{what}: ray counts differ: "
+                         f"{res['rays_per_step']} vs "
+                         f"{ref_res['rays_per_step']}")
 
 
 def phase_headline(scene, cfg, cam, frames):
-    base, img_b = drive("headline", scene, cfg, cam, frames,
-                        UNPRIMED_KERNELS)
-    primed, img_p = drive("headline_primed", scene,
-                          dataclasses.replace(cfg, primary_priming=True),
-                          cam, frames, tuple(KERNELS))
-    gate = robust_gate(img_p, img_b)
-    log("priming_ab", ms_off=base["ms_per_frame"],
-        ms_on=primed["ms_per_frame"], rays_off=base["rays_per_frame"],
-        rays_on=primed["rays_per_frame"], **gate)
-    if not gate["ok"]:
-        raise PhaseError(f"primed headline differs from unprimed: {gate}")
-    if primed["rays_per_frame"] != base["rays_per_frame"]:
-        raise PhaseError("primed headline ray counts differ: "
-                         f"{primed['rays_per_frame']} vs "
-                         f"{base['rays_per_frame']}")
-    return base, primed
+    """K1, then K4 (PT_CULL_SKIP=1), then primed."""
+    base, r_b = drive("headline", scene, cfg, cam, frames, UNPRIMED_KERNELS)
+    skip, r_s = drive("headline_cull_skip", scene, cfg, cam, frames,
+                      SKIP_KERNELS, env={"PT_CULL_SKIP": "1"})
+    if skip["launches"]["tile_cull"]:
+        raise PhaseError("PT_CULL_SKIP=1 headline launched K1 "
+                         f"{skip['launches']['tile_cull']} times")
+    same_render("cull_skip_ab", skip, r_s, base, r_b)
+    primed, r_p = drive("headline_primed", scene,
+                        dataclasses.replace(cfg, primary_priming=True), cam,
+                        frames, PRIMED_KERNELS)
+    same_render("priming_ab", primed, r_p, base, r_b)
+    return base, skip, primed
 
 
 def phase_config4(tmp_dir, frames):
+    """BASELINE config 4: 1024x1024, 1 spp, frame_batch 8."""
+    import torch
+
     from pathtracer_torch.accel.cluster import build_scene_clusters
+    from pathtracer_torch.config import saturating_frame_batch
+    from pathtracer_torch.render import Renderer
 
     t0 = time.perf_counter()
     scene = build_scene_clusters(envmap_scene(tmp_dir)).to(DEVICE)
     log("config4_scene", tris=scene.n_tris, seconds=time.perf_counter() - t0)
-    cfg = config4_cfg(width=1024, height=1024, spp=1)
+    f = saturating_frame_batch(CONFIG4_SIZE, CONFIG4_SIZE, 1)
+    cfg = config4_cfg(width=CONFIG4_SIZE, height=CONFIG4_SIZE, spp=1,
+                      frame_batch=f)
     cam = camera(ENV_CAM)
-    base, _ = drive("config4", scene, cfg, cam, frames, UNPRIMED_KERNELS)
+    drive("config4", scene, cfg, cam, frames, UNPRIMED_KERNELS)
     primed, _ = drive("config4_primed", scene,
                       dataclasses.replace(cfg, primary_priming=True), cam,
-                      frames, tuple(KERNELS))
+                      frames, PRIMED_KERNELS)
     if not primed["hinted_pixels"][2] > 0:
         raise PhaseError("config 4 primed: no env-NEE blocker hint")
+    # one F-frame step against F single-frame steps: the same samples
+    single = Renderer(scene, dataclasses.replace(cfg, frame_batch=1),
+                      camera(ENV_CAM), device=DEVICE)
+    rays_single = 0
+    t0 = time.perf_counter()
+    for _ in range(f):
+        single.step()
+        rays_single += int(single.last_rays)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    batched = Renderer(scene, cfg, camera(ENV_CAM), device=DEVICE)
+    batched.step()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    gate = robust_gate(batched.film.accum.cpu().numpy(),
+                       single.film.accum.cpu().numpy())
+    log("config4_batch_vs_single", frames=f, rays_batched=int(
+        batched.last_rays), rays_single=rays_single,
+        ms_per_frame_single=(t1 - t0) / f * 1e3,
+        ms_per_frame_batched=(t2 - t1) / f * 1e3, **gate)
+    if not gate["ok"] or int(batched.last_rays) != rays_single:
+        raise PhaseError(f"config 4: one {f}-frame step differs from {f} "
+                         f"single steps: {gate}, rays "
+                         f"{int(batched.last_rays)} vs {rays_single}")
     return primed
+
+
+def phase_config3():
+    """BASELINE config 3 with the denoiser: 512x512, 4 spp, frame_batch
+    8; two steps = 64 spp."""
+    import numpy as np
+    import torch
+
+    from pathtracer_torch.accel.cluster import build_scene_clusters
+    from pathtracer_torch.config import RenderConfig, saturating_frame_batch
+    from pathtracer_torch.scene import procedural
+
+    scene = build_scene_clusters(procedural.cornell_box(
+        materials_suite=True).finalize(device="cpu")).to(DEVICE)
+    cfg = RenderConfig(width=CONFIG3_SIZE, height=CONFIG3_SIZE, spp=4,
+                       max_depth=6, spp_batch=True, denoise=True,
+                       frame_batch=saturating_frame_batch(
+                           CONFIG3_SIZE, CONFIG3_SIZE, 4))
+    res, r = drive("config3_denoise", scene, cfg, camera(BOX_CAM), 1,
+                   UNPRIMED_KERNELS)
+    r.denoised()                                               # warm-up
+    _, dn_ms = timed(r.denoised)
+    disp = r.display()
+    aovs = r.aovs()
+    ok = (bool(np.isfinite(disp).all()) and disp.min() >= 0.0
+          and disp.max() <= 1.0 and sorted(aovs) == ["albedo", "depth",
+                                                      "normal"]
+          and all(a.shape == (CONFIG3_SIZE, CONFIG3_SIZE, 3)
+                  and np.isfinite(a).all()
+                  for a in aovs.values()))
+    log("config3_display", spp_accumulated=r.film.frame * cfg.spp,
+        denoise_ms=dn_ms, display_min=float(disp.min()),
+        display_max=float(disp.max()), display_mean=float(disp.mean()),
+        aovs=sorted(aovs), ok=ok)
+    if not ok or r.film.frame != 2 * cfg.frame_batch:
+        raise PhaseError("config 3: denoised display or AOVs bad")
+    del scene, r
+    torch.cuda.empty_cache()
+    return res
 
 
 def main(argv=None):
@@ -619,17 +793,19 @@ def main(argv=None):
             scene, cfg, cam = headline_setup()
             stats = phase_kernels(scene, cfg, cam)
             phase_goldens(tmp_dir)
-            base, primed = phase_headline(scene, cfg, cam, args.frames)
+            base, skip, primed = phase_headline(scene, cfg, cam,
+                                                args.frames)
             del scene
             phase_config4(tmp_dir, args.frames)
+            phase_config3()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     kern = []
     for name, (src, replaces) in KERNELS.items():
         s = stats[name]
-        launches = (primed if name == "sweep_occluded_blocker"
-                    else base)["launches"][name]
+        launches = {"sweep_occluded_blocker": primed,
+                    "tile_cull_skip": skip}.get(name, base)["launches"][name]
         kern.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches,
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],

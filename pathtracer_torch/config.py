@@ -2,8 +2,9 @@
 
 Same fields and defaults as the JAX `RenderConfig`, so a config can be
 carried across field by field. Values that select a feature this port
-does not implement yet raise `ValueError` naming the ROADMAP item that
-brings it.
+does not implement yet (Sobol, Hosek-Wilkie, reference_quirks, the LBVH,
+wavefront_sort, skip_nee) raise `ValueError` naming the ROADMAP item
+that brings it.
 
 traversal_backend: only "pallas", the hand-written traversal kernels
 (kernels/cull.py, kernels/sweep.py): CUDA kernels for CUDA tensors,
@@ -19,6 +20,14 @@ import dataclasses
 # Wavefront pool-saturation point in lanes, and the default
 # PT_MAX_WAVEFRONT spatial-part split threshold (render.py).
 POOL_SATURATION_LANES = 1 << 23
+
+
+def saturating_frame_batch(width: int, height: int, spp: int,
+                           cap: int = 8) -> int:
+    """Frames per step that grow the pool toward POOL_SATURATION_LANES
+    (the '--frame-batch auto' policy; pathtracer/config.py:35-44)."""
+    pool = width * height * spp
+    return max(1, min(cap, POOL_SATURATION_LANES // pool))
 
 
 def _unported(what: str, item: str):
@@ -126,20 +135,8 @@ class RenderConfig:
             raise _unported("sampler='sobol'", "item 2 (estimators)")
         if self.reference_quirks:
             raise _unported("reference_quirks", "item 2 (estimators)")
-        if self.clamp_radiance > 0.0:
-            raise _unported("clamp_radiance > 0", "item 2 (estimators)")
-        if self.denoise or self.capture_gbuffer:
-            raise _unported("denoise / capture_gbuffer",
-                            "item 4 (G-buffer, denoiser)")
-        if self.frame_batch > 1:
-            raise _unported("frame_batch > 1", "item 5 (renderer extras)")
         if self.intersector == "bvh":
             raise _unported("intersector='bvh'", "item 6 (LBVH)")
-        if self.aperture > 0.0:
-            raise _unported("aperture > 0 (thin lens)",
-                            "item 2 (thin-lens camera)")
-        if self.tonemap != "gamma":
-            raise _unported(f"tonemap={self.tonemap!r}", "item 2 (tone maps)")
         if self.wavefront_sort:
             raise _unported("wavefront_sort", "item 11 (default-off knobs)")
         if self.skip_nee:

@@ -1,11 +1,13 @@
-"""Film: progressive accumulation, display transform, PNG output.
+"""Film: progressive accumulation, display transforms, PNG output, checkpoints.
 
 Counterpart of pathtracer/film/film.py. The accumulation recurrence is
 raygen.rgen:300-302 in f32, accum' = (accum * frame + radiance) /
-(frame + 1); display applies gamma 1/2.2 (raygen.rgen:305-306). PNGs are
-written through the native encoder (utils/native.py). Checkpoints and
-the reinhard/aces tone maps are not ported yet (ROADMAP.md Queue 1,
-items 4 and 2).
+(frame + 1); display applies gamma 1/2.2 (raygen.rgen:305-306), after
+an optional reinhard or aces tone map. PNGs are written through the
+native encoder (utils/native.py). A checkpoint is an .npz with the JAX
+package's keys (`accum`, `frame`), so either package resumes the
+other's; the counter-based RNG makes a resume exact. Reading PNGs waits
+for the loaders (ROADMAP.md Queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -43,13 +45,35 @@ def accumulate_many(film: Film, radiance_sum, k: int) -> Film:
     return Film(accum=accum, frame=film.frame + int(k))
 
 
+def reset(film: Film) -> Film:
+    """Accumulation reset on camera move (main.cpp:678-681 semantics)."""
+    return Film(accum=torch.zeros_like(film.accum), frame=0)
+
+
 def to_display(linear, tonemap: str = "gamma"):
-    """pow(x, 1/2.2) clipped to [0, 1] (the reference's transform)."""
-    if tonemap != "gamma":
-        raise ValueError(f"tonemap {tonemap!r} is not ported "
-                         "(ROADMAP.md Queue 1, item 2)")
+    """Display transform, clipped to [0, 1] (film.py:71-91).
+
+    "gamma"    pow(x, 1/2.2), the reference's transform;
+    "reinhard" x / (1 + x), then gamma;
+    "aces"     Narkowicz's fit of the ACES RRT+ODT, then gamma.
+    """
     x = torch.clamp(linear, min=0.0)
+    if tonemap == "reinhard":
+        x = x / (1.0 + x)
+    elif tonemap == "aces":
+        a, b, c, d, e = 2.51, 0.03, 2.43, 0.59, 0.14
+        x = (x * (a * x + b)) / (x * (c * x + d) + e)
+    elif tonemap != "gamma":
+        raise ValueError(f"unknown tonemap {tonemap!r} "
+                         "(gamma|reinhard|aces)")
     return torch.clamp(x ** (1.0 / 2.2), 0.0, 1.0)
+
+
+def rmse(a, b) -> float:
+    """RMSE between two images, in float64 (the BASELINE accuracy metric)."""
+    a = np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a, np.float64)
+    b = np.asarray(b.cpu() if isinstance(b, torch.Tensor) else b, np.float64)
+    return float(np.sqrt(np.mean((a - b) ** 2)))
 
 
 def write_png(path: str, image) -> None:
@@ -63,3 +87,15 @@ def write_png(path: str, image) -> None:
     data = native.png_encode(arr)
     with open(path, "wb") as f:
         f.write(data)
+
+
+def save_checkpoint(path: str, film: Film) -> None:
+    """Write the film as .npz: accum f32[H, W, 3] and frame (a scalar)."""
+    np.savez(path, accum=film.accum.detach().cpu().numpy(),
+             frame=np.asarray(film.frame, np.int32))
+
+
+def load_checkpoint(path: str, *, device) -> Film:
+    data = np.load(path)
+    return Film(accum=torch.from_numpy(np.array(data["accum"], np.float32))
+                .to(device), frame=int(data["frame"]))

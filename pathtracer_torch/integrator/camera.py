@@ -1,9 +1,9 @@
-"""Camera and pinhole primary rays (counterpart of pathtracer/integrator/camera.py).
+"""Camera and primary rays (counterpart of pathtracer/integrator/camera.py).
 
 `Camera` is the host-side FPS controller (numpy, y-up); `CameraState`
 holds its basis as f32[3] tensors on the render device. Primary rays
-follow raygen.rgen:103-119 with image row 0 at the top. Thin-lens depth
-of field is not ported yet (the config rejects aperture > 0).
+follow raygen.rgen:103-119 with image row 0 at the top; aperture > 0
+adds thin-lens depth of field.
 """
 
 from __future__ import annotations
@@ -92,11 +92,17 @@ class Camera:
 
 def generate_primary_rays(cam: CameraState, width: int, height: int,
                           fov_deg: float, pixel_ids, sample_ids, seed=0,
-                          sampler="pcg"):
-    """Jittered pinhole primary rays -> (origins f32[N,3], directions f32[N,3]).
+                          sampler="pcg", aperture: float = 0.0,
+                          focus_dist: float = 0.0):
+    """Jittered primary rays -> (origins f32[N,3], directions f32[N,3]).
 
     pixel_ids: int[N] flat row-major pixel index (row 0 = image top);
     sample_ids: int[N] global sample index (frame * spp + s).
+    With aperture > 0 and focus_dist > 0, a thin lens (camera.py:103-156):
+    the origin moves on a disk of that diameter in the lens plane and the
+    ray re-aims at the pixel's point on the plane at distance focus_dist
+    along cam.front. The lens sample is lanes 2-3 of the same SALT_JITTER
+    draw, so pinhole rays are unchanged.
     """
     px = (pixel_ids % width).to(torch.float32)
     py = torch.div(pixel_ids, width, rounding_mode="floor").to(torch.float32)
@@ -112,4 +118,14 @@ def generate_primary_rays(cam: CameraState, width: int, height: int,
          - cam.up[None, :] * (v * tan_fov)[:, None])
     d = d * torch.rsqrt(vmath.dotk(d, d))
     o = cam.position[None, :].expand_as(d)
+    if aperture > 0.0 and focus_dist > 0.0:
+        t_focus = focus_dist / vmath.dotk(d, cam.front[None, :])
+        p_focus = o + d * t_focus
+        r = 0.5 * aperture * torch.sqrt(uj[..., 2])
+        phi = 2.0 * math.pi * uj[..., 3]
+        lens = (cam.right[None, :] * (r * torch.cos(phi))[:, None]
+                + cam.up[None, :] * (r * torch.sin(phi))[:, None])
+        o = o + lens
+        d = p_focus - o
+        d = d * torch.rsqrt(vmath.dotk(d, d))
     return o, d

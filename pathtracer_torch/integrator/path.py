@@ -430,11 +430,13 @@ def _nee_env(scene: Scene, cfg: RenderConfig, surf: Surface, view, pixel,
 def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
                 pixel_ids, sample_ids, intersect_fn: Callable,
                 occluded_fn: Callable, prime=None, local_pix=None,
-                sample_window: int = 0, hint_fn: Callable = None):
+                sample_window: int = 0, hint_fn: Callable = None,
+                want_gbuffer: bool = False, n_pixels: int = None):
     """Trace a batch of paths to completion.
 
-    Returns (radiance f32[N,3], rays_traced int64 scalar, prime_out);
-    lanes stay in input order.
+    Returns (radiance f32[N,3], rays_traced int64 scalar, prime_out,
+    gbuf); lanes stay in input order. With cfg.clamp_radiance > 0 each
+    lane's radiance is clamped to it (the firefly clamp, path.py:997-1002).
     intersect_fn(o, d, t_min, t_max, primary=False) -> Hit, t_max a
         scalar or per-ray [N]
     occluded_fn(o, d, t_max, primary=False, want_blocker=False) -> bool[N]
@@ -456,6 +458,14 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
     the intersector's own ray-triangle test (render.make_intersectors),
     for primary hits and (front_only) shadow blockers alike; default
     Moller-Trumbore (intersect.hint_test).
+    want_gbuffer: gbuf is the primary-hit G-buffer {normal f32[P, 3],
+    depth f32[P], albedo f32[P, 3]} over n_pixels rows (default N) indexed
+    like `prime` (path.py:808-831); sky rows hold depth inf, normal 0,
+    albedo 1. Each row is written whole from ONE lane, the first of its
+    row in lane order (in sample-major pools its lowest sample id), so a
+    row's features always come from one sample and the winner does not
+    depend on a scatter's order. gbuf is None without want_gbuffer or at
+    max_depth 1.
     """
     n = origins.shape[0]
     dev = origins.device
@@ -469,6 +479,7 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
                and scene.has_envmap)
     rows_of = (pixel_ids if local_pix is None else local_pix).long()
     prime_out = None
+    gbuf = {}
     if prime is not None:
         if hint_fn is None:
             hint_fn = isect.hint_test(*scene.tri_vertices(
@@ -544,6 +555,9 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
         o, d, throughput, radiance, active, prev_pdf, rays = state
         view = -d
         primed = primary and prime is not None
+        if primary and want_gbuffer:
+            gbuf.update(_gbuffer(surf, o, d, active, rows_of,
+                                 n_pixels or n))
 
         # alpha stochastic transparency (raygen.rgen:143-146)
         u_alpha = rng.uniform1(pix, samp, depth, rng.SALT_ALPHA, cfg.seed,
@@ -652,4 +666,27 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
             state = bounce(depth, state)
     state, _ = segment(state, cfg.max_depth - 1,
                        primary=(cfg.max_depth == 1))
-    return state[3], state[6], prime_out
+    radiance = state[3]
+    if cfg.clamp_radiance > 0.0:
+        radiance = torch.clamp(radiance, max=cfg.clamp_radiance)
+    return radiance, state[6], prime_out, (gbuf or None)
+
+
+def _gbuffer(surf: Surface, o, d, active, rows, n_rows: int):
+    """Primary-hit G-buffer rows (normal | depth | albedo) of the first
+    lane of each row; rows no lane writes keep the sky values."""
+    n = o.shape[0]
+    lane = torch.arange(n, device=o.device)
+    first = torch.full((n_rows,), n, dtype=torch.int64, device=o.device)
+    first.scatter_reduce_(0, rows, lane, "amin")
+    depth = torch.where(active, vmath.dot(surf.position - o, d), torch.inf)
+    grow = torch.cat([torch.where(active[..., None], surf.normal, 0.0),
+                      depth[..., None],
+                      torch.where(active[..., None], surf.albedo, 1.0)],
+                     dim=1)
+    g = torch.cat([torch.zeros((n_rows, 3), device=o.device),
+                   torch.full((n_rows, 1), torch.inf, device=o.device),
+                   torch.ones((n_rows, 3), device=o.device)], dim=1)
+    has = first < n
+    g[has] = grow[first[has]]
+    return {"normal": g[:, 0:3], "depth": g[:, 3], "albedo": g[:, 4:7]}

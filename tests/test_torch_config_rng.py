@@ -35,13 +35,10 @@ def test_render_config_fields_and_defaults_match():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(sky="hosek"), dict(tonemap="reinhard"),
-    dict(sky="envmap", sampler="sobol"), dict(sampler="sobol"),
-    dict(primary_priming=True, intersector="bvh"), dict(denoise=True),
-    dict(capture_gbuffer=True), dict(wavefront_sort=True),
-    dict(intersector="bvh"), dict(spp_batch=True, frame_batch=2),
-    dict(clamp_radiance=1.0), dict(aperture=0.1, focus_dist=1.0),
-    dict(tonemap="aces"), dict(reference_quirks=True), dict(skip_nee=True),
+    dict(sky="hosek"), dict(sky="envmap", sampler="sobol"),
+    dict(sampler="sobol"), dict(primary_priming=True, intersector="bvh"),
+    dict(wavefront_sort=True), dict(intersector="bvh"),
+    dict(reference_quirks=True), dict(skip_nee=True),
 ])
 def test_config_rejects_unported_values(kw):
     with pytest.raises(ValueError, match="ROADMAP|requires"):
@@ -51,7 +48,10 @@ def test_config_rejects_unported_values(kw):
 @pytest.mark.parametrize("kw", [
     dict(sky="envmap"), dict(sky="envmap", env_importance_sampling=True,
                              env_nee_cell=1, env_shadow_rr=0.5),
-    dict(primary_priming=True)])
+    dict(primary_priming=True), dict(tonemap="reinhard"),
+    dict(tonemap="aces"), dict(denoise=True), dict(capture_gbuffer=True),
+    dict(spp_batch=True, frame_batch=2), dict(clamp_radiance=1.0),
+    dict(aperture=0.1, focus_dist=1.0)])
 def test_config_accepts_ported_slices(kw):
     assert dataclasses.asdict(tconfig.RenderConfig(**kw)) == \
         dataclasses.asdict(jconfig.RenderConfig(**kw))
@@ -66,6 +66,14 @@ def test_config_validation_matches_jax(kw):
         jconfig.RenderConfig(**kw)
     with pytest.raises(ValueError):
         tconfig.RenderConfig(**kw)
+
+
+@pytest.mark.parametrize("w,h,spp", [(1024, 1024, 1), (512, 512, 4),
+                                     (1920, 1080, 4), (64, 64, 1),
+                                     (4096, 4096, 1)])
+def test_saturating_frame_batch_matches_jax(w, h, spp):
+    assert tconfig.saturating_frame_batch(w, h, spp) == \
+        jconfig.saturating_frame_batch(w, h, spp)
 
 
 def test_config_rejects_xla_backend():

@@ -210,3 +210,44 @@ def test_primed_render_on_cuda_matches_unprimed(dev):
     torch.testing.assert_close(primed, base, rtol=1e-5, atol=1e-6)
     assert rays_p == rays_b
     assert k3b_b == 0 and k3b_p > 0
+
+
+@pytest.mark.parametrize("blk", [128, 256])
+def test_skip_cull_kernel_matches_plain_and_k1(dev, blk, monkeypatch):
+    """K4: the block-gated cull equals its plain version and K1 bit for
+    bit, its mask equals sc_mask_plain, and tile_cull launches it (and
+    not K1) under PT_CULL_SKIP=1."""
+    # 500 boxes on islands 25 apart (a 256 block spans ~2 islands), 12
+    # of them far pads: padded to 512 clusters
+    rng = np.random.default_rng(11)
+    ctr = rng.uniform(-1, 1, (500, 3)) + (np.arange(500) // 100)[:, None] \
+        * 25.0
+    half = rng.uniform(0.05, 0.4, (500, 3))
+    lo = torch.from_numpy(ctr - half).float().to(dev)
+    hi = torch.from_numpy(ctr + half).float().to(dev)
+    lo[-12:] = hi[-12:] = 1e30
+    assert cull.gated(500, blk)
+    n_tiles = 50
+    o, d = _rays(64 * n_tiles, 12, dev, park_tail=70)
+    tm = torch.full((o.shape[0],), 40.0, device=dev)
+    inv = packet._safe_inv(d)
+    kw = dict(t_min=1e-3, n_tiles=n_tiles, tile_rays=64)
+    nb = cull.union_boxes(lo, hi, blk)[0].shape[0]
+    mask = torch.full((n_tiles, nb), -1, dtype=torch.int32, device=dev)
+    before = dict(kernels.LAUNCHES)
+    got = cull.tile_cull_skip(lo, hi, o, inv, tm, blk=blk, mask_out=mask,
+                              **kw)
+    assert kernels.LAUNCHES["tile_cull_skip"] == before["tile_cull_skip"] + 1
+    ref = cull.tile_cull_skip_plain(lo, hi, o, inv, tm, blk=blk, **kw)
+    k1 = cull.tile_cull_plain(lo, hi, o, inv, tm, **kw)
+    assert torch.equal(got, ref) and torch.equal(got, k1)
+    assert torch.equal(mask, cull.sc_mask_plain(lo, hi, o, inv, tm, blk=blk,
+                                                **kw))
+    assert 0 < int(mask.sum()) < mask.numel()
+    assert bool(torch.isfinite(got).any())
+    monkeypatch.setenv("PT_CULL_SKIP", "1")
+    monkeypatch.setenv("PT_CULL_BLK", str(blk))
+    before = dict(kernels.LAUNCHES)
+    assert torch.equal(cull.tile_cull(lo, hi, o, inv, tm, **kw), k1)
+    assert kernels.LAUNCHES["tile_cull_skip"] == before["tile_cull_skip"] + 1
+    assert kernels.LAUNCHES["tile_cull"] == before["tile_cull"]

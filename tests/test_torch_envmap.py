@@ -30,6 +30,7 @@ from pathtracer_torch.scene import procedural as tproc
 from pathtracer_torch.scene.build import SceneBuilder as TBuilder
 from pathtracer_torch.scene.types import (META_FIELDS, OPTIONAL_FIELDS,
                                           TENSOR_FIELDS)
+from tests.test_torch_shading import assert_parity
 
 
 def _radiance(h, w, seed=0):
@@ -137,8 +138,14 @@ def test_sample_env_matches_jax():
                                  *(torch.from_numpy(x) for x in u))
     np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
-    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-6,
-                               atol=1e-6)
+    # float64 directions of the same texels and jitter
+    h, w = cc.shape
+    theta = (tr.numpy() + u[2].astype(np.float64)) / h * np.pi
+    phi = ((tc.numpy() + u[3].astype(np.float64)) / w - 0.5) * 2.0 * np.pi
+    exact = np.stack([np.sin(theta) * np.cos(phi), np.cos(theta),
+                      np.sin(theta) * np.sin(phi)], axis=-1)
+    assert_parity("sample_env", td.numpy(), np.asarray(jd), exact,
+                  rtol=1e-6, atol=1e-6)
     # the hot spot draws most samples
     assert ((tr.numpy() == 4) & (tc.numpy() == 6)).mean() > 0.3
 

@@ -188,7 +188,7 @@ def test_trace_paths_matches_jax_bruteforce():
             o, d, *jv, a, b),
         lambda o, d, m, primary=False, want_blocker=False:
             jisect.occluded_brute(o, d, m, *jv))
-    trad, trays, _ = tpath.trace_paths(
+    trad, trays, _, _ = tpath.trace_paths(
         ts, RenderConfig(**cfg_kw), to, td, torch.from_numpy(pix),
         torch.zeros(w * h, dtype=torch.int64),
         lambda o, d, a, b, primary=False: tisect.intersect_brute(

@@ -286,8 +286,8 @@ def test_primed_tie_keeps_traversal_order(intersector):
     other = torch.where(base.tri == 0, 1, 0).to(torch.int32)
     prime = torch.stack([other, -torch.ones_like(other),
                          -torch.ones_like(other)], 1)
-    _, _, out = tpath.trace_paths(scene, cfg, o, d, pix, samp, fns[0],
-                                  fns[1], prime=prime, hint_fn=fns[2])
+    _, _, out, _ = tpath.trace_paths(scene, cfg, o, d, pix, samp, fns[0],
+                                     fns[1], prime=prime, hint_fn=fns[2])
     assert torch.equal(out[:, 0], base.tri)
 
 

@@ -44,6 +44,9 @@ def _cam(cls, spec):
 
 
 def robust_gate(img, golden):
+    """(inlier RMSE, flip fraction, relative mean shift) of img against
+    golden: [..., C] numpy, JAX or CPU torch arrays."""
+    img, golden = np.asarray(img), np.asarray(golden)
     d = img - golden
     ad = np.abs(d).max(-1)
     inl = ad <= np.percentile(ad, 98.0)
@@ -80,7 +83,7 @@ def live_slice():
 def test_slice_matches_live_jax_render(live_slice):
     ts, kw, jimg, jrays = live_slice
     cfg = RenderConfig(**kw)
-    img, rays, _ = trender.render_frame_batched(
+    img, rays, _, _ = trender.render_frame_batched(
         ts, cfg, _cam(Camera, SPONZA_CAM).state(device="cpu"), 0)
     img = img.numpy()
     assert img.shape == jimg.shape and np.isfinite(img).all()
@@ -131,9 +134,10 @@ def test_pool_part_split_matches_single_pool(monkeypatch):
     cfg = RenderConfig(width=16, height=16, spp=2, max_depth=3,
                        spp_batch=True)
     cam = _cam(Camera, BOX_CAM).state(device="cpu")
-    whole, rays, _ = trender.render_frame_batched(scene, cfg, cam, 0)
+    whole, rays, _, _ = trender.render_frame_batched(scene, cfg, cam, 0)
     monkeypatch.setenv("PT_MAX_WAVEFRONT", "200")      # -> 3 spatial parts
-    split, rays_s, _ = trender.render_frame_batched(scene, cfg, cam, 0)
+    split, rays_s, _, _ = trender.render_frame_batched(scene, cfg, cam,
+                                                       0)
     assert int(rays) == int(rays_s)
     torch.testing.assert_close(split, whole, rtol=1e-5, atol=1e-5)
     per_sample = dataclasses.replace(cfg, spp_batch=False)
@@ -186,7 +190,7 @@ def test_app_renders_and_rejects_unported_flags(tmp_path):
               "--device", "cpu", "--out", out])
     assert open(out, "rb").read(8) == b"\x89PNG\r\n\x1a\n"
     with pytest.raises(SystemExit):
-        app.main(["--scene", "cornell", "--denoise", "--device", "cpu"])
+        app.main(["--scene", "cornell", "--interactive", "--device", "cpu"])
 
 
 def test_app_cli_json_lines(tmp_path):

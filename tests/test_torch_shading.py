@@ -5,6 +5,7 @@ atol 1e-6 (rsqrt, sin/cos and pow may differ by an ulp between XLA and
 torch; XLA may also contract a*b+c on the host).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +23,35 @@ from pathtracer_torch.integrator import sky as tsky
 from pathtracer_torch.utils import vmath as tvm
 
 TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+def assert_parity(name, got, ref, exact, rtol, atol):
+    """assert_allclose(got, ref, rtol, atol) for a port-vs-JAX float
+    comparison. On a mismatch the message gives each side's largest error
+    against `exact` (a float64 evaluation of the same function), the
+    dtypes, JAX's x64 flag, torch's thread count and CPU capability, and
+    the worst elements of both sides, so that a failure names the side
+    that moved and the process state it moved in."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    try:
+        np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol)
+    except AssertionError as e:
+        exact = np.asarray(exact, np.float64)
+        err_p = np.abs(got - exact)
+        err_j = np.abs(ref - exact)
+        bad = ~np.isclose(got, ref, rtol=rtol, atol=atol)
+        worst = np.argsort(-np.abs(got - ref), axis=None)[:4]
+        rows = [(tuple(int(k) for k in np.unravel_index(i, got.shape)),
+                 float(got.flat[i]), float(ref.flat[i]),
+                 float(exact.flat[i])) for i in worst]
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} of {bad.size} elements apart; max "
+            f"error vs float64: port {err_p.max():.3g}, JAX "
+            f"{err_j.max():.3g}; dtypes port {got.dtype}, JAX {ref.dtype};"
+            f" jax_enable_x64={jax.config.jax_enable_x64}; torch threads "
+            f"{torch.get_num_threads()}, CPU capability "
+            f"{torch.backends.cpu.get_cpu_capability()}; worst (index, "
+            f"port, JAX, float64): {rows}\n{e}") from None
 
 
 def _unit(n, seed):
@@ -109,11 +139,16 @@ def test_bsdf_sampling_matches_jax():
     nrm, v, _, _, _, rough, u1, u2 = _shading_inputs(seed=3)
     J = jnp.asarray
     T = torch.from_numpy
-    _close(tmf.sample_cosine(T(nrm), T(u1), T(u2)),
-           jmf.sample_cosine(J(nrm), J(u1), J(u2)), rtol=1e-5, atol=2e-6)
-    _close(tmf.sample_ggx(T(nrm), T(v), T(rough), T(u1), T(u2)),
-           jmf.sample_ggx(J(nrm), J(v), J(rough), J(u1), J(u2)),
-           rtol=1e-5, atol=2e-6)
+    D = lambda x: T(x.astype(np.float64))  # noqa: E731
+    assert_parity("sample_cosine", tmf.sample_cosine(T(nrm), T(u1), T(u2)),
+                  jmf.sample_cosine(J(nrm), J(u1), J(u2)),
+                  tmf.sample_cosine(D(nrm), D(u1), D(u2)), rtol=1e-5,
+                  atol=2e-6)
+    assert_parity("sample_ggx",
+                  tmf.sample_ggx(T(nrm), T(v), T(rough), T(u1), T(u2)),
+                  jmf.sample_ggx(J(nrm), J(v), J(rough), J(u1), J(u2)),
+                  tmf.sample_ggx(D(nrm), D(v), D(rough), D(u1), D(u2)),
+                  rtol=1e-5, atol=2e-6)
 
 
 def test_vmath_matches_jax():
@@ -150,8 +185,11 @@ def test_film_matches_jax():
     tm = tfilm.accumulate_many(tf, torch.from_numpy(frames.sum(0)), 3)
     assert tm.frame == int(jm.frame) == 6
     _close(tm.accum, jm.accum)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tfilm.to_display(tf.accum, "aces")
+    for tonemap in ("reinhard", "aces"):
+        _close(tfilm.to_display(tf.accum, tonemap),
+               jfilm.to_display(jf.accum, tonemap))
+    with pytest.raises(ValueError, match="gamma|reinhard|aces"):
+        tfilm.to_display(tf.accum, "filmic")
 
 
 def test_write_png_roundtrip(tmp_path):
