@@ -17,7 +17,11 @@ Drives pathtracer_torch's paths on the card and checks them:
    frame's primary batch, whose t_max is per ray; K4 (the block-gated
    cull) on every replayed K1 chunk at blk 128 and 256, bit-exact against
    its plain version and against K1, its block mask equal to
-   sc_mask_plain, with the share of (tile, block) pairs it skips;
+   sc_mask_plain, with the share of (tile, block) pairs it skips; per
+   sweep kernel the lane tests its data needs, those a kernel testing
+   every lane of every visited column runs, and those the kernel runs
+   (from the plain versions' column walk), with its registers and
+   occupancy;
 3. the config 1-5 golden gates at 64x64, 4 spp, through the kernels
    (robust gate of benchmarks/run_configs.py);
 4. the headline - textured sponza_like (~262k triangles), 1920x1080,
@@ -257,6 +261,12 @@ def capture_chunks(scene, cfg, cam, frame_idx=0, prime=None):
     return [b for b in batches if b is not None]
 
 
+def plain_args(args):
+    """A recorded sweep call's arguments for its plain version: the
+    accel's blocks_t in place of the accel."""
+    return args[:4] + (args[4].blocks_t,) + args[5:]
+
+
 def timed(fn):
     import torch
 
@@ -289,12 +299,12 @@ def bound_ms(name, args, pair_tests):
         ops = pairs * CULL_OPS
         moved = nbytes(lo, hi, o, inv_d, t_max) + tiles * lo.shape[0] * 4
     else:
-        st, si, rays, per_ray, blocks_t = args[:5]
+        st, si, rays, per_ray, accel = args[:5]
         pairs = int(pair_tests)
         ops = pairs * BW_OPS[name]
         outs = {"sweep_closest": 4, "sweep_occluded": 1,
                 "sweep_occluded_blocker": 2}[name]
-        moved = (nbytes(st, si, rays, per_ray, blocks_t)
+        moved = (nbytes(st, si, rays, per_ray, accel.blocks_t)
                  + outs * per_ray.numel() * 4)
     return ops / PEAK_FP32_INSTR * 1e3, moved / PEAK_BYTES * 1e3, pairs
 
@@ -309,7 +319,8 @@ def phase_kernels(scene, cfg, cam):
 
     def new_stats():
         return {"ms": [], "plain_ms": [], "ops_ms": [], "bytes_ms": [],
-                "bound_ms": [], "pairs": [], "max_abs_err": 0.0, "calls": 0}
+                "bound_ms": [], "pairs": [], "max_abs_err": 0.0, "calls": 0,
+                "walk": []}
 
     stats = {k: new_stats() for k in KERNELS}
     skip_stats = {blk: dict(new_stats(), skip=[]) for blk in SKIP_BLKS}
@@ -319,16 +330,31 @@ def phase_kernels(scene, cfg, cam):
         if name == "tile_cull":
             return cull.tile_cull_plain(*args, **kw)
         if name == "sweep_closest":
-            return sweep.sweep_closest_plain(*args, pair_tests=pair_tests)
-        return sweep.sweep_occluded_plain(*args, pair_tests=pair_tests,
-                                          **kw)
+            return sweep.sweep_closest_plain(*plain_args(args),
+                                             pair_tests=pair_tests)
+        return sweep.sweep_occluded_plain(
+            *plain_args(args), pair_tests=pair_tests,
+            want_blocker=kw.get("want_blocker", False))
+
+    def walk_counts(name, args, kw):
+        """The plain version's column walk of one sweep call: (columns
+        visited, lane tests the kernel runs)."""
+        tests = torch.zeros((), dtype=torch.int64, device=DEVICE)
+        cols = torch.zeros(args[0].shape[0], dtype=torch.int64,
+                           device=DEVICE)
+        if name == "sweep_closest":
+            sweep.sweep_closest_plain(*plain_args(args), kernel_tests=tests,
+                                      tile_columns=cols)
+        else:
+            sweep.sweep_occluded_plain(
+                *plain_args(args), want_blocker=kw.get("want_blocker", False),
+                kernel_tests=tests, tile_columns=cols)
+        return int(cols.sum()), int(tests)
 
     def run_kernel(name, args, kw):
         if name == "tile_cull":
             return cull.tile_cull(*args, **kw)
-        if name == "sweep_closest":
-            return sweep.sweep_closest(*args)
-        return sweep.sweep_occluded(*args, **kw)
+        return getattr(sweep, name.replace("_blocker", ""))(*args, **kw)
 
     bw_rows = scene.clusters.bw_rows
 
@@ -445,6 +471,10 @@ def phase_kernels(scene, cfg, cam):
             err = 0.0
         if record:
             record_stats(stats[name], name, args, ms, ms_p, pair_tests, err)
+            if name != "tile_cull":
+                stats[name]["walk"].append(walk_counts(name, args, kw))
+                stats[name]["shape"] = (args[2].shape[2],
+                                        args[4].tris_per_cluster)
 
     for b in capture_chunks(scene, cfg, cam):
         for args, kw in b["tile_cull"]:
@@ -500,6 +530,19 @@ def phase_kernels(scene, cfg, cam):
     for blk, s in skip_stats.items():
         log("k4_skip_rate", blk=blk, mean=sum(s["skip"]) / len(s["skip"]),
             per_chunk=s["skip"])
+    for name in ("sweep_closest", "sweep_occluded", "sweep_occluded_blocker"):
+        s = stats[name]
+        n = s["calls"]
+        r, k = s["shape"]
+        columns = sum(w[0] for w in s["walk"]) / n
+        dense = columns * r * k
+        kernel = sum(w[1] for w in s["walk"]) / n
+        log("sweep_work", kernel=name, chunks=n, needed_tests=s["pairs"],
+            dense_tests=dense, kernel_tests=kernel,
+            dense_over_needed=dense / s["pairs"],
+            kernel_over_needed=kernel / s["pairs"],
+            columns=columns,
+            **sweep.kernel_info(name, r, k))
     return stats
 
 

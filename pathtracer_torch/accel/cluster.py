@@ -15,6 +15,15 @@ Layouts are the JAX package's:
                             blocks_t once, so a hint re-test
                             (render.make_intersectors) does the sweeps'
                             arithmetic with one gather
+  n_lanes    i32[C]         the port's: 1 + the last lane whose id row is
+                            > 0 (0 for a pad cluster); the build packs a
+                            cluster's triangles first, so the sweep
+                            kernels test lanes < n_lanes only
+  blocks_lm  f32[C, K, 16]  the port's: blocks_t lane-major, each lane's
+                            16 rows contiguous (64 B), the sweep kernels'
+                            staging layout
+The three derived tables are built once with the accel (also for a JAX
+accel carried in by accel_from_numpy) and move with it in `to`.
 The JAX accel's Moller-Trumbore `blocks` [C, K, 12] feed only its
 lockstep sweep, which the port does not have.
 """
@@ -42,6 +51,8 @@ class ClusterAccel:
     aabb_hi: torch.Tensor   # f32 [C, 3]
     blocks_t: torch.Tensor  # f32 [C, 16, K]
     bw_rows: torch.Tensor   # f32 [T', 12]
+    n_lanes: torch.Tensor   # i32 [C]
+    blocks_lm: torch.Tensor  # f32 [C, K, 16]
 
     @property
     def n_clusters(self) -> int:
@@ -61,7 +72,24 @@ def accel_from_numpy(aabb_lo, aabb_hi, blocks_t, *,
     """Carry a JAX ClusterAccel's arrays (as numpy) into the port."""
     t = [torch.from_numpy(np.array(a, np.float32)).to(device)
          for a in (aabb_lo, aabb_hi, blocks_t)]
-    return ClusterAccel(*t, bw_rows=triangle_rows(t[2]))
+    return ClusterAccel(*t, **derived_tables(t[2]))
+
+
+def derived_tables(blocks_t):
+    """bw_rows, n_lanes and blocks_lm of blocks_t [C, 16, K] (see the
+    module docstring), as ClusterAccel keywords."""
+    return dict(bw_rows=triangle_rows(blocks_t), **lane_tables(blocks_t))
+
+
+def lane_tables(blocks_t):
+    """The sweep kernels' tables of blocks_t [C, 16, K]: n_lanes i32[C]
+    (1 + the last lane whose id row is > 0, 0 for a pad cluster) and
+    blocks_lm f32[C, K, 16] (each lane's rows contiguous)."""
+    k = blocks_t.shape[2]
+    lane = torch.arange(1, k + 1, dtype=torch.int32, device=blocks_t.device)
+    n_lanes = torch.where(blocks_t[:, 12, :] > 0, lane, 0).amax(dim=1)
+    return dict(n_lanes=n_lanes.to(torch.int32).contiguous(),
+                blocks_lm=blocks_t.transpose(1, 2).contiguous())
 
 
 def triangle_rows(blocks_t):
@@ -175,7 +203,7 @@ def _finish_build(sv0, sv1, sv2, sid, k, pad, t) -> ClusterAccel:
                          zeros], dim=1)                     # [T, 16]
     bt = rows_bw.reshape(c, k, 16).transpose(1, 2).contiguous()
     return ClusterAccel(aabb_lo=aabb_lo, aabb_hi=aabb_hi, blocks_t=bt,
-                        bw_rows=triangle_rows(bt))
+                        **derived_tables(bt))
 
 
 def build_scene_clusters(scene):

@@ -160,7 +160,7 @@ def _closest_chunk(accel, o, d, t_max, t_min, tile_rays):
     t_cap = _scene_exit(accel, o, d, t_max).reshape(n_tiles, tile_rays)
     t, tri, u, v = sweep.sweep_closest(
         st, si, _tile_rays6(o, d, n_tiles, tile_rays), t_cap.contiguous(),
-        accel.blocks_t, t_min)
+        accel, t_min)
     t = torch.where(tri >= 0, t, torch.inf)
     return t.reshape(n), tri.reshape(n), u.reshape(n), v.reshape(n)
 
@@ -170,7 +170,7 @@ def _occluded_chunk(accel, o, d, t_max, tile_rays, want_blocker):
     n_tiles, st, si = _chunk_schedule(accel, o, d, t_max, 0.0, tile_rays)
     out = sweep.sweep_occluded(
         st, si, _tile_rays6(o, d, n_tiles, tile_rays),
-        t_max.reshape(n_tiles, tile_rays).contiguous(), accel.blocks_t,
+        t_max.reshape(n_tiles, tile_rays).contiguous(), accel,
         want_blocker=want_blocker)
     if want_blocker:
         return (out[0] > 0).reshape(n), out[1].reshape(n)

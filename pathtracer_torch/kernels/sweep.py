@@ -4,23 +4,29 @@ Both walk each tile's near-to-far cluster schedule st/si [tiles, Cs]
 and test the tile's rays against the clusters' Baldwin-Weber rows
 blocks_t [C, 16, K] (accel/cluster.py):
 
-  sweep_closest(st, si, rays[tiles, 6, R], t_cap, blocks_t, t_min)
+  sweep_closest(st, si, rays[tiles, 6, R], t_cap, accel, t_min)
       -> (t, tri, u, v) [tiles, R]: nearest hit with t_min < t < best_t,
          best_t seeded from the scene-exit cap t_cap; a tile stops when
          st[j] >= max(best_t) over its rays.
-  sweep_occluded(st, si, rays, t_max_rays, blocks_t) -> blocked i32:
+  sweep_occluded(st, si, rays, t_max_rays, accel) -> blocked i32:
       any front-facing hit with 0 < t < t_max; a tile stops when every
-      ray is blocked or the schedule reaches +inf.
+      ray is blocked or settled (t_max <= 0: it can never be blocked) or
+      the schedule reaches +inf.
   sweep_occluded(..., want_blocker=True) -> (blocked, btri i32) (K3b):
       btri is -1 where open, else the triangle of the blocking lane with
       the smallest t (lowest lane on a tie) in the first schedule column
       where the ray became blocked.
 
-For CPU tensors the wrappers run the plain versions; for CUDA tensors
-they launch csrc/sweep.cu or raise. The plain versions run all tiles in
-lockstep, one schedule column at a time, with each tile masked once its
-own stop rule fires - the same per-ray update sequence as the kernel, so
-the two agree hit for hit (the kernel is built with -fmad=false).
+t_min must be >= 0 (the kernels reject lanes on the sign of t before
+the reciprocal). The wrappers take the ClusterAccel: for CPU tensors
+they run the plain versions on its blocks_t; for CUDA tensors they
+launch csrc/sweep.cu on its lane tables n_lanes and blocks_lm (built
+once with the accel, accel/cluster.py) or raise. The plain versions
+take blocks_t, as the JAX functions do, and run all
+tiles in lockstep, one schedule column at a time, with each tile masked
+once its own stop rule fires - the same per-ray update sequence as the
+kernels, so the two agree hit for hit (the kernels are built with
+-fmad=false).
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ from pathtracer_torch.kernels.intersect import DET_EPS
 
 _PAIR_BUDGET = 1 << 22      # tiles x rays x lanes per plain-sweep block
 _STOP_CHECK = 8             # columns between host checks of "any tile live"
+_WARP = 32                  # rays a warp of the kernels tests together
+_PARTS = 4                  # threads a ray, over interleaved lanes (kParts)
 
 
 def _bw_lane(blk, o, d, t_min, best_t):
@@ -82,8 +90,39 @@ def _tile_block(tile_rays, k):
     return max(1, _PAIR_BUDGET // (tile_rays * k))
 
 
+def _count_column(live, can_hit, blk, kernel_tests, tile_columns, a, b,
+                  hit=None):
+    """Add one column of tiles a:b to tile_columns (the tiles that visit
+    it) and kernel_tests (the lane tests the kernels run there, see
+    sweep_closest_plain). can_hit [tb, R]: rays whose thread enters the
+    lane loop; hit [tb, R, K] (K3): lanes that block, where a thread
+    stops."""
+    if tile_columns is not None:
+        tile_columns[a:b] += live
+    if kernel_tests is None:
+        return
+    tb, r = can_hit.shape
+    k = blk.shape[2]
+    lane = torch.arange(1, k + 1, device=blk.device)
+    n_lanes = torch.where(blk[:, 12, :] > 0, lane, 0).amax(dim=1)   # [tb]
+    q = torch.arange(_PARTS, device=blk.device)
+    # thread (ray, part q) tests lanes q, q + _PARTS, ... < n_lanes
+    its = ((n_lanes[:, None] - q + _PARTS - 1) // _PARTS).clamp(min=0)
+    its = its[:, None, :].expand(tb, r, _PARTS)                # [tb, R, P]
+    if hit is not None:                 # up to and with its first hit
+        hq = torch.nn.functional.pad(hit, (0, -k % _PARTS))
+        hq = hq.reshape(tb, r, -1, _PARTS)                      # lane i*P+q
+        first = torch.argmax(hq.to(torch.uint8), dim=2) + 1
+        its = torch.where(hq.any(dim=2), first, its)
+    its = its * (live[:, None] & can_hit)[..., None]
+    # a warp holds one part of _WARP rays and runs as long as its longest
+    warp = its.reshape(tb, r // _WARP, _WARP, _PARTS).amax(dim=2)
+    kernel_tests += warp.sum() * _WARP
+
+
 def sweep_closest_plain(st, si, rays, t_cap, blocks_t, t_min,
-                        pair_tests=None):
+                        pair_tests=None, kernel_tests=None,
+                        tile_columns=None):
     """Plain PyTorch K2 (lockstep over tiles, blocked to bound memory).
 
     pair_tests: optional int64 0-d tensor, incremented by the (ray,
@@ -91,6 +130,14 @@ def sweep_closest_plain(st, si, rays, t_cap, blocks_t, t_min,
     each column the stop rule lets a tile visit, every ray whose best t
     still lies beyond the column's entry, against each real triangle of
     the cluster (pad lanes excluded).
+    kernel_tests: optional int64 0-d tensor, incremented by the lane
+    tests the kernel runs: a warp holds one of a ray's _PARTS threads
+    for _WARP rays, each thread tests every _PARTS-th lane below the
+    cluster's n_lanes if its ray has best t > t_min, and the warp
+    iterates as long as its longest thread (x _WARP lane slots).
+    tile_columns: optional int64 [tiles] tensor, incremented by the
+    columns each tile visits (its sequential walk; their sum x R x K
+    counts a kernel that tests every lane of every visited column).
     """
     tiles, cs = st.shape
     r = rays.shape[2]
@@ -115,6 +162,8 @@ def sweep_closest_plain(st, si, rays, t_cap, blocks_t, t_min,
             if j % _STOP_CHECK == 0 and not bool(live.any()):
                 break
             blk = blocks_t[si[a:b, j].long()]                 # [tb, 16, K]
+            _count_column(live, best_t > t_min, blk, kernel_tests,
+                          tile_columns, a, b)
             if pair_tests is not None:
                 need = live[:, None] & (st[a:b, j, None] < best_t)
                 pair_tests += (need.sum(1)
@@ -135,11 +184,17 @@ def sweep_closest_plain(st, si, rays, t_cap, blocks_t, t_min,
 
 
 def sweep_occluded_plain(st, si, rays, t_max_rays, blocks_t,
-                         want_blocker=False, pair_tests=None):
+                         want_blocker=False, pair_tests=None,
+                         kernel_tests=None, tile_columns=None):
     """Plain PyTorch K3 / K3b (lockstep over tiles, blocked to bound
-    memory). pair_tests as in sweep_closest_plain, for the rays not yet
-    blocked with t_max > 0: K3 needs a cluster's real triangles up to the
-    first blocking one, K3b all of them (its rule takes the nearest)."""
+    memory). A tile walks while it holds an open ray - not blocked, with
+    t_max > 0 (a ray with t_max <= 0 can never be blocked) - and the
+    schedule is finite. pair_tests as in sweep_closest_plain, for the
+    open rays: K3 needs a cluster's real triangles up to the first
+    blocking one, K3b all of them (its rule takes the nearest).
+    kernel_tests and tile_columns as in sweep_closest_plain, with the
+    open rays' threads in the lane loop; a K3 thread stops at its first
+    blocking lane."""
     tiles, cs = st.shape
     r = rays.shape[2]
     k = blocks_t.shape[2]
@@ -152,17 +207,20 @@ def sweep_occluded_plain(st, si, rays, t_max_rays, blocks_t,
         o = tuple(rays[a:b, i, :, None] for i in range(3))
         d = tuple(rays[a:b, i, :, None] for i in range(3, 6))
         tm = t_max_rays[a:b, :, None]
+        can_block = tm[..., 0] > 0.0
         blocked = out[a:b]
         btri = out_btri[a:b]
         live = torch.ones(b - a, dtype=torch.bool, device=dev)
         for j in range(cs):
-            live = live & (st[a:b, j] < torch.inf) \
-                & (~blocked).any(dim=1)
+            open_ = ~blocked & can_block
+            live = live & (st[a:b, j] < torch.inf) & open_.any(dim=1)
             if j % _STOP_CHECK == 0 and not bool(live.any()):
                 break
             blk = blocks_t[si[a:b, j].long()]
             t, _, _, denom = _bw_lane(blk, o, d, 0.0, torch.inf)
             hit = torch.isfinite(t) & (denom < 0.0) & (t < tm)
+            _count_column(live, open_, blk, kernel_tests, tile_columns, a, b,
+                          None if want_blocker else hit)
             newly = hit.any(dim=2) & live[:, None]
             if pair_tests is not None:
                 real = blk[:, 12, :] > 0.5                    # [tb, K]
@@ -172,7 +230,7 @@ def sweep_occluded_plain(st, si, rays, t_max_rays, blocks_t,
                     first = torch.argmax(hit.to(torch.uint8), dim=2)
                     per = torch.where(hit.any(dim=2), torch.gather(
                         torch.cumsum(real, 1), 1, first), per)
-                need = live[:, None] & ~blocked & (tm[..., 0] > 0.0)
+                need = live[:, None] & open_
                 pair_tests += (need * per).sum()
             if want_blocker:
                 # first minimum of t over the hit lanes: lowest lane on ties
@@ -188,49 +246,61 @@ def sweep_occluded_plain(st, si, rays, t_max_rays, blocks_t,
 _SIG = {
     "pt_sweep_closest": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
     "pt_sweep_occluded": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
     "pt_sweep_occluded_blocker": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p],
+    "pt_sweep_info": [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
 }
+_KINDS = ("sweep_closest", "sweep_occluded", "sweep_occluded_blocker")
 
 
-def _check_inputs(st, si, rays, per_ray, blocks_t):
+def _check_inputs(st, si, rays, per_ray, accel):
+    """Validate a CUDA launch's inputs -> (tiles, cs, r, k)."""
     dev = st.device
     tiles, cs = st.shape
     r = rays.shape[2] if rays.dim() == 3 else -1
-    c, rows, k = blocks_t.shape
+    c, k, _ = accel.blocks_lm.shape
     want = [("st", st, (tiles, cs), torch.float32),
             ("si", si, (tiles, cs), torch.int32),
             ("rays", rays, (tiles, 6, r), torch.float32),
             ("per-ray bound", per_ray, (tiles, r), torch.float32),
-            ("blocks_t", blocks_t, (c, 16, k), torch.float32)]
+            ("n_lanes", accel.n_lanes, (c,), torch.int32),
+            ("blocks_lm", accel.blocks_lm, (c, k, 16), torch.float32)]
     for name, t, shape, dtype in want:
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError(
                 f"sweep {name}: want contiguous {dtype} {shape} on {dev}, "
                 f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if r % 32 or not 0 < r <= 1024:
-        raise ValueError(f"sweep: tile_rays {r} must be a multiple of 32 "
-                         "in [32, 1024] (one thread per ray)")
+    if r not in (32, 64):
+        raise ValueError(f"sweep: tile_rays {r} must be 32 or 64 (the "
+                         "kernels' blocks hold at most 256 threads, four "
+                         "a ray)")
     return tiles, cs, r, k
 
 
-def sweep_closest(st, si, rays, t_cap, blocks_t, t_min):
+def sweep_closest(st, si, rays, t_cap, accel, t_min):
     """K2: (t, tri, u, v) [tiles, R] (kernel on CUDA, plain on CPU)."""
+    if not t_min >= 0.0:
+        raise ValueError(f"sweep_closest: t_min {t_min} must be >= 0 (the "
+                         "kernel rejects lanes on the sign of t)")
     if st.device.type == "cpu":
-        return sweep_closest_plain(st, si, rays, t_cap, blocks_t, t_min)
+        return sweep_closest_plain(st, si, rays, t_cap, accel.blocks_t,
+                                   t_min)
     if st.device.type != "cuda":
         raise ValueError(f"sweep_closest: unsupported device {st.device}")
-    tiles, cs, r, k = _check_inputs(st, si, rays, t_cap, blocks_t)
+    tiles, cs, r, k = _check_inputs(st, si, rays, t_cap, accel)
     dev = st.device
     out_t = torch.empty((tiles, r), dtype=torch.float32, device=dev)
     out_tri = torch.empty((tiles, r), dtype=torch.int32, device=dev)
@@ -241,25 +311,26 @@ def sweep_closest(st, si, rays, t_cap, blocks_t, t_min):
     lib = cuda_build.load("sweep", _SIG)
     rc = lib.pt_sweep_closest(
         st.data_ptr(), si.data_ptr(), tiles, cs, rays.data_ptr(),
-        t_cap.data_ptr(), blocks_t.data_ptr(), k, r, float(t_min),
-        out_t.data_ptr(), out_tri.data_ptr(), out_u.data_ptr(),
-        out_v.data_ptr(), cuda_build.stream_ptr(dev))
+        t_cap.data_ptr(), accel.blocks_lm.data_ptr(),
+        accel.n_lanes.data_ptr(), k, r, float(t_min), out_t.data_ptr(),
+        out_tri.data_ptr(), out_u.data_ptr(), out_v.data_ptr(),
+        cuda_build.stream_ptr(dev))
     cuda_build.check_launch(rc, "sweep_closest")
     LAUNCHES["sweep_closest"] += 1
     return out_t, out_tri, out_u, out_v
 
 
-def sweep_occluded(st, si, rays, t_max_rays, blocks_t, want_blocker=False):
+def sweep_occluded(st, si, rays, t_max_rays, accel, want_blocker=False):
     """K3: blocked i32[tiles, R]; K3b (want_blocker): (blocked, btri).
 
     The CUDA kernels for CUDA tensors, the plain version for CPU ones.
     """
     if st.device.type == "cpu":
-        return sweep_occluded_plain(st, si, rays, t_max_rays, blocks_t,
-                                    want_blocker)
+        return sweep_occluded_plain(st, si, rays, t_max_rays,
+                                    accel.blocks_t, want_blocker)
     if st.device.type != "cuda":
         raise ValueError(f"sweep_occluded: unsupported device {st.device}")
-    tiles, cs, r, k = _check_inputs(st, si, rays, t_max_rays, blocks_t)
+    tiles, cs, r, k = _check_inputs(st, si, rays, t_max_rays, accel)
     dev = st.device
     out = torch.empty((tiles, r), dtype=torch.int32, device=dev)
     btri = torch.empty_like(out) if want_blocker else None
@@ -267,7 +338,8 @@ def sweep_occluded(st, si, rays, t_max_rays, blocks_t, want_blocker=False):
         return (out, btri) if want_blocker else out
     lib = cuda_build.load("sweep", _SIG)
     args = (st.data_ptr(), si.data_ptr(), tiles, cs, rays.data_ptr(),
-            t_max_rays.data_ptr(), blocks_t.data_ptr(), k, r, out.data_ptr())
+            t_max_rays.data_ptr(), accel.blocks_lm.data_ptr(),
+            accel.n_lanes.data_ptr(), k, r, out.data_ptr())
     if want_blocker:
         rc = lib.pt_sweep_occluded_blocker(*args, btri.data_ptr(),
                                            cuda_build.stream_ptr(dev))
@@ -278,3 +350,19 @@ def sweep_occluded(st, si, rays, t_max_rays, blocks_t, want_blocker=False):
     cuda_build.check_launch(rc, "sweep_occluded")
     LAUNCHES["sweep_occluded"] += 1
     return out
+
+
+def kernel_info(name, tile_rays=64, k=128):
+    """Registers and local (spill) bytes a thread, threads a block,
+    resident blocks and the occupancy (resident warps / 64) an SM of
+    sweep kernel `name` for tile_rays rays a tile and K lanes, from the
+    CUDA runtime (needs a card; the build's ptxas report is
+    cuda_build.build_logs["sweep"])."""
+    lib = cuda_build.load("sweep", _SIG)
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    rc = lib.pt_sweep_info(_KINDS.index(name), tile_rays, k,
+                           *(ctypes.byref(v) for v in vals))
+    cuda_build.check_launch(rc, f"kernel_info({name})")
+    regs, local, blocks, threads = (v.value for v in vals)
+    return dict(registers=regs, local_bytes=local, threads=threads,
+                blocks_per_sm=blocks, occupancy=blocks * threads / 32 / 64)

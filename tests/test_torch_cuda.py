@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from pathtracer_torch import kernels
-from pathtracer_torch.accel.cluster import build_clusters
+from pathtracer_torch.accel.cluster import _finish_build, build_clusters
 from pathtracer_torch.kernels import cull, packet, sweep
 from pathtracer_torch.kernels.intersect import ray_triangle
 
@@ -63,14 +63,14 @@ def test_kernels_match_plain_bit_for_bit(dev, n_tris, n_tiles, t_max):
     rays6 = packet._tile_rays6(o, d, n_tiles, 64)
     cap = packet._scene_exit(accel, o, d, tm).reshape(n_tiles, 64) \
         .contiguous()
-    got = sweep.sweep_closest(st, si, rays6, cap, accel.blocks_t, 1e-3)
+    got = sweep.sweep_closest(st, si, rays6, cap, accel, 1e-3)
     ref = sweep.sweep_closest_plain(st, si, rays6, cap, accel.blocks_t,
                                     1e-3)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
     assert bool((got[1] >= 0).any())
     tm2 = tm.reshape(n_tiles, 64).contiguous()
-    occ = sweep.sweep_occluded(st, si, rays6, tm2, accel.blocks_t)
+    occ = sweep.sweep_occluded(st, si, rays6, tm2, accel)
     assert torch.equal(occ, sweep.sweep_occluded_plain(st, si, rays6, tm2,
                                                        accel.blocks_t))
     assert all(kernels.LAUNCHES[k] == before[k] + 1
@@ -111,12 +111,12 @@ def test_wrappers_check_their_inputs(dev):
     st, si = packet._sorted_schedule(tn)
     rays6 = packet._tile_rays6(o, d, 1, 64)
     with pytest.raises(ValueError):
-        sweep.sweep_closest(st, si.long(), rays6, tm.reshape(1, 64),
-                            accel.blocks_t, 1e-3)
+        sweep.sweep_closest(st, si.long(), rays6, tm.reshape(1, 64), accel,
+                            1e-3)
     with pytest.raises(ValueError):
         sweep.sweep_occluded(st, si, rays6[:, :, :32].contiguous(),
                              tm.reshape(1, 64)[:, :32].contiguous(),
-                             accel.blocks_t.cpu())
+                             accel.to("cpu"))
 
 
 def test_cornell_render_on_cuda_matches_cpu(dev):
@@ -156,15 +156,14 @@ def test_blocker_kernel_matches_plain_bit_for_bit(dev):
     rays6 = packet._tile_rays6(o, d, n_tiles, 64)
     tm2 = tm.reshape(n_tiles, 64).contiguous()
     before = kernels.LAUNCHES["sweep_occluded_blocker"]
-    blk, btri = sweep.sweep_occluded(st, si, rays6, tm2, accel.blocks_t,
+    blk, btri = sweep.sweep_occluded(st, si, rays6, tm2, accel,
                                      want_blocker=True)
     assert kernels.LAUNCHES["sweep_occluded_blocker"] == before + 1
     pblk, pbtri = sweep.sweep_occluded_plain(st, si, rays6, tm2,
                                              accel.blocks_t,
                                              want_blocker=True)
     assert torch.equal(blk, pblk) and torch.equal(btri, pbtri)
-    assert torch.equal(blk, sweep.sweep_occluded(st, si, rays6, tm2,
-                                                 accel.blocks_t))
+    assert torch.equal(blk, sweep.sweep_occluded(st, si, rays6, tm2, accel))
     assert torch.equal(btri >= 0, blk > 0) and bool((blk > 0).any())
     hinted = (btri >= 0).reshape(-1)
     ids = btri.reshape(-1)[hinted].long().cpu()
@@ -251,3 +250,133 @@ def test_skip_cull_kernel_matches_plain_and_k1(dev, blk, monkeypatch):
     assert torch.equal(cull.tile_cull(lo, hi, o, inv, tm, **kw), k1)
     assert kernels.LAUNCHES["tile_cull_skip"] == before["tile_cull_skip"] + 1
     assert kernels.LAUNCHES["tile_cull"] == before["tile_cull"]
+
+
+# --- the sweeps' branches ----------------------------------------------------
+
+def _right(x0, y0, z):
+    """Right triangle (x0, y0)-(x0+1, y0)-(x0, y0+1) at height z, normal
+    +z: its Baldwin-Weber rows are exact, u = x - x0 and v = y - y0."""
+    return [(x0, y0, z), (x0 + 1.0, y0, z), (x0, y0 + 1.0, z)]
+
+
+BRANCH_IDS = dict(tie=(1, 2), cross=(3, 4))   # equal triangles, by id
+BRANCH_LANES = (1, 86, 127, 128)                # real lanes of clusters 0-3
+BRANCH_RAYS = {                # tile 0's first rays: origin, direction, t_max
+    "tie_edge": ((0.25, 0.75, 5.0), (0, 0, -1), 12.0),   # u + v = 1
+    "cross_tie": ((2.25, 0.5, 5.0), (0, 0, -1), 12.0),
+    "on_plane_down": ((0.3, 0.3, 0.0), (0, 0, -1), 12.0),
+    "on_plane_up": ((0.3, 0.3, 0.0), (0, 0, 1), 12.0),
+    "t_max_at_hit": ((0.0, 0.5, 5.0), (0, 0, -1), 5.0),  # u = 0, t = 5
+    "vertex": ((1.0, 0.0, 5.0), (0, 0, -1), 12.0),       # u = 1, v = 0
+    "cross_edge": ((2.5, 0.5, 5.0), (0, 0, -1), 12.0),   # u + v = 1
+    "u_zero": ((0.0, 0.25, 5.0), (0, 0, -1), 12.0),
+}
+
+
+def branch_case(dev="cpu"):
+    """An accel and four 64-ray tiles that reach every branch of the
+    sweep kernels: clusters with 1, 86, 127 and 128 real lanes and 124
+    pad clusters; equal triangles on lanes 10 and 11 of cluster 1 (ids
+    1, 2) and on lane 5 of cluster 2 and lane 7 of cluster 3 (ids 3, 4);
+    rays onto those triangles' edges and vertices (u + v = 1, u = 0),
+    rays starting on a triangle's plane, a ray whose t_max equals its hit
+    t; parked rays (tile 1), rays with t_max 0 and -1 (tile 2) and
+    back-facing rays (tile 3).
+
+    Returns (accel, o, d, t_max [256]); tile 0's first rays are
+    BRANCH_RAYS, in order."""
+    rng = np.random.default_rng(31)
+    k = 128
+    big = [(-10.0, -10.0, -4.0), (20.0, -10.0, -4.0), (-10.0, 20.0, -4.0)]
+    tris = [big, _right(0.0, 0.0, 0.0), _right(0.0, 0.0, 0.0),
+            _right(2.0, 0.0, -1.0), _right(2.0, 0.0, -1.0)]
+    # fillers below the special triangles and away from x in [2, 3];
+    # clusters 2 and 3 keep theirs off y in [0, 1] too, so the first
+    # blocking cluster of a ray onto a special triangle is that one's
+    p0 = np.concatenate([rng.uniform([-2, -2, -3], [1.5, 4, -1.5], (86, 3)),
+                         rng.uniform([-2, 1.6, -3], [1.5, 4, -1.5],
+                                     (127 + 128, 3))])
+    n_fill = len(p0)
+    fill = np.stack([p0, p0 + rng.uniform(-0.4, 0.4, (n_fill, 3)),
+                     p0 + rng.uniform(-0.4, 0.4, (n_fill, 3))], 1)
+    tris = np.concatenate([np.array(tris), fill]).astype(np.float32)
+    fill_ids = iter(range(5, len(tris)))
+    lanes = [[0], [next(fill_ids) for _ in range(86)],
+             [next(fill_ids) for _ in range(127)],
+             [next(fill_ids) for _ in range(128)]]
+    lanes[1][10:12] = BRANCH_IDS["tie"]
+    lanes[2][5] = BRANCH_IDS["cross"][0]
+    lanes[3][7] = BRANCH_IDS["cross"][1]
+    c = 128
+    sid = np.full((c * k,), -1, np.int64)
+    for i, ids in enumerate(lanes):
+        sid[i * k: i * k + len(ids)] = ids
+    real = sid >= 0
+    sv = [np.where(real[:, None], tris[np.maximum(sid, 0), i], 1e30)
+          .astype(np.float32) for i in range(3)]
+    accel = _finish_build(*(torch.from_numpy(x) for x in sv),
+                          torch.from_numpy(sid), k, int((~real).sum()),
+                          len(tris)).to(dev)
+    n = 256
+    o = rng.uniform([-2, -2, 4], [4, 4, 6], (n, 3))
+    d = rng.normal([0, 0, -1], 0.3, (n, 3))
+    o[192:, 2] = -6.0                         # tile 3 looks up from below:
+    d[192:, 2] = np.abs(d[192:, 2])           # back faces
+    t_max = rng.uniform(1.0, 12.0, n)
+    for i, (oi, di, ti) in enumerate(BRANCH_RAYS.values()):
+        o[i], d[i], t_max[i] = oi, di, ti
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o[64:84], d[64:84], t_max[64:84] = 1e30, 1.0, 0.0   # parked
+    t_max[128:158] = 0.0
+    t_max[158:168] = -1.0
+    return (accel,) + tuple(torch.from_numpy(x.astype(np.float32)).to(dev)
+                            for x in (o, d, t_max))
+
+
+def branch_sweep_args(accel, o, d, t_max, t_min):
+    """(closest args, occlusion args) of branch_case's four tiles for the
+    plain sweeps, with K1's schedules at t_min and 0 (the wrappers take
+    the accel in place of blocks_t)."""
+    n_tiles = o.shape[0] // 64
+    rays6 = packet._tile_rays6(o, d, n_tiles, 64)
+    out = []
+    for tmin in (t_min, 0.0):
+        tn = cull.tile_cull(accel.aabb_lo, accel.aabb_hi, o,
+                            packet._safe_inv(d), t_max, t_min=tmin,
+                            n_tiles=n_tiles, tile_rays=64)
+        out.append(packet._sorted_schedule(tn) + (rays6,))
+    cap = packet._scene_exit(accel, o, d, t_max).reshape(n_tiles, 64)
+    return (out[0] + (cap.contiguous(), accel.blocks_t, t_min),
+            out[1] + (t_max.reshape(n_tiles, 64).contiguous(),
+                      accel.blocks_t))
+
+
+@pytest.mark.parametrize("t_min", [0.0, 1e-3])
+def test_sweep_kernels_match_plain_on_every_branch(dev, t_min):
+    """K2 (t/tri/u/v), K3 and K3b (blocked/btri) bit-exact against their
+    plain versions on branch_case; a negative t_min raises."""
+    accel, o, d, tm = branch_case(dev)
+    assert sorted(accel.n_lanes.tolist())[-4:] == list(BRANCH_LANES)
+    closest, occl = branch_sweep_args(accel, o, d, tm, t_min)
+    ref = sweep.sweep_closest_plain(*closest)
+    got = sweep.sweep_closest(*closest[:4], accel, t_min)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert bool((ref[1] >= 0).any())
+    for want_blocker in (False, True):
+        ref = sweep.sweep_occluded_plain(*occl, want_blocker=want_blocker)
+        got = sweep.sweep_occluded(*occl[:4], accel,
+                                   want_blocker=want_blocker)
+        for a, b in zip(got if want_blocker else (got,),
+                        ref if want_blocker else (ref,)):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="t_min"):
+        sweep.sweep_closest(*closest[:4], accel, -1e-3)
+
+
+def test_sweep_kernel_occupancy_is_reported(dev):
+    for name in ("sweep_closest", "sweep_occluded", "sweep_occluded_blocker"):
+        info = sweep.kernel_info(name)
+        assert info["registers"] > 0 and info["blocks_per_sm"] > 0
+        assert 0.0 < info["occupancy"] <= 1.0

@@ -9,6 +9,8 @@ packet traversal against the JAX brute-force oracle
 are held to their plain versions in tests/test_torch_cuda.py.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +24,16 @@ from pathtracer_torch.accel.cluster import accel_from_numpy
 from pathtracer_torch.accel.cluster import build_clusters as tbuild
 from pathtracer_torch.kernels import cull, packet, sweep
 from pathtracer_torch.kernels import intersect as tisect
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two intra-op threads keep this file's lockstep sweeps from
+    oversubscribing the cores when test files run side by side."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
 
 
 def _soup(t, seed=0):
@@ -112,12 +124,13 @@ def _sweep_inputs(n_tris=300, n_rays=512, max_c=16, seed=0, method="morton"):
 
 @pytest.mark.parametrize("seed,max_c", [(0, 16), (5, 4)])
 def test_sweep_closest_plain_matches_pallas_interpret(seed, max_c):
-    _, (st, si, rays6, t_cap, bt), _ = _sweep_inputs(seed=seed, max_c=max_c)
+    ja, (st, si, rays6, t_cap, bt), _ = _sweep_inputs(seed=seed,
+                                                      max_c=max_c)
     ref = pallas_sweep.sweep_closest(
         jnp.asarray(st), jnp.asarray(si), jnp.asarray(rays6),
         jnp.asarray(t_cap), jnp.asarray(bt), 1e-3, interpret=True)
-    got = sweep.sweep_closest(_T(st), _T(si), _T(rays6), _T(t_cap), _T(bt),
-                              1e-3)
+    got = sweep.sweep_closest(_T(st), _T(si), _T(rays6), _T(t_cap),
+                              _carry(ja), 1e-3)
     rt, rtri, ru, rv = (np.asarray(x) for x in ref)
     gt, gtri, gu, gv = (x.numpy() for x in got)
     np.testing.assert_array_equal(gtri, rtri)
@@ -149,11 +162,12 @@ def test_sweep_closest_plain_matches_pallas_interpret(seed, max_c):
 
 @pytest.mark.parametrize("seed,max_c", [(0, 16), (5, 4)])
 def test_sweep_occluded_plain_matches_pallas_interpret(seed, max_c):
-    _, (st, si, rays6, _, bt), tm = _sweep_inputs(seed=seed, max_c=max_c)
+    ja, (st, si, rays6, _, bt), tm = _sweep_inputs(seed=seed, max_c=max_c)
     ref = np.asarray(pallas_sweep.sweep_occluded(
         jnp.asarray(st), jnp.asarray(si), jnp.asarray(rays6),
         jnp.asarray(tm), jnp.asarray(bt), interpret=True))
-    got = sweep.sweep_occluded(_T(st), _T(si), _T(rays6), _T(tm), _T(bt))
+    got = sweep.sweep_occluded(_T(st), _T(si), _T(rays6), _T(tm),
+                               _carry(ja))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), ref)
     assert 0 < ref.sum() < ref.size
@@ -345,13 +359,218 @@ def test_wrappers_never_fall_back_off_cpu():
         cull.tile_cull(lo, lo, o, o, torch.zeros(64, device="meta"),
                        t_min=0.0, n_tiles=1, tile_rays=64)
     st = torch.zeros((1, 4), device="meta")
+    accel = tbuild(*(_T(x) for x in _soup(33, seed=7))).to("meta")
     with pytest.raises(ValueError, match="unsupported device"):
         sweep.sweep_closest(st, st.int(), torch.zeros((1, 6, 64),
                                                       device="meta"),
-                            torch.zeros((1, 64), device="meta"),
-                            torch.zeros((4, 16, 128), device="meta"), 1e-3)
+                            torch.zeros((1, 64), device="meta"), accel, 1e-3)
     with pytest.raises(ValueError, match="unsupported device"):
         sweep.sweep_occluded(st, st.int(), torch.zeros((1, 6, 64),
                                                        device="meta"),
-                             torch.zeros((1, 64), device="meta"),
-                             torch.zeros((4, 16, 128), device="meta"))
+                             torch.zeros((1, 64), device="meta"), accel)
+
+
+# --- lane tables, the settled-ray stop rule, the kernels' branches ---------
+
+@pytest.mark.parametrize("method", ["sahsplit", "morton", "median"])
+def test_jax_build_packs_pads_after_real_lanes(method):
+    """In every cluster of the JAX build the real lanes come first and the
+    pads after them, with a zero normal (no hit): testing lanes below
+    n_lanes only is exact."""
+    v = _soup(700, seed=41)
+    ja = jbuild(*(jnp.asarray(x) for x in v), max_clusters=16,
+                min_k=32 if method != "sahsplit" else 128, method=method)
+    acc = _carry(ja)
+    bt = np.asarray(ja.blocks_t)
+    real = bt[:, 12, :] > 0
+    lane = np.arange(bt.shape[2])
+    n = acc.n_lanes.numpy()
+    np.testing.assert_array_equal(real, lane[None, :] < n[:, None])
+    assert (n > 0).any() and (n < bt.shape[2]).any()
+    np.testing.assert_array_equal(
+        bt[:, 0:3][np.broadcast_to(~real[:, None], bt[:, 0:3].shape)], 0.0)
+
+
+def _old_occluded_walk(st, si, rays, t_max_rays, blocks_t, want_blocker):
+    """The occlusion sweep's plain loop before rays with t_max <= 0 were
+    settled: a tile walks while any of its rays is unblocked. -> (blocked,
+    btri, columns each tile visits)."""
+    tiles, cs = st.shape
+    o = tuple(rays[:, i, :, None] for i in range(3))
+    d = tuple(rays[:, i, :, None] for i in range(3, 6))
+    tm = t_max_rays[:, :, None]
+    blocked = torch.zeros(t_max_rays.shape, dtype=torch.bool)
+    btri = torch.full(t_max_rays.shape, -1, dtype=torch.int32)
+    live = torch.ones(tiles, dtype=torch.bool)
+    cols = torch.zeros(tiles, dtype=torch.int64)
+    for j in range(cs):
+        live = live & (st[:, j] < torch.inf) & (~blocked).any(dim=1)
+        if not bool(live.any()):
+            break
+        cols += live
+        blk = blocks_t[si[:, j].long()]
+        t, _, _, denom = sweep._bw_lane(blk, o, d, 0.0, torch.inf)
+        hit = torch.isfinite(t) & (denom < 0.0) & (t < tm)
+        newly = hit.any(dim=2) & live[:, None]
+        if want_blocker:
+            _, jj = torch.min(torch.where(hit, t, torch.inf), dim=2)
+            tid = torch.round(blk[:, 12, :]).to(torch.int32) - 1
+            btri = torch.where(newly & ~blocked, torch.gather(tid, 1, jj),
+                               btri)
+        blocked |= newly
+    return blocked.to(torch.int32), btri, cols
+
+
+@functools.lru_cache(maxsize=None)
+def _settled_soup(seed):
+    """Port-built soup, 4 tiles: parked rays, rays with t_max 0 and < 0
+    mixed into tiles with open ones, and one tile of parked rays only."""
+    accel = tbuild(*(_T(x) for x in _soup(900, seed=seed)))
+    o, d = _rays(256, seed=seed + 1)
+    rng = np.random.default_rng(seed + 2)
+    tm = rng.uniform(0.2, 2.5, 256).astype(np.float32)
+    pick = rng.permutation(192)
+    o[pick[:30]] = 1e30
+    d[pick[:30]] = 1.0
+    tm[pick[:30]] = 0.0
+    tm[pick[30:60]] = 0.0
+    tm[pick[60:75]] = -1.0
+    o[192:], d[192:], tm[192:] = 1e30, 1.0, 0.0
+    o, d, tm = _T(o), _T(d), _T(tm)
+    tn = cull.tile_cull(accel.aabb_lo, accel.aabb_hi, o, packet._safe_inv(d),
+                        tm, t_min=0.0, n_tiles=4, tile_rays=64)
+    st, si = packet._sorted_schedule(tn)
+    return (st, si, packet._tile_rays6(o, d, 4, 64),
+            tm.reshape(4, 64).contiguous(), accel.blocks_t)
+
+
+@pytest.mark.parametrize("seed", [3, 8])
+@pytest.mark.parametrize("want_blocker", [False, True])
+def test_occluded_settled_stop_rule_matches_old_rule(seed, want_blocker):
+    """Settling rays with t_max <= 0 changes no output of the plain K3 /
+    K3b against the earlier loop, kept here as the reference."""
+    args = _settled_soup(seed)
+    old_blk, old_btri, _ = _old_occluded_walk(*args, want_blocker)
+    got = sweep.sweep_occluded_plain(*args, want_blocker=want_blocker)
+    blk, btri = got if want_blocker else (got, None)
+    assert torch.equal(blk, old_blk)
+    assert 0 < int(blk.sum()) < blk.numel()
+    if want_blocker:
+        assert torch.equal(btri, old_btri)
+    assert not bool(blk[args[3] <= 0.0].any())
+
+
+@pytest.mark.parametrize("seed", [3, 8])
+def test_occluded_settled_stop_rule_visits_no_more_columns(seed):
+    """The new rule visits no more columns than the old one, tile by tile
+    (fewer here: parked rays put every pad cluster in their tiles'
+    schedules); K3's threads stop at their first blocking lane, so it
+    runs no more lane tests than K3b on the same walk."""
+    args = _settled_soup(seed)
+    _, _, old_cols = _old_occluded_walk(*args, False)
+    tests = {}
+    for want_blocker in (False, True):
+        count = torch.zeros((), dtype=torch.int64)
+        tile_cols = torch.zeros(args[0].shape[0], dtype=torch.int64)
+        sweep.sweep_occluded_plain(*args, want_blocker=want_blocker,
+                                   kernel_tests=count,
+                                   tile_columns=tile_cols)
+        assert (tile_cols <= old_cols).all()
+        assert int(tile_cols.sum()) < int(old_cols.sum())
+        tests[want_blocker] = int(count)
+    assert 0 < tests[False] <= tests[True] \
+        <= int(tile_cols.sum()) * 64 * args[4].shape[2]
+
+
+def test_occluded_kernel_tests_stop_at_first_hit():
+    """One cluster: lane 0 a 16-unit triangle facing the rays, lanes
+    1-127 off to the side. A warp holds one of a ray's four threads (lanes
+    q, q + 4, ...) for 32 rays and runs as long as its longest thread: K3
+    stops the lane-0 threads at their hit, so the first warp group (all
+    32 rays hit) runs 1 + 3 x 32 iterations, the second (one ray misses)
+    4 x 32; K3b scans every lane."""
+    k = 128
+    rows = np.zeros((16, k), np.float32)
+    x0 = np.float32([0.0] + [100.0] * (k - 1))
+    rows[2] = 256.0                     # n = e1 x e2 = (0, 0, 16^2)
+    rows[4], rows[7] = 1 / 16, -x0 / 16       # u = (x - x0) / 16
+    rows[9] = 1 / 16                    # v = y / 16
+    rows[12] = np.arange(1, k + 1)
+    o = np.zeros((64, 3), np.float32)
+    o[:, 0] = np.linspace(0.5, 2.0, 64)
+    o[:, 1] = 0.5
+    o[:, 2] = 5.0
+    o[40, 0] = -3.0                     # misses every lane
+    d = np.tile(np.float32([0.0, 0.0, -1.0]), (64, 1))
+    args = (torch.zeros((1, 1)), torch.zeros((1, 1), dtype=torch.int32),
+            packet._tile_rays6(_T(o), _T(d), 1, 64),
+            torch.full((1, 64), 10.0), _T(rows[None]))
+    tests = []
+    for want_blocker in (False, True):
+        count = torch.zeros((), dtype=torch.int64)
+        out = sweep.sweep_occluded_plain(*args, want_blocker=want_blocker,
+                                         kernel_tests=count)
+        blocked = out[0] if want_blocker else out
+        assert blocked[0].tolist() == [int(i != 40) for i in range(64)]
+        tests.append(int(count))
+    assert tests == [(1 + 3 * 32) * 32 + 4 * 32 * 32, 2 * 4 * 32 * 32]
+
+
+def test_walk_counts_of_the_closest_sweep():
+    """K2's walk: the kernel's lane tests lie between the needed ones and
+    the dense count (every lane of every visited column)."""
+    _, (st, si, rays6, t_cap, bt), _ = _sweep_inputs(seed=0, max_c=16)
+    tests = torch.zeros((), dtype=torch.int64)
+    needed = torch.zeros((), dtype=torch.int64)
+    tile_cols = torch.zeros(st.shape[0], dtype=torch.int64)
+    args = (_T(st), _T(si), _T(rays6), _T(t_cap), _T(bt), 1e-3)
+    sweep.sweep_closest_plain(*args, pair_tests=needed, kernel_tests=tests,
+                              tile_columns=tile_cols)
+    cols = int(tile_cols.sum())
+    assert 0 < int(needed) <= int(tests) <= cols * 64 * bt.shape[2]
+
+
+def test_closest_sweep_rejects_negative_t_min():
+    ja, (st, si, rays6, t_cap, _), _ = _sweep_inputs(seed=0, max_c=16)
+    with pytest.raises(ValueError, match="t_min"):
+        sweep.sweep_closest(_T(st), _T(si), _T(rays6), _T(t_cap),
+                            _carry(ja), -1e-3)
+
+
+@pytest.mark.parametrize("t_min", [0.0, 1e-3])
+def test_branch_case_reaches_every_branch(t_min):
+    """tests/test_torch_cuda.py holds the kernels to the plain versions on
+    branch_case; here the plain versions show that it reaches each branch:
+    ties resolve to the lower lane and the earlier column, edge and
+    vertex hits with u + v = 1 and u = 0 count, a ray starting on a plane
+    does not hit it, t = t_max does not block, and parked rays schedule
+    pad clusters."""
+    from tests.test_torch_cuda import (BRANCH_IDS, BRANCH_LANES, BRANCH_RAYS,
+                                       branch_case, branch_sweep_args)
+
+    accel, o, d, tm = branch_case()
+    assert sorted(accel.n_lanes.tolist()) == [0] * 124 + list(BRANCH_LANES)
+    closest, occl = branch_sweep_args(accel, o, d, tm, t_min)
+    t, tri, u, v = (x[0] for x in sweep.sweep_closest_plain(*closest))
+    ray = {name: i for i, name in enumerate(BRANCH_RAYS)}
+    tie, cross = BRANCH_IDS["tie"], BRANCH_IDS["cross"]
+    sched = closest[1][0].tolist()
+    first_cross = cross[0] if sched.index(2) < sched.index(3) else cross[1]
+    assert (int(tri[ray["tie_edge"]]), float(t[ray["tie_edge"]])) \
+        == (tie[0], 5.0)
+    assert float(u[ray["tie_edge"]] + v[ray["tie_edge"]]) == 1.0
+    assert int(tri[ray["cross_tie"]]) == first_cross
+    assert int(tri[ray["cross_edge"]]) == first_cross
+    assert float(u[ray["cross_edge"]] + v[ray["cross_edge"]]) == 1.0
+    assert int(tri[ray["on_plane_down"]]) not in tie
+    assert int(tri[ray["on_plane_up"]]) == -1
+    assert int(tri[ray["t_max_at_hit"]]) == -1
+    assert (int(tri[ray["vertex"]]), float(u[ray["vertex"]])) == (tie[0], 1.0)
+    assert (int(tri[ray["u_zero"]]), float(u[ray["u_zero"]])) == (tie[0], 0.0)
+    blocked, btri = sweep.sweep_occluded_plain(*occl, want_blocker=True)
+    assert int(btri[0, ray["tie_edge"]]) == tie[0]
+    assert int(btri[0, ray["cross_tie"]]) == first_cross
+    assert int(blocked[0, ray["t_max_at_hit"]]) == 0
+    assert not bool(blocked[2][tm[128:192] <= 0.0].any())
+    st1, si1 = occl[0][1], occl[1][1]
+    assert bool((accel.n_lanes[si1[torch.isfinite(st1)].long()] == 0).any())

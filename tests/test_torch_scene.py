@@ -93,6 +93,28 @@ def test_accel_bw_rows_by_triangle(name):
     assert torch.equal(carried.bw_rows, rows)
 
 
+@pytest.mark.parametrize("name", list(SCENES))
+def test_accel_lane_tables(name):
+    """n_lanes is 1 + the last lane whose id row is > 0 (0 for a pad
+    cluster) and blocks_lm is blocks_t lane-major, on a built accel and
+    on one carried from the JAX package; `to` carries both."""
+    js, ts = _pair(name)
+    carried = accel_from_numpy(*(np.asarray(getattr(js.clusters, f)) for f in
+                                 ("aabb_lo", "aabb_hi", "blocks_t")),
+                               device="cpu")
+    for acc in (ts.clusters, carried, ts.clusters.to("cpu")):
+        bt = acc.blocks_t.numpy()
+        want = np.array([1 + np.flatnonzero(ids > 0).max() if (ids > 0).any()
+                         else 0 for ids in bt[:, 12, :]], np.int32)
+        assert acc.n_lanes.dtype == torch.int32
+        np.testing.assert_array_equal(acc.n_lanes.numpy(), want)
+        assert acc.blocks_lm.is_contiguous()
+        np.testing.assert_array_equal(acc.blocks_lm.numpy(),
+                                      bt.transpose(0, 2, 1))
+        assert (want == 0).any() and (want > 0).any()
+    assert torch.equal(carried.n_lanes, ts.clusters.n_lanes)
+
+
 def test_scene_and_accel_from_numpy_roundtrip():
     js, ts = _pair("materials")
     fields = {k: (None if getattr(js, k) is None else np.asarray(
