@@ -17,11 +17,15 @@ Drives pathtracer_torch's paths on the card and checks them:
    frame's primary batch, whose t_max is per ray; K4 (the block-gated
    cull) on every replayed K1 chunk at blk 128 and 256, bit-exact against
    its plain version and against K1, its block mask equal to
-   sc_mask_plain, with the share of (tile, block) pairs it skips; per
-   sweep kernel the lane tests its data needs, those a kernel testing
-   every lane of every visited column runs, and those the kernel runs
-   (from the plain versions' column walk), with its registers and
-   occupancy;
+   sc_mask_plain, and on the adversarial chunks of
+   tests/test_torch_cuda.py (parked rays, pad boxes, equal negative 1/d);
+   K4's skip rate per batch kind against the JAX package's probe, with
+   the share of blocks no ray enters at all and of blocks only parked
+   rays keep; K4's slab tests needed and run, registers, occupancy and
+   share of bound; per sweep kernel the lane tests its data needs, those
+   a kernel testing every lane of every visited column runs, and those
+   the kernel runs (from the plain versions' column walk), with its
+   registers and occupancy;
 3. the config 1-5 golden gates at 64x64, 4 spp, through the kernels
    (robust gate of benchmarks/run_configs.py);
 4. the headline - textured sponza_like (~262k triangles), 1920x1080,
@@ -32,9 +36,10 @@ Drives pathtracer_torch's paths on the card and checks them:
    after each run; the primed film must pass the gate against the
    unprimed one with the same ray counts;
 5. config 4 at BASELINE's size and frame batch (1024x1024, 1 spp, depth
-   6, env-map NEE, frame_batch = saturating_frame_batch = 8), unprimed
-   and primed, and one 8-frame step held to 8 single-frame steps (gate,
-   equal rays);
+   6, env-map NEE, frame_batch = saturating_frame_batch = 8), unprimed,
+   unprimed with PT_CULL_SKIP=1 (K4 where its 256 clusters gate: same
+   ray counts, film within the gate) and primed, and one 8-frame step
+   held to 8 single-frame steps (gate, equal rays);
 6. config 3 at BASELINE's size (materials suite, 512x512, 4 spp, depth
    6, frame_batch 8: two steps = 64 spp) with the denoiser: the denoised
    display finite and in [0, 1], three AOVs.
@@ -91,6 +96,10 @@ UNPRIMED_KERNELS = ("tile_cull", "sweep_closest", "sweep_occluded")
 PRIMED_KERNELS = UNPRIMED_KERNELS + ("sweep_occluded_blocker",)
 SKIP_KERNELS = ("tile_cull_skip", "sweep_closest", "sweep_occluded")
 SKIP_BLKS = (128, 256)   # K4 block widths replayed (PT_CULL_BLK default 128)
+# K4's skip rates in the JAX package's probe (benchmarks/cull_block_probe.py:
+# 640x360, 262k triangles; blocks where no cluster passes K1's test)
+JAX_SKIP = {128: {"primary": 0.870, "shadow0": 0.821, "bounce1": 0.680},
+            256: {"primary": 0.793, "shadow0": 0.692, "bounce1": 0.576}}
 # Least-time model of one NVIDIA H100 SXM (NVIDIA's data sheet, 700 W):
 # 67e12 FP32 FLOP/s outside the tensor cores counts an FMA as two; the
 # kernels are built with -fmad=false (bit-exact against their plain
@@ -323,7 +332,9 @@ def phase_kernels(scene, cfg, cam):
                 "walk": []}
 
     stats = {k: new_stats() for k in KERNELS}
-    skip_stats = {blk: dict(new_stats(), skip=[]) for blk in SKIP_BLKS}
+    skip_stats = {blk: dict(new_stats(), **{k: [] for k in (
+        "kernel_tests", "pairs_all_rays", "skip", "exact_skip", "parked_kept",
+        "label")}) for blk in SKIP_BLKS}
     cull_chunks = []     # every replayed K1 chunk, for K4
 
     def run_plain(name, args, kw, pair_tests):
@@ -399,10 +410,13 @@ def phase_kernels(scene, cfg, cam):
 
     def compare_skip(label, args, kw, blk):
         """K4 on a K1 chunk: bit-exact vs its plain version and vs K1,
-        its mask equal to sc_mask_plain."""
-        n_tiles = kw["n_tiles"]
+        its mask equal to sc_mask_plain; with the shares of (tile, block)
+        pairs it skips, that no ray enters at all, and that only parked
+        rays keep."""
+        lo, hi, o, inv_d, t_max = args
+        n_tiles, c = kw["n_tiles"], lo.shape[0]
         k1 = cull.tile_cull(*args, **kw)
-        nb = cull.union_boxes(args[0], args[1], blk)[0].shape[0]
+        nb = cull.n_blocks(c, blk)
         mask = torch.empty((n_tiles, nb), dtype=torch.int32, device=DEVICE)
 
         def kernel():
@@ -411,8 +425,10 @@ def phase_kernels(scene, cfg, cam):
         kernel()                                              # warm-up
         out, ms = timed(kernel)
         pair_tests = torch.zeros((), dtype=torch.int64, device=DEVICE)
+        kernel_tests = torch.zeros((), dtype=torch.int64, device=DEVICE)
         ref, ms_p = timed(lambda: cull.tile_cull_skip_plain(
-            *args, **kw, blk=blk, pair_tests=pair_tests))
+            *args, **kw, blk=blk, pair_tests=pair_tests,
+            kernel_tests=kernel_tests))
         for other, what in ((ref, "its plain version"), (k1, "K1")):
             if not torch.equal(out, other):
                 raise PhaseError(f"K4 blk {blk} {label}: "
@@ -422,8 +438,58 @@ def phase_kernels(scene, cfg, cam):
             raise PhaseError(f"K4 blk {blk} {label}: mask != sc_mask_plain")
         s = skip_stats[blk]
         record_stats(s, "tile_cull_skip", args, ms, ms_p, pair_tests, 0.0)
-        s["skip"].append(1.0 - float(mask.float().mean()))
+        kept = mask > 0
+        pad = nb * blk - c
+        entered = torch.nn.functional.pad(torch.isfinite(k1), (0, pad))
+        unparked = o[:, 0] < 1e29
+        by_live = cull.sc_mask_plain(lo, hi, o, inv_d, torch.where(
+            unparked, t_max, torch.nan), **kw, blk=blk) > 0
+        real = torch.nn.functional.pad(lo[:, 0] < 1e29, (0, pad))
+        # the tests without per-block ray sets: every unparked ray
+        # against the union boxes and the kept blocks' real clusters
+        all_rays = (unparked.reshape(n_tiles, -1).sum(1) * (
+            nb + (kept * real.reshape(nb, blk).sum(1)).sum(1))).sum()
+        s["kernel_tests"].append(int(kernel_tests))
+        s["pairs_all_rays"].append(int(all_rays))
+        s["skip"].append(1.0 - float(kept.float().mean()))
+        s["exact_skip"].append(1.0 - float(entered.reshape(
+            n_tiles, nb, blk).any(dim=2).float().mean()))
+        s["parked_kept"].append(float((kept & ~by_live).float().mean()))
+        s["label"].append(label)
         return s["skip"][-1], ms
+
+    def compare_traps():
+        """K4 on tests/test_torch_cuda.py's adversarial chunks (parked
+        tails, pad boxes, equal negative 1/d, t_min 0 and > 0, t_max
+        finite and inf): bit-exact vs plain and K1, mask vs sc_mask_plain.
+        """
+        import importlib.util
+
+        # by path: an installed package named `tests` would shadow the
+        # checkout's tests/ directory
+        spec = importlib.util.spec_from_file_location(
+            "test_torch_cuda",
+            os.path.join(ROOT, "tests", "test_torch_cuda.py"))
+        traps = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(traps)
+        for pads, t_min, t_max in traps.CULL_TRAPS:
+            args = traps.cull_trap_case(pads, t_max, DEVICE)
+            kw = dict(t_min=t_min, n_tiles=7, tile_rays=64)
+            k1 = cull.tile_cull_plain(*args, **kw)
+            for blk in SKIP_BLKS:
+                mask = torch.empty((7, cull.n_blocks(args[0].shape[0], blk)),
+                                   dtype=torch.int32, device=DEVICE)
+                out = cull.tile_cull_skip(*args, **kw, blk=blk,
+                                          mask_out=mask)
+                ok = (torch.equal(out, cull.tile_cull_skip_plain(
+                    *args, **kw, blk=blk)) and torch.equal(out, k1)
+                    and torch.equal(mask, cull.sc_mask_plain(
+                        *args, **kw, blk=blk)))
+                if not ok:
+                    raise PhaseError(f"K4 blk {blk} adversarial chunk "
+                                     f"{(pads, t_min, t_max)} differs")
+        log("k4_adversarial", cases=len(traps.CULL_TRAPS),
+            blks=list(SKIP_BLKS), exact=True)
 
     def compare(name, label, args, kw, record=True):
         run_kernel(name, args, kw)                            # warm-up
@@ -530,6 +596,23 @@ def phase_kernels(scene, cfg, cam):
     for blk, s in skip_stats.items():
         log("k4_skip_rate", blk=blk, mean=sum(s["skip"]) / len(s["skip"]),
             per_chunk=s["skip"])
+        for label in dict.fromkeys(s["label"]):
+            at = [i for i, x in enumerate(s["label"]) if x == label]
+            log("k4_skip_by_batch", blk=blk, batch=label, chunks=len(at),
+                **{k: sum(s[k][i] for i in at) / len(at)
+                   for k in ("skip", "exact_skip", "parked_kept")},
+                jax_probe_skip=JAX_SKIP[blk].get(label))
+        n = s["calls"]
+        kernel = sum(s["kernel_tests"]) / n
+        all_rays = sum(s["pairs_all_rays"]) / n
+        log("k4_work", blk=blk, chunks=n, needed_tests=s["pairs"],
+            kernel_tests=kernel, kernel_over_needed=kernel / s["pairs"],
+            ms=s["ms"], bound_ms=s["bound_ms"],
+            share_of_bound=s["bound_ms"] / s["ms"], pairs_all_rays=all_rays,
+            bound_all_rays_ms=all_rays * CULL_OPS / PEAK_FP32_INSTR * 1e3,
+            **cull.kernel_info(64, cull.n_blocks(scene.clusters.n_clusters,
+                                                 blk)))
+    compare_traps()
     for name in ("sweep_closest", "sweep_occluded", "sweep_occluded_blocker"):
         s = stats[name]
         n = s["calls"]
@@ -723,6 +806,7 @@ def phase_config4(tmp_dir, frames):
 
     from pathtracer_torch.accel.cluster import build_scene_clusters
     from pathtracer_torch.config import saturating_frame_batch
+    from pathtracer_torch.kernels import cull
     from pathtracer_torch.render import Renderer
 
     t0 = time.perf_counter()
@@ -732,7 +816,16 @@ def phase_config4(tmp_dir, frames):
     cfg = config4_cfg(width=CONFIG4_SIZE, height=CONFIG4_SIZE, spp=1,
                       frame_batch=f)
     cam = camera(ENV_CAM)
-    drive("config4", scene, cfg, cam, frames, UNPRIMED_KERNELS)
+    base, r_b = drive("config4", scene, cfg, cam, frames, UNPRIMED_KERNELS)
+    # K4 where its clusters gate at the default block width (128)
+    k4 = cull.gated(scene.clusters.n_clusters, 128)
+    skip, r_s = drive("config4_cull_skip", scene, cfg, cam, frames,
+                      SKIP_KERNELS if k4 else UNPRIMED_KERNELS,
+                      env={"PT_CULL_SKIP": "1"})
+    if k4 and skip["launches"]["tile_cull"]:
+        raise PhaseError("config 4 with PT_CULL_SKIP=1 launched K1 "
+                         f"{skip['launches']['tile_cull']} times")
+    same_render("config4_cull_skip_ab", skip, r_s, base, r_b)
     primed, _ = drive("config4_primed", scene,
                       dataclasses.replace(cfg, primary_priming=True), cam,
                       frames, PRIMED_KERNELS)

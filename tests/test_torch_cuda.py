@@ -252,6 +252,76 @@ def test_skip_cull_kernel_matches_plain_and_k1(dev, blk, monkeypatch):
     assert kernels.LAUNCHES["tile_cull"] == before["tile_cull"]
 
 
+# --- K4's ray rule: the adversarial chunk ------------------------------------
+
+# (pads, t_min, t_max): "none" 512 real boxes; "accel" 500 real and 12
+# accel pad boxes at 1e30 (C = 512); "far" 488 real and 12 accel pads (C
+# = 500), to which K4 adds 12 far pads (the last block holds both kinds)
+CULL_TRAPS = [(pads, t_min, t_max) for pads in ("none", "accel", "far")
+              for t_min in (0.0, 1e-3) for t_max in (40.0, float("inf"))]
+
+
+def cull_trap_case(pads, t_max, dev="cpu"):
+    """An adversarial K4 chunk: (lo, hi, o, inv_d, t_max) with seven
+    64-ray tiles.
+
+    Boxes on islands 25 apart (a block of 128 spans ~1.3 islands), pads
+    as `pads` says. Tiles: 0 live rays from island 0; 1 live rays with a
+    parked tail (origin 1e30, d = 1: 12 packet pads with t_max 0, then 12
+    rays parked by the integrator with the case's t_max); 2 parked rays
+    only (t_max 0 and the case's); 3 half live, half parked with three
+    equal negative 1/d components (the case's t_max); 4 those corner rays
+    only; 5 live rays leaving the scene (they miss the root box); 6 live
+    rays inside island 3.
+    """
+    rng = np.random.default_rng(17)
+    c = 500 if pads == "far" else 512
+    ctr = rng.uniform(-1, 1, (c, 3)) + (np.arange(c) // 100)[:, None] * 25.0
+    half = rng.uniform(0.05, 0.4, (c, 3))
+    lo, hi = ctr - half, ctr + half
+    if pads != "none":
+        lo[-12:] = hi[-12:] = 1e30
+    n = 7 * 64
+    o = rng.uniform(-2, 2, (n, 3))
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tm = np.full(n, t_max)
+    parked = np.zeros(n, bool)
+    parked[64 + 40:3 * 64] = True                  # tiles 1 (tail) and 2
+    tm[64 + 40:64 + 52] = 0.0                      # packet pads
+    tm[2 * 64:2 * 64 + 32] = 0.0
+    o[parked], d[parked] = 1e30, 1.0
+    corner = np.zeros(n, bool)
+    corner[3 * 64 + 32:5 * 64] = True              # tile 3's half, tile 4
+    o[corner], d[corner] = 1e30, -0.57735027
+    o[5 * 64:6 * 64] = (0.0, -100.0, 0.0)          # tile 5 leaves the scene
+    d[5 * 64:6 * 64] = np.abs(d[5 * 64:6 * 64]) * (0.1, -1.0, 0.1)
+    o[6 * 64:] += 75.0                             # tile 6 at island 3
+    f = [torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+         for x in (lo, hi, o, d, tm)]
+    return f[0], f[1], f[2], packet._safe_inv(f[3]), f[4]
+
+
+@pytest.mark.parametrize("blk", [128, 256])
+@pytest.mark.parametrize("trap", CULL_TRAPS)
+def test_skip_cull_kernel_on_adversarial_chunk(dev, trap, blk):
+    """K4 on cull_trap_case: bit-exact against its plain version and K1,
+    its mask equal to sc_mask_plain, for every pad layout, t_min and
+    t_max."""
+    pads, t_min, t_max = trap
+    lo, hi, o, inv, tm = cull_trap_case(pads, t_max, dev)
+    kw = dict(t_min=t_min, n_tiles=7, tile_rays=64)
+    mask = torch.full((7, cull.n_blocks(lo.shape[0], blk)), -1,
+                      dtype=torch.int32, device=dev)
+    got = cull.tile_cull_skip(lo, hi, o, inv, tm, blk=blk, mask_out=mask,
+                              **kw)
+    assert torch.equal(got, cull.tile_cull_skip_plain(lo, hi, o, inv, tm,
+                                                      blk=blk, **kw))
+    assert torch.equal(got, cull.tile_cull_plain(lo, hi, o, inv, tm, **kw))
+    assert torch.equal(mask, cull.sc_mask_plain(lo, hi, o, inv, tm,
+                                                blk=blk, **kw))
+
+
 # --- the sweeps' branches ----------------------------------------------------
 
 def _right(x0, y0, z):
@@ -380,3 +450,55 @@ def test_sweep_kernel_occupancy_is_reported(dev):
         info = sweep.kernel_info(name)
         assert info["registers"] > 0 and info["blocks_per_sm"] > 0
         assert 0.0 < info["occupancy"] <= 1.0
+    info = cull.kernel_info()
+    assert info["registers"] > 0 and info["blocks_per_sm"] > 0
+    assert info["threads"] == 256 and info["local_bytes"] == 0
+
+
+def test_skip_cull_kernel_on_unaligned_rows(dev):
+    """K4 on 375 boxes (C % 4 != 0: the output rows are not 16-byte
+    aligned, so the gated blocks take the scalar +inf stores; 384 padded
+    clusters make 3 blocks of 128)."""
+    lo, hi, o, inv, tm = cull_trap_case("none", 40.0, dev)
+    lo, hi = lo[:375].contiguous(), hi[:375].contiguous()
+    kw = dict(t_min=1e-3, n_tiles=7, tile_rays=64)
+    mask = torch.empty((7, 3), dtype=torch.int32, device=dev)
+    got = cull.tile_cull_skip(lo, hi, o, inv, tm, blk=128, mask_out=mask,
+                              **kw)
+    assert torch.equal(got, cull.tile_cull_plain(lo, hi, o, inv, tm, **kw))
+    assert torch.equal(mask, cull.sc_mask_plain(lo, hi, o, inv, tm, blk=128,
+                                                **kw))
+    assert 0 < int(mask.sum()) < mask.numel()
+
+
+def test_skip_cull_kernel_derives_union_boxes_once(dev, monkeypatch):
+    """The CUDA route builds K4's union boxes once per box table and blk
+    (union_table), not on every call."""
+    lo, hi, o, inv, tm = cull_trap_case("far", 40.0, dev)
+    calls = []
+    real = cull.union_boxes
+
+    def counted(*a):
+        calls.append(a[2])
+        return real(*a)
+
+    monkeypatch.setattr(cull, "union_boxes", counted)
+    kw = dict(t_min=0.0, n_tiles=7, tile_rays=64, blk=128)
+    first = cull.tile_cull_skip(lo, hi, o, inv, tm, **kw)
+    for _ in range(3):
+        assert torch.equal(cull.tile_cull_skip(lo, hi, o, inv, tm, **kw),
+                           first)
+    assert calls == [128]
+
+
+def test_skip_cull_kernel_limits_raise(dev):
+    """K4 has two limits on the card, and each raises: tiles of more
+    than 256 rays, and NB pass words beyond a CTA's shared memory."""
+    lo = torch.zeros((8192, 3), device=dev)
+    o = torch.zeros((512, 3), device=dev)
+    kw = dict(t_min=0.0, n_tiles=1, tile_rays=512, blk=128)
+    with pytest.raises(ValueError, match="at most 256"):
+        cull.tile_cull_skip(lo, lo, o, o, o[:, 0].contiguous(), **kw)
+    kw.update(tile_rays=256, n_tiles=2, blk=1)
+    with pytest.raises(ValueError, match="shared memory"):
+        cull.tile_cull_skip(lo, lo, o, o, o[:, 0].contiguous(), **kw)

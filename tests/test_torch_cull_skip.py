@@ -22,6 +22,7 @@ from pathtracer_torch.config import RenderConfig
 from pathtracer_torch.integrator.camera import Camera
 from pathtracer_torch.kernels import LAUNCHES, cull
 from pathtracer_torch.scene import procedural
+from tests.test_torch_cuda import CULL_TRAPS, cull_trap_case
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -207,19 +208,118 @@ def test_render_with_skip_equals_k1_render(monkeypatch):
     assert torch.equal(gated_img, base)
 
 
+def _np_slab(lo, hi, o, inv, tm, t_min):
+    """K1's slab and accept test in numpy float32 (the same roundings)."""
+    with np.errstate(over="ignore"):     # parked rays: 1e30 * 1e20 -> inf
+        t1 = (lo - o) * inv
+        t2 = (hi - o) * inv
+    tn = np.minimum(t1, t2).max(-1)
+    tf = np.maximum(t1, t2).min(-1)
+    return (tn <= tf) & (tf >= t_min) & (tn <= tm)
+
+
 def test_skip_pair_count_on_packet_chunk():
-    """pair_tests counts unparked rays x (NB + real clusters of kept
-    blocks), tile by tile, on a chunk the packet layer pads."""
+    """pair_tests counts the slab tests the data needs, tile by tile, on
+    a chunk the packet layer pads: unparked rays against the root box,
+    the live ones against the NB union boxes, and each kept block's
+    passing unparked rays against its real clusters; kernel_tests the
+    tests the kernel runs (every ray against the root box, the live rays
+    against the union boxes, the passing rays against all C clusters)."""
     lo, hi, o, inv, tm = _case(4096, 512, 4, 256, 40.0, 11)
     tlo, thi, to, tinv, ttm = _t(lo, hi, o, inv, tm)
     pairs = torch.zeros((), dtype=torch.int64)
+    tests = torch.zeros((), dtype=torch.int64)
     cull.tile_cull_skip_plain(tlo, thi, to, tinv, ttm, t_min=1e-3,
                               n_tiles=4, tile_rays=64, blk=128,
-                              pair_tests=pairs)
-    mask = cull.sc_mask_plain(tlo, thi, to, tinv, ttm, t_min=1e-3,
-                              n_tiles=4, tile_rays=64, blk=128).numpy()
+                              pair_tests=pairs, kernel_tests=tests)
+    ulo = lo.reshape(4, 128, 3).min(1)
+    uhi = hi.reshape(4, 128, 3).max(1)
+    live = _np_slab(ulo.min(0), uhi.max(0), o, inv, tm, 1e-3)   # [256]
+    passes = _np_slab(ulo[None], uhi[None], o[:, None], inv[:, None],
+                      tm[:, None], 1e-3) & live[:, None]          # [256, 4]
+    unparked = o[:, 0] < 1e29
     real = (lo[:, 0] < 1e29).reshape(4, 128).sum(1)
-    live = (o[:, 0] < 1e29).reshape(4, 64).sum(1)
-    want = sum(int(live[t]) * (4 + int((mask[t] * real).sum()))
-               for t in range(4))
-    assert int(pairs) == want
+    want = (unparked.sum() + (unparked & live).sum() * 4
+            + ((passes & unparked[:, None]).sum(0) * real).sum())
+    assert 0 < live.sum() < 256 and 0 < passes.sum() < live.sum() * 4
+    assert int(pairs) == int(want)
+    assert int(tests) == 256 + live.sum() * 4 + passes.sum() * 128
+
+
+@pytest.mark.parametrize("blk", [128, 256])
+@pytest.mark.parametrize("pads", ["none", "far"])
+def test_union_table_equals_union_boxes(pads, blk):
+    """K4's box table holds union_boxes' boxes bit for bit and their
+    union, with and without far pads, and is derived once per box table
+    and blk (again after an in-place change)."""
+    lo, hi = cull_trap_case(pads, 40.0)[:2]
+    nb = cull.n_blocks(lo.shape[0], blk)
+    table = cull.union_table(lo, hi, blk)
+    ulo, uhi = cull.union_boxes(lo, hi, blk)
+
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
+    assert table.shape == (nb + 1, 6) and ulo.shape == (nb, 3)
+    assert torch.equal(bits(table[:nb, :3]), bits(ulo))
+    assert torch.equal(bits(table[:nb, 3:]), bits(uhi))
+    assert torch.equal(bits(table[nb]), bits(torch.cat([ulo.amin(0),
+                                                        uhi.amax(0)])))
+    assert bool((table[nb, 3:] == 1e30).all()) == (pads == "far")
+    assert cull.union_table(lo, hi, blk) is table
+    assert cull.union_table(lo, hi, 64) is not table
+    lo[0] -= 1.0
+    moved = cull.union_table(lo, hi, blk)
+    assert moved is not table
+    assert torch.equal(moved[:nb, :3], cull.union_boxes(lo, hi, blk)[0])
+
+
+@pytest.mark.parametrize("trap", CULL_TRAPS)
+def test_skip_ray_rule_is_exact_on_adversarial_chunk(trap):
+    """The rays K4's kernel drops (skip_ray_sets_plain: those outside the
+    root box, and per kept block those outside its union box) change
+    neither tile_cull_skip_plain nor sc_mask_plain: a NaN t_max fails
+    every accept test, so the dropped rays are removed that way. The
+    traps stay in: parked rays meet pad boxes at t = 0 when t_min is 0,
+    and parked rays with three equal negative 1/d components meet every
+    real box when t_max is infinite."""
+    pads, t_min, t_max = trap
+    lo, hi, o, inv, tm = cull_trap_case(pads, t_max)
+    kw = dict(t_min=t_min, n_tiles=7, tile_rays=64)
+    nan = torch.tensor(float("nan"))
+    k1 = cull.tile_cull_plain(lo, hi, o, inv, tm, **kw)
+    parked = (o[:, 0] >= 1e29).reshape(7, 64)
+    corner = parked & (inv[:, 0] < 0).reshape(7, 64)
+    assert bool((inv[corner.reshape(-1)] == inv[corner.reshape(-1)][0, 0])
+                .all()) and float(inv[corner.reshape(-1)][0, 0]) < 0
+    padded = pads != "none"
+    real = lo[:, 0] < 1e29
+    for blk in (128, 256):
+        base = cull.tile_cull_skip_plain(lo, hi, o, inv, tm, blk=blk, **kw)
+        mask = cull.sc_mask_plain(lo, hi, o, inv, tm, blk=blk, **kw)
+        assert torch.equal(base, k1)
+        live, passes = cull.skip_ray_sets_plain(lo, hi, o, inv, tm, blk=blk,
+                                                **kw)
+        tm_live = torch.where(live.reshape(-1), tm, nan)
+        assert torch.equal(cull.tile_cull_skip_plain(
+            lo, hi, o, inv, tm_live, blk=blk, **kw), base)
+        assert torch.equal(cull.sc_mask_plain(
+            lo, hi, o, inv, tm_live, blk=blk, **kw), mask)
+        assert torch.equal(passes.any(dim=2).to(torch.int32), mask)
+        for b in range(mask.shape[1]):
+            cols = slice(b * blk, min((b + 1) * blk, lo.shape[0]))
+            tm_b = torch.where(passes[:, b].reshape(-1), tm, nan)
+            assert torch.equal(cull.tile_cull_plain(
+                lo[cols], hi[cols], o, inv, tm_b, **kw), base[:, cols])
+        # what is kept and what is dropped
+        assert not bool(live[5].any())                 # leaving the scene
+        pad_ok = t_min == 0.0 and padded
+        assert torch.equal(live[parked & ~corner],
+                           torch.full_like(live[parked & ~corner], pad_ok))
+        assert bool(live[corner].all()) == (padded or t_max == np.inf)
+        assert bool(mask[2, -1]) == pad_ok and not bool(mask[2, :-1].any())
+        assert torch.equal(base[2][~real] == 0.0,
+                           torch.full_like(base[2][~real] == 0.0, pad_ok))
+        hits = torch.isfinite(base[4][real])
+        assert torch.equal(hits, torch.full_like(hits, t_max == np.inf))
+        assert bool((base[4][real][hits] > 1e29).all())

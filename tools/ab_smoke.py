@@ -10,9 +10,12 @@ into a git-ignored directory). Runs `python3 chip_smoke.py` in them in
 the order given (A = BASE, B = CHANGE; default ABBA, so drift over the
 call falls on both), saves each run's output as OUT/<i>_<A|B>.log, and
 prints one JSON line per run with the numbers PERF.md compares: per
-sweep kernel its ms per chunk and bound, the headline's ms/frame,
-Mrays/s and peak memory (K1 route, K4 route, primed), and configs 3 and
-4's ms/frame. Exits non-zero if a run fails. Needs one CUDA device.
+kernel its ms per chunk and bound (K4 at each block width, as
+tile_cull_skip_<blk>), K4's skip rate, tests and occupancy where the
+run prints them, the headline's ms/frame, Mrays/s and peak memory (K1
+route, K4 route, primed), and configs 3 and 4's ms/frame (config 4 also
+on the K4 route where the run has it). Exits non-zero if a run fails.
+Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -24,9 +27,8 @@ import subprocess
 import sys
 import time
 
-SWEEPS = ("sweep_closest", "sweep_occluded", "sweep_occluded_blocker")
 RUNS = ("headline", "headline_cull_skip", "headline_primed", "config4",
-        "config4_primed", "config3_denoise")
+        "config4_cull_skip", "config4_primed", "config3_denoise")
 
 
 def summarize(lines):
@@ -37,9 +39,19 @@ def summarize(lines):
             continue
         rec = json.loads(line)
         phase = rec.get("phase")
-        if phase == "kernel_vs_plain" and rec["kernel"] in SWEEPS:
-            out[rec["kernel"]] = dict(ms=rec["ms"], bound_ms=rec["bound_ms"],
-                                      ratio=rec["ms"] / rec["bound_ms"])
+        if phase == "kernel_vs_plain":
+            name = rec["kernel"]
+            if name == "tile_cull_skip":
+                name += f"_{rec.get('blk', 128)}"
+            out[name] = dict(ms=rec["ms"], bound_ms=rec["bound_ms"],
+                             ratio=rec["ms"] / rec["bound_ms"])
+        elif phase == "k4_skip_rate":
+            out[f"tile_cull_skip_{rec['blk']}"]["skip"] = rec["mean"]
+        elif phase == "k4_work":
+            out[f"tile_cull_skip_{rec['blk']}"].update(
+                {k: rec[k] for k in ("needed_tests", "kernel_tests",
+                                     "registers", "blocks_per_sm",
+                                     "occupancy")})
         elif phase == "sweep_work":
             out[rec["kernel"]].update(
                 {k: rec[k] for k in ("needed_tests", "dense_tests",
