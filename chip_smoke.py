@@ -42,7 +42,23 @@ Drives pathtracer_torch's paths on the card and checks them:
    held to 8 single-frame steps (gate, equal rays);
 6. config 3 at BASELINE's size (materials suite, 512x512, 4 spp, depth
    6, frame_batch 8: two steps = 64 spp) with the denoiser: the denoised
-   display finite and in [0, 1], three AOVs.
+   display finite and in [0, 1], three AOVs;
+7. lbvh: config 2's scene (bunny_like(), ~80k triangles) with its LBVH
+   built on the card, bit for bit the CPU build; K5 (closest) and K6
+   (any-hit) BVH walks against their plain versions (t/u/v/tri and
+   blocked bit-exact) on the arguments the main path handed them in one
+   step of config 2 on the bvh route, with the nodes and leaf tests the
+   data needs and the bound they give;
+8. config 2 at BASELINE's size on the bvh route (512x512, 1 spp, depth
+   6, frame_batch = saturating_frame_batch = 8): K5/K6 and none of
+   K1-K4 launched, the film within the gate of the cluster route's on
+   the same seed, and config 2's 64x64 golden gate on the bvh route;
+9. estimators: Sobol draws on the card equal to the CPU's over 2M
+   lanes (sample ids up to 2^32 - 1); config 3 at its size with
+   sampler="sobol" against pcg (ms/frame, finite film); config 1 with
+   reference_quirks (256x256, 4 spp, depth 6) against
+   tests/golden_cornell_quirks_256.npy; the Hosek sky on config 2's
+   scene at 64x64, the card's film against the port's CPU render.
 
 Prints one JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line,
@@ -91,7 +107,15 @@ KERNELS = {
                                "(want_blocker=True)"),
     "tile_cull_skip": ("pathtracer_torch/csrc/cull.cu",
                        "pathtracer/kernels/pallas_cull.py:66"),
+    # XLA code in the JAX package (lax.while_loop), not Pallas
+    "bvh_closest": ("pathtracer_torch/csrc/traverse.cu",
+                    "pathtracer/kernels/traverse.py:140"),
+    "bvh_occluded": ("pathtracer_torch/csrc/traverse.cu",
+                     "pathtracer/kernels/traverse.py:206"),
 }
+CLUSTER_KERNELS = ("tile_cull", "tile_cull_skip", "sweep_closest",
+                   "sweep_occluded", "sweep_occluded_blocker")
+BVH_KERNELS = ("bvh_closest", "bvh_occluded")
 UNPRIMED_KERNELS = ("tile_cull", "sweep_closest", "sweep_occluded")
 PRIMED_KERNELS = UNPRIMED_KERNELS + ("sweep_occluded_blocker",)
 SKIP_KERNELS = ("tile_cull_skip", "sweep_closest", "sweep_occluded")
@@ -111,6 +135,17 @@ CULL_OPS = 28   # (ray, cluster): 6 sub, 6 mul, 10 min/max, 3 tests, 3
 BW_OPS = {"sweep_closest": 38,             # (ray, triangle): bw_lane
           "sweep_occluded": 40,            # + denom < 0, t < t_max
           "sweep_occluded_blocker": 40}
+# K5/K6, off csrc/traverse.cu: a node visit is a slab test (6 sub, 6 mul,
+# 10 min/max, 3 compares); a leaf test Moller-Trumbore (52: crosses,
+# dots, the reciprocal, 6 range tests), K5 + the strict t < best_t, K6 +
+# the front-facing test (cross, dot, compare) and t < t_max
+SLAB_OPS = 25
+LEAF_OPS = {"bvh_closest": 53, "bvh_occluded": 68}
+NODE_BYTES, TRI_BYTES = 32, 36
+# BASELINE config 2 (benchmarks/run_configs.py:103-106) at its size
+CONFIG2_SIZE = 512
+QUIRKS_SIZE = 256      # BASELINE config 1 (run_configs.py:99-102)
+SOBOL_LANES = 1 << 21
 
 
 def log(phase, **kw):
@@ -166,7 +201,7 @@ def phase_device():
 
     builds = [threading.Thread(target=run, args=(native.build,))] + [
         threading.Thread(target=run, args=(cuda_build.build, name))
-        for name in ("cull", "sweep")]
+        for name in ("cull", "sweep", "traverse")]
     for t in builds:
         t.start()
     for t in builds:
@@ -331,7 +366,7 @@ def phase_kernels(scene, cfg, cam):
                 "bound_ms": [], "pairs": [], "max_abs_err": 0.0, "calls": 0,
                 "walk": []}
 
-    stats = {k: new_stats() for k in KERNELS}
+    stats = {k: new_stats() for k in CLUSTER_KERNELS}
     skip_stats = {blk: dict(new_stats(), **{k: [] for k in (
         "kernel_tests", "pairs_all_rays", "skip", "exact_skip", "parked_kept",
         "label")}) for blk in SKIP_BLKS}
@@ -897,6 +932,333 @@ def phase_config3():
     return res
 
 
+def config2_cfg(**kw):
+    from pathtracer_torch.config import RenderConfig, saturating_frame_batch
+
+    return RenderConfig(width=CONFIG2_SIZE, height=CONFIG2_SIZE, spp=1,
+                        max_depth=6, spp_batch=True,
+                        frame_batch=saturating_frame_batch(
+                            CONFIG2_SIZE, CONFIG2_SIZE, 1), **kw)
+
+
+def bvh_bound_ms(name, args, node_visits, leaf_tests):
+    """Least time of one K5/K6 call: (operations ms, bytes ms, visit
+    bytes ms). Operations: the node visits and leaf tests this call's
+    data needs (the plain version's walk) x SLAB_OPS / LEAF_OPS over
+    PEAK_FP32_INSTR. Bytes: each input read once (the node and triangle
+    tables, o, d, t_max) and each output written once, over PEAK_BYTES.
+    Visit bytes (logged, not the bound): the 32-byte node row and 36-byte
+    triangle row every visit reads."""
+    packed, o, d, _, tm = args
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (packed.nodes, packed.tris, o, d))
+    n = o.shape[0]
+    nbytes += n * 4 + n * (16 if name == "bvh_closest" else 1)
+    ops = node_visits * SLAB_OPS + leaf_tests * LEAF_OPS[name]
+    visit_bytes = node_visits * NODE_BYTES + leaf_tests * TRI_BYTES
+    return (ops / PEAK_FP32_INSTR * 1e3, nbytes / PEAK_BYTES * 1e3,
+            visit_bytes / PEAK_BYTES * 1e3)
+
+
+def capture_bvh_calls(scene, cfg, cam):
+    """Arguments of every K5/K6 call of one Renderer step on the bvh
+    route (cfg.frame_batch frames), recorded at the wrappers:
+    [(name, (packed, o, d, t_min, t_max))]."""
+    import torch
+
+    from pathtracer_torch.kernels import traverse
+    from pathtracer_torch.render import Renderer
+
+    real = {"bvh_closest": traverse.intersect_bvh,
+            "bvh_occluded": traverse.occluded_bvh}
+    calls = []
+
+    def rec(name):
+        def call(packed, o, d, *rest):
+            if name == "bvh_closest":
+                t_min, t_max = rest
+            else:
+                t_min, (t_max,) = None, rest
+            if isinstance(t_max, torch.Tensor):
+                t_max = t_max.clone()
+            calls.append((name, (packed, o.clone(), d.clone(), t_min,
+                                 t_max)))
+            return real[name](packed, o, d, *rest)
+        return call
+
+    traverse.intersect_bvh = rec("bvh_closest")
+    traverse.occluded_bvh = rec("bvh_occluded")
+    try:
+        Renderer(scene, cfg, cam, device=DEVICE).step()
+    finally:
+        traverse.intersect_bvh = real["bvh_closest"]
+        traverse.occluded_bvh = real["bvh_occluded"]
+    return calls
+
+
+def phase_lbvh():
+    """Config 2's scene and its LBVH on the card (bit for bit the CPU
+    build), then K5/K6 against their plain versions on one bvh-route
+    step's calls. Returns (scene with bvh on the card, the CPU scene with
+    its bvh, stats per kernel)."""
+    import torch
+
+    from pathtracer_torch.accel import lbvh
+    from pathtracer_torch.kernels import traverse
+    from pathtracer_torch.scene import procedural
+
+    t0 = time.perf_counter()
+    cpu_scene = procedural.bunny_like().finalize(device="cpu")
+    scene = cpu_scene.to(DEVICE)
+    t1 = time.perf_counter()
+    v = scene.tri_vertices(torch.arange(scene.n_tris, device=DEVICE))
+    lbvh.build_lbvh(*v)                                      # warm-up
+    build_ms = []
+    for _ in range(3):
+        bvh, ms = timed(lambda: lbvh.build_lbvh(*v))
+        build_ms.append(ms)
+    t2 = time.perf_counter()
+    cpu_bvh = lbvh.build_lbvh(*cpu_scene.tri_vertices(
+        torch.arange(cpu_scene.n_tris)))
+    cpu_s = time.perf_counter() - t2
+    fields = ("aabb_min", "aabb_max", "hit_link", "miss_link", "tri_id")
+    diff = [f for f in fields
+            if not torch.equal(getattr(bvh, f).cpu(), getattr(cpu_bvh, f))]
+    log("lbvh_build", tris=scene.n_tris, nodes=int(bvh.tri_id.numel()),
+        scene_s=t1 - t0, build_ms=build_ms, cpu_build_s=cpu_s,
+        bit_exact=not diff)
+    if diff:
+        raise PhaseError(f"LBVH on the card differs from the CPU build in "
+                         f"{diff}")
+    scene = scene.with_bvh(bvh)
+    cpu_scene = cpu_scene.with_bvh(cpu_bvh)
+    cfg = config2_cfg(intersector="bvh")
+    calls = capture_bvh_calls(scene, cfg, camera(BUNNY_CAM))
+    stats = {k: {"ms": [], "plain_ms": [], "ops_ms": [], "bytes_ms": [],
+                 "visit_bytes_ms": [], "bound_ms": [], "node_visits": [],
+                 "leaf_tests": [], "calls": 0, "max_abs_err": 0.0}
+             for k in BVH_KERNELS}
+    for i, (name, args) in enumerate(calls):
+        packed, o, d, t_min, t_max = args
+        if name == "bvh_closest":
+            def kernel():
+                return traverse.intersect_bvh(packed, o, d, t_min, t_max)
+        else:
+            def kernel():
+                return traverse.occluded_bvh(packed, o, d, t_max)
+        kernel()                                             # warm-up
+        out, ms = timed(kernel)
+        visits = torch.zeros((), dtype=torch.int64, device=DEVICE)
+        leaves = torch.zeros((), dtype=torch.int64, device=DEVICE)
+        if name == "bvh_closest":
+            ref, ms_p = timed(lambda: traverse.intersect_bvh_plain(
+                packed, o, d, t_min, t_max, node_visits=visits,
+                leaf_tests=leaves))
+            for x, y, nm in zip(out, ref, ("t", "tri", "u", "v")):
+                if not torch.equal(x, y):
+                    raise PhaseError(f"K5 call {i}: {nm} differs on "
+                                     f"{int((x != y).sum())} rays")
+            hits = int((out.tri >= 0).sum())
+        else:
+            ref, ms_p = timed(lambda: traverse.occluded_bvh_plain(
+                packed, o, d, t_max, node_visits=visits, leaf_tests=leaves))
+            if not torch.equal(out, ref):
+                raise PhaseError(f"K6 call {i}: blocked differs on "
+                                 f"{int((out != ref).sum())} rays")
+            hits = int(out.sum())
+        ops_ms, bytes_ms, visit_ms = bvh_bound_ms(name, args, int(visits),
+                                                  int(leaves))
+        s = stats[name]
+        for k, x in (("ms", ms), ("plain_ms", ms_p), ("ops_ms", ops_ms),
+                     ("bytes_ms", bytes_ms), ("visit_bytes_ms", visit_ms),
+                     ("bound_ms", max(ops_ms, bytes_ms)),
+                     ("node_visits", int(visits)),
+                     ("leaf_tests", int(leaves))):
+            s[k].append(x)
+        s["calls"] += 1
+        live = int((o[:, 0] < 1e29).sum())
+        # a parked ray (origin 1e30) visits the root only
+        log("bvh_call", kernel=name, call=i, rays=o.shape[0], live=live,
+            hits=hits, node_visits=int(visits), leaf_tests=int(leaves),
+            visits_per_live_ray=(int(visits) - (o.shape[0] - live))
+            / max(live, 1), ms=ms,
+            plain_ms=ms_p, ops_ms=ops_ms, bytes_ms=bytes_ms,
+            visit_bytes_ms=visit_ms)
+    for name, s in stats.items():
+        if not s["calls"]:
+            raise PhaseError(f"{name}: never called on the bvh route")
+        n = s["calls"]
+        mean = {k: sum(s[k]) / n for k in ("ms", "plain_ms", "ops_ms",
+                                            "bytes_ms", "visit_bytes_ms",
+                                            "bound_ms", "node_visits",
+                                            "leaf_tests")}
+        s.update(mean, bound_by=("operations" if mean["ops_ms"]
+                                 >= mean["bytes_ms"] else "bytes"),
+                 calls_per_frame=n / cfg.frame_batch)
+        log("kernel_vs_plain", kernel=name, calls=n, max_abs_err=0.0,
+            bound_by=s["bound_by"], calls_per_frame=s["calls_per_frame"],
+            **mean)
+    return scene, cpu_scene, stats
+
+
+def phase_config2(scene, frames):
+    """BASELINE config 2 on the bvh route against the cluster route, and
+    config 2's 64x64 golden gate on the bvh route."""
+    import numpy as np
+    import torch
+
+    from pathtracer_torch.accel.cluster import build_scene_clusters
+    from pathtracer_torch.config import RenderConfig
+    from pathtracer_torch.render import render_frame
+
+    cam = camera(BUNNY_CAM)
+    bvh, r_b = drive("config2_bvh", scene, config2_cfg(intersector="bvh"),
+                     cam, frames, BVH_KERNELS)
+    stray = {k: bvh["launches"][k] for k in CLUSTER_KERNELS
+             if bvh["launches"][k]}
+    if stray:
+        raise PhaseError(f"config 2 on the bvh route launched {stray}")
+    t0 = time.perf_counter()
+    scene_cl = build_scene_clusters(dataclasses.replace(
+        scene.to("cpu"), bvh=None)).to(DEVICE)
+    log("config2_clusters", clusters=scene_cl.clusters.n_clusters,
+        seconds=time.perf_counter() - t0)
+    cl, r_c = drive("config2_cluster", scene_cl,
+                    config2_cfg(intersector="cluster"), cam, frames,
+                    UNPRIMED_KERNELS)
+    gate = robust_gate(r_b.film.accum.cpu().numpy(),
+                       r_c.film.accum.cpu().numpy())
+    log("config2_bvh_vs_cluster", ms_bvh=bvh["ms_per_frame"],
+        ms_cluster=cl["ms_per_frame"], mrays_bvh=bvh["mrays_per_s"],
+        mrays_cluster=cl["mrays_per_s"], rays_bvh=bvh["rays_per_step"],
+        rays_cluster=cl["rays_per_step"], **gate)
+    if not gate["ok"]:
+        raise PhaseError(f"config 2: bvh film differs from cluster: {gate}")
+    del scene_cl, r_c
+    cfg = RenderConfig(width=64, height=64, spp=4, max_depth=6,
+                       spp_batch=True, intersector="bvh")
+    img = render_frame(scene, cfg, cam.state(device=DEVICE), 0)
+    g = np.load(os.path.join(GOLDEN_DIR, "config_2_64.npz"))["img"]
+    res = robust_gate(img.cpu().numpy(), g)
+    log("golden", config=2, route="bvh", tris=scene.n_tris, **res)
+    if not res["ok"]:
+        raise PhaseError(f"config 2 golden gate failed on the bvh route: "
+                         f"{res}")
+    torch.cuda.empty_cache()
+    return bvh
+
+
+def finite_gate(img, ref):
+    """robust_gate on the pixels finite in both; a pixel finite in only
+    one counts as flipped (the Hosek formula overflows for directions
+    with cos(theta) in about (-0.0123, -0.0100), in both packages)."""
+    import numpy as np
+
+    fin_i = np.isfinite(img).all(-1)
+    fin_r = np.isfinite(ref).all(-1)
+    both = fin_i & fin_r
+    res = robust_gate(img[both], ref[both])
+    res["flip_frac"] = float((res["flip_frac"] * both.sum()
+                              + (fin_i != fin_r).sum()) / both.size)
+    res["nonfinite"] = [int((~fin_i).sum()), int((~fin_r).sum())]
+    res["ok"] = (res["inlier_rmse"] <= RMSE_TOL
+                 and res["flip_frac"] <= OUTLIER_TOL
+                 and res["mean_rel"] <= MEAN_TOL)
+    return res
+
+
+def quirks_golden_gate(img, golden):
+    """The reference_quirks golden gate (also tests/test_torch_estimators.
+    py's): RMSE <= 1e-4 (the JAX test's bound, tests/test_golden.py:
+    47-63) over the pixels whose paths made the same decisions, and at
+    most 0.5% of pixels apart by more than 1e-2 (NEE visibility decided
+    on an ulp by the quirk shadow ray, raygen.rgen:199-204)."""
+    import numpy as np
+
+    d = np.abs(img - golden).max(-1)
+    flip = d > 1e-2
+    rmse_all = float(np.sqrt(np.mean((img - golden) ** 2)))
+    rmse = float(np.sqrt(np.mean((img[~flip] - golden[~flip]) ** 2)))
+    return dict(rmse_all=rmse_all, rmse_same_paths=rmse,
+                flip_frac=float(flip.mean()),
+                ok=rmse <= 1e-4 and float(flip.mean()) <= 0.005)
+
+
+def phase_estimators(cpu_scene2, frames):
+    """Sobol on the card vs the CPU; config 3 sobol vs pcg; the config-1
+    quirks golden; Hosek on config 2's scene, card vs CPU."""
+    import numpy as np
+    import torch
+
+    from pathtracer_torch.accel.cluster import build_scene_clusters
+    from pathtracer_torch.config import RenderConfig, saturating_frame_batch
+    from pathtracer_torch.render import render_frame
+    from pathtracer_torch.sampling import rng
+    from pathtracer_torch.scene import procedural
+
+    g = np.random.default_rng(0)
+    pix = torch.from_numpy(g.integers(0, 1 << 22, SOBOL_LANES))
+    samp = torch.from_numpy(g.integers(0, 1 << 32, SOBOL_LANES))
+    samp[:4] = torch.tensor([0, (1 << 31) - 1, 1 << 31, (1 << 32) - 1])
+    for depth, salt in ((0, rng.SALT_JITTER), (5, rng.SALT_BSDF_UV)):
+        cpu = rng.uniform4(pix, samp, depth, salt, 3, sampler="sobol")
+        gpu = rng.uniform4(pix.to(DEVICE), samp.to(DEVICE), depth, salt, 3,
+                           sampler="sobol")
+        same = torch.equal(gpu.cpu(), cpu)
+        log("sobol_draws", lanes=SOBOL_LANES, depth=depth, salt=salt,
+            samples_at_or_above_2_31=int((samp >= 1 << 31).sum()),
+            bit_exact=same)
+        if not same:
+            raise PhaseError("Sobol draws on the card differ from the CPU")
+
+    scene3 = build_scene_clusters(procedural.cornell_box(
+        materials_suite=True).finalize(device="cpu")).to(DEVICE)
+    kw3 = dict(width=CONFIG3_SIZE, height=CONFIG3_SIZE, spp=4, max_depth=6,
+               spp_batch=True, frame_batch=saturating_frame_batch(
+                   CONFIG3_SIZE, CONFIG3_SIZE, 4))
+    runs = {}
+    for sampler in ("pcg", "sobol", "sobol", "pcg"):
+        res, _ = drive(f"config3_{sampler}", scene3,
+                       RenderConfig(sampler=sampler, **kw3),
+                       camera(BOX_CAM), frames, UNPRIMED_KERNELS)
+        runs.setdefault(sampler, []).append(res["ms_per_frame"])
+    log("config3_sobol_vs_pcg", ms_sobol=runs["sobol"], ms_pcg=runs["pcg"])
+    del scene3
+
+    scene1 = build_scene_clusters(procedural.cornell_box().finalize(
+        device="cpu")).to(DEVICE)
+    cfg1 = RenderConfig(width=QUIRKS_SIZE, height=QUIRKS_SIZE, spp=4,
+                        max_depth=6, reference_quirks=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = render_frame(scene1, cfg1, camera(BOX_CAM).state(device=DEVICE),
+                       0).cpu().numpy()
+    golden = np.load(os.path.join(ROOT, "tests",
+                                  "golden_cornell_quirks_256.npy"))
+    res = quirks_golden_gate(img, golden)
+    log("quirks_golden", config=1, size=QUIRKS_SIZE,
+        seconds=time.perf_counter() - t0, **res)
+    if not res["ok"]:
+        raise PhaseError(f"config 1 quirks golden failed: {res}")
+
+    cfg_h = RenderConfig(width=64, height=64, spp=4, max_depth=6,
+                         spp_batch=True, intersector="bvh", sky="hosek")
+    cam = camera(BUNNY_CAM)
+    t0 = time.perf_counter()
+    card = render_frame(cpu_scene2.to(DEVICE), cfg_h,
+                        cam.state(device=DEVICE), 0).cpu().numpy()
+    t1 = time.perf_counter()
+    cpu = render_frame(cpu_scene2, cfg_h, cam.state(device="cpu"),
+                       0).numpy()
+    res = finite_gate(card, cpu)
+    log("hosek_card_vs_cpu", tris=cpu_scene2.n_tris, card_s=t1 - t0,
+        cpu_s=time.perf_counter() - t1, **res)
+    if not res["ok"]:
+        raise PhaseError(f"Hosek render on the card differs from the CPU: "
+                         f"{res}")
+    return runs
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--frames", type=int, default=2,
@@ -934,6 +1296,11 @@ def main(argv=None):
             del scene
             phase_config4(tmp_dir, args.frames)
             phase_config3()
+            scene2, cpu_scene2, bvh_stats = phase_lbvh()
+            stats.update(bvh_stats)
+            config2 = phase_config2(scene2, args.frames)
+            del scene2
+            phase_estimators(cpu_scene2, args.frames)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -941,7 +1308,8 @@ def main(argv=None):
     for name, (src, replaces) in KERNELS.items():
         s = stats[name]
         launches = {"sweep_occluded_blocker": primed,
-                    "tile_cull_skip": skip}.get(name, base)["launches"][name]
+                    "tile_cull_skip": skip, "bvh_closest": config2,
+                    "bvh_occluded": config2}.get(name, base)["launches"][name]
         kern.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches,
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],

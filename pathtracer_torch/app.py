@@ -7,6 +7,8 @@
         --out bunny.png
     python -m pathtracer_torch.app --scene materials --denoise --aov \
         --tonemap aces --checkpoint film.npz --out m.png
+    python -m pathtracer_torch.app --scene bunny --intersector bvh \
+        --sampler sobol --sky hosek --spp 1 --frame-batch auto --out b.png
     python -m pathtracer_torch.app --scene cornell --width 32 --height 32 \
         --device cpu --out c.png
 
@@ -80,7 +82,8 @@ def main(argv=None):
                          "step (same sample set); 'auto' grows the pool "
                          "toward the saturation point, at most 8")
     ap.add_argument("--sky", default="gradient",
-                    choices=["gradient", "envmap"])
+                    choices=["gradient", "black", "hosek", "envmap"],
+                    help="hosek = Hosek-Wilkie sky (turbidity 3, albedo 1)")
     ap.add_argument("--envmap", default=None, metavar="PATH",
                     help="equirect Radiance .hdr environment - required "
                          "with --sky envmap")
@@ -104,6 +107,14 @@ def main(argv=None):
                     help="focal-plane distance along the view axis "
                          "(required with --aperture)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sampler", default="pcg", choices=["pcg", "sobol"],
+                    help="pcg = independent uniforms (reference class); "
+                         "sobol = Owen-scrambled Sobol (lower variance)")
+    ap.add_argument("--intersector", default="cluster",
+                    choices=["cluster", "bvh", "brute"],
+                    help="cluster = packet traversal (K1-K4); bvh = the "
+                         "threaded LBVH walk (K5/K6); brute = every ray "
+                         "against every triangle")
     ap.add_argument("--denoise", action="store_true",
                     help="edge-aware a-trous denoiser at display time "
                          "(the film stays raw)")
@@ -150,7 +161,9 @@ def main(argv=None):
                        env_shadow_rr=args.env_rr,
                        primary_priming=args.priming,
                        aperture=args.aperture, focus_dist=args.focus_dist,
-                       seed=args.seed, denoise=args.denoise,
+                       seed=args.seed, sampler=args.sampler,
+                       intersector=args.intersector,
+                       denoise=args.denoise,
                        clamp_radiance=args.clamp, tonemap=args.tonemap,
                        capture_gbuffer=args.aov)
     r = Renderer(builder.finalize(device="cpu"), cfg,

@@ -1,10 +1,9 @@
 """Render configuration (counterpart of pathtracer/config.py).
 
 Same fields and defaults as the JAX `RenderConfig`, so a config can be
-carried across field by field. Values that select a feature this port
-does not implement yet (Sobol, Hosek-Wilkie, reference_quirks, the LBVH,
-wavefront_sort, skip_nee) raise `ValueError` naming the ROADMAP item
-that brings it.
+carried across field by field. The two default-off knobs this port
+does not implement (wavefront_sort, skip_nee) raise `ValueError` naming
+the ROADMAP item that covers them.
 
 traversal_backend: only "pallas", the hand-written traversal kernels
 (kernels/cull.py, kernels/sweep.py): CUDA kernels for CUDA tensors,
@@ -105,6 +104,9 @@ class RenderConfig:
             raise ValueError("aperture must be >= 0")
         if self.tonemap not in ("gamma", "reinhard", "aces"):
             raise ValueError("tonemap must be gamma|reinhard|aces")
+        if self.aperture > 0.0 and self.focus_dist <= 0.0:
+            raise ValueError("aperture > 0 requires focus_dist > 0 "
+                             "(the focal plane distance)")
         if self.max_depth <= 0:
             raise ValueError("max_depth must be positive")
         if self.sky not in ("gradient", "black", "hosek", "envmap"):
@@ -129,14 +131,6 @@ class RenderConfig:
                              "(the cross-frame pool IS the batched "
                              "wavefront)")
         # what the port does not implement yet
-        if self.sky == "hosek":
-            raise _unported("sky='hosek'", "item 2 (Hosek-Wilkie)")
-        if self.sampler == "sobol":
-            raise _unported("sampler='sobol'", "item 2 (estimators)")
-        if self.reference_quirks:
-            raise _unported("reference_quirks", "item 2 (estimators)")
-        if self.intersector == "bvh":
-            raise _unported("intersector='bvh'", "item 6 (LBVH)")
         if self.wavefront_sort:
             raise _unported("wavefront_sort", "item 11 (default-off knobs)")
         if self.skip_nee:

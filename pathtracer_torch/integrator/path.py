@@ -13,7 +13,11 @@ sample - the primary hit triangle and the bounce-0 NEE and env-NEE shadow
 blockers - are re-tested exactly against this sample's rays and never
 trusted, so the estimate and the ray count do not change.
 
-The estimator is the JAX package's default one (reference_quirks=False).
+The estimator is the JAX package's default one, or with
+cfg.reference_quirks the reference's exact one (path.py:301, 515, 566,
+778, 913): emission not scaled by the albedo factor, the shadow ray
+aimed behind the light, NEE without the emission gain, unweighted
+emitter hits and the conditional-lobe BSDF pdf.
 Every random number is keyed on (pixel, sample, depth, salt) by the
 counter-based PCG4D (sampling/rng.py). The ray counter is exact: path
 rays traced plus NEE visibility queries resolved (int64).
@@ -140,11 +144,14 @@ def _normal_map(row, w0, w1, w2, normal, nm, ntex):
     return torch.where((ntex >= 0)[..., None], mapped, normal)
 
 
-def fetch_surface(scene: Scene, surf_rows, hit, o, d, tex_u, mat_rows
-                  ) -> Surface:
+def fetch_surface(scene: Scene, surf_rows, hit, o, d, tex_u, mat_rows,
+                  quirks: bool = False) -> Surface:
     """Closest-hit stage (closesthit.rchit:68-125) as one wide row gather.
 
-    Miss lanes gather triangle 0; callers mask them out.
+    Miss lanes gather triangle 0; callers mask them out. quirks
+    (cfg.reference_quirks): the emission is the material's as it stands
+    (closesthit.rchit:116), not scaled by the albedo factor as the light
+    list's Le is (main.cpp:282-284).
     """
     tri = hit.tri.clamp(min=0).long()
     row = surf_rows[tri]
@@ -221,7 +228,8 @@ def fetch_surface(scene: Scene, surf_rows, hit, o, d, tex_u, mat_rows
 
     return Surface(
         position=position, normal=normal, geom_normal=geom_normal,
-        albedo=albedo, emission=emission * albedo_factor,
+        albedo=albedo,
+        emission=emission if quirks else emission * albedo_factor,
         roughness=torch.clamp(roughness, 0.01, 1.0),
         metallic=torch.clamp(metallic, 0.0, 1.0), ior=ior,
         alpha=torch.clamp(alpha, 0.0, 1.0), mat_type=mat_type,
@@ -296,12 +304,20 @@ def _nee(scene: Scene, cfg: RenderConfig, surf: Surface, view, pixel,
     geo_ok = (n_dot_l > 0.0) & (nl_dot > 0.0)
 
     # shadow ray: origin offset along the shading normal, aimed at the
-    # sampled point, t_max pulled back by a relative margin
-    s_orig = surf.position + surf.normal * cfg.shadow_eps
-    seg = p_on_light - s_orig
-    seg_len = torch.sqrt(torch.clamp(vmath.dot(seg, seg), min=1e-20))
-    s_dir = seg / seg_len[..., None]
-    s_tmax = seg_len * (1.0 - 1e-3)
+    # sampled point, t_max pulled back by a relative margin. The
+    # reference's scheme (reference_quirks, raygen.rgen:199-204) aims
+    # behind the emitter with t_max = dist - eps, so off-axis receivers
+    # can self-occlude on the emitter.
+    eps = cfg.shadow_eps
+    s_orig = surf.position + surf.normal * eps
+    if cfg.reference_quirks:
+        s_dir = vmath.normalize(p_on_light - light_n * eps - s_orig)
+        s_tmax = torch.clamp(torch.sqrt(dist2) - eps, min=0.0)
+    else:
+        seg = p_on_light - s_orig
+        seg_len = torch.sqrt(torch.clamp(vmath.dot(seg, seg), min=1e-20))
+        s_dir = seg / seg_len[..., None]
+        s_tmax = seg_len * (1.0 - 1e-3)
     valid = geo_ok & shade
     new_blk = None
     if prime_blk is not None:
@@ -320,7 +336,8 @@ def _nee(scene: Scene, cfg: RenderConfig, surf: Surface, view, pixel,
                         surf.roughness)
     w = _power_heuristic(p_omega_light, pdf_b)
     g = n_dot_l * nl_dot / dist2
-    contrib = f * (le * cfg.emission_gain) \
+    gain = 1.0 if cfg.reference_quirks else cfg.emission_gain
+    contrib = f * (le * gain) \
         * (g / torch.clamp(p_a, min=1e-12))[..., None] * w[..., None]
     out = torch.where((geo_ok & ~blocked)[..., None], contrib, 0.0)
     return (out, new_blk) if prime_blk is not None else out
@@ -536,14 +553,19 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
         active = hit_ok
         tex_u = (rng.uniform2(pix, samp, depth, rng.SALT_TEX_FILTER,
                               cfg.seed, cfg.sampler) if use_tex_u else None)
-        surf = fetch_surface(scene, surf_rows, hit, o, d, tex_u, mat_rows)
-        # emitter hit, MIS-weighted against light sampling
-        cos_l = torch.clamp(vmath.dot(surf.geom_normal, -d), min=0.0)
-        pdf_light = surf.light_pdf_area * hit.t * hit.t \
-            / torch.clamp(cos_l, min=vmath.EPS)
-        is_delta = torch.isinf(prev_pdf)
-        w_emit = torch.where(is_delta | (surf.light_pdf_area <= 0.0), 1.0,
-                             _power_heuristic(prev_pdf, pdf_light))
+        surf = fetch_surface(scene, surf_rows, hit, o, d, tex_u, mat_rows,
+                             cfg.reference_quirks)
+        # emitter hit, MIS-weighted against light sampling (unweighted
+        # under reference_quirks: the reference double-counts)
+        if cfg.reference_quirks:
+            w_emit = torch.ones((n,), dtype=torch.float32, device=dev)
+        else:
+            cos_l = torch.clamp(vmath.dot(surf.geom_normal, -d), min=0.0)
+            pdf_light = surf.light_pdf_area * hit.t * hit.t \
+                / torch.clamp(cos_l, min=vmath.EPS)
+            is_delta = torch.isinf(prev_pdf)
+            w_emit = torch.where(is_delta | (surf.light_pdf_area <= 0.0),
+                                 1.0, _power_heuristic(prev_pdf, pdf_light))
         radiance = radiance + torch.where(
             hit_ok[..., None],
             throughput * surf.emission * gain * w_emit[..., None], 0.0)
@@ -621,8 +643,17 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
         l_diff = mf.sample_cosine(surf.normal, u1, u2)
         l_new = torch.where(choose_spec[..., None], l_spec, l_diff)
         n_dot_l = torch.clamp(vmath.dot(surf.normal, l_new), min=0.0)
-        pdf = mf.pdf_bsdf(surf.normal, view, l_new, surf.metallic,
-                          surf.roughness)
+        mix_pdf = mf.pdf_bsdf(surf.normal, view, l_new, surf.metallic,
+                              surf.roughness)
+        if cfg.reference_quirks:
+            # conditional-lobe pdf only (raygen.rgen:267-274)
+            pdf = torch.where(
+                choose_spec,
+                torch.clamp(mf.pdf_ggx(surf.normal, view, l_new,
+                                       surf.roughness), min=1e-6),
+                torch.clamp(mf.pdf_cosine(n_dot_l), min=1e-6))
+        else:
+            pdf = mix_pdf
         f = mf.eval_brdf(surf.normal, view, l_new, surf.albedo,
                          surf.metallic, surf.roughness)
         bsdf_ok = n_dot_l > 0.0
@@ -637,7 +668,7 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
         d = torch.where(active[..., None], new_d, d)
         throughput = torch.where(shade[..., None], new_throughput,
                                  throughput)
-        prev_pdf = torch.where(shade, pdf, torch.inf)
+        prev_pdf = torch.where(shade, mix_pdf, torch.inf)
         active = active & (passthrough | is_dielectric | (shade & bsdf_ok))
 
         # Russian roulette (raygen.rgen:286-291)

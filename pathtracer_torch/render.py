@@ -6,11 +6,11 @@ With cfg.spp_batch all spp samples of a frame are one wavefront
 (render_frame_batched), and with cfg.frame_batch = F > 1 the samples of
 F consecutive frames are (frame batching: the same sample set, folded
 with film.accumulate_many); otherwise a host loop of per-sample
-wavefronts (render_sample). With cfg.primary_priming on the cluster
-intersector, per-pixel hints (path.trace_paths) chain across samples
-and frames. With a G-buffer (cfg.denoise or cfg.capture_gbuffer) a frame
-also returns the primary-hit features and the SVGF luminance moments
-m1/m2 that feed film/denoise.py.
+wavefronts (render_sample). With cfg.primary_priming on the cluster or
+bvh intersector, per-pixel hints (path.trace_paths) chain across
+samples and frames. With a G-buffer (cfg.denoise or
+cfg.capture_gbuffer) a frame also returns the primary-hit features and
+the SVGF luminance moments m1/m2 that feed film/denoise.py.
 
 `Renderer` runs the progressive loop: frame batching, auto frame
 batching, motion preview, the running-mean G-buffer, the denoised and
@@ -33,7 +33,7 @@ from pathtracer_torch.film import film as film_mod
 from pathtracer_torch.integrator import camera as cam_mod
 from pathtracer_torch.integrator import path as path_mod
 from pathtracer_torch.kernels import intersect as isect
-from pathtracer_torch.kernels import packet, sweep
+from pathtracer_torch.kernels import packet, sweep, traverse
 from pathtracer_torch.scene.types import Scene
 from pathtracer_torch.utils import vmath
 
@@ -50,8 +50,11 @@ def make_intersectors(scene: Scene, cfg: RenderConfig):
     arithmetic: the accel's Baldwin-Weber rows on the cluster route, so
     a verified primary hit carries the t/u/v the sweep would report and a
     verified shadow blocker is one the occlusion sweep would accept;
-    Moller-Trumbore on the brute route. front_only adds the occlusion
-    routes' front-facing test.
+    Moller-Trumbore on the brute route, and the packed triangle rows of
+    the traversal on the bvh route. front_only adds the occlusion routes'
+    front-facing test. The bvh route (K5/K6, kernels/traverse.py) reports
+    no blocker hints: with want_blocker its hints are all -1, as in the
+    JAX package, so shadow priming never skips a traversal there.
     """
     use_brute = (cfg.intersector == "brute"
                  or (cfg.intersector == "cluster" and scene.n_tris <= 256))
@@ -67,6 +70,28 @@ def make_intersectors(scene: Scene, cfg: RenderConfig):
                                         want_blocker=want_blocker)
 
         return intersect_fn, occluded_fn, isect.hint_test(v0, v1, v2)
+
+    if cfg.intersector == "bvh":
+        if scene.bvh is None:
+            raise ValueError("cfg.intersector='bvh' but the scene has no "
+                             "BVH; call accel.lbvh.build_scene_bvh(scene) "
+                             "first")
+        packed = traverse.pack_bvh(scene.bvh, scene.indices, scene.positions)
+
+        def intersect_fn(o, d, t_min, t_max, primary=False):
+            return traverse.intersect_bvh(packed, o.contiguous(),
+                                          d.contiguous(), t_min, t_max)
+
+        def occluded_fn(o, d, t_max, primary=False, want_blocker=False):
+            blocked = traverse.occluded_bvh(packed, o.contiguous(),
+                                            d.contiguous(), t_max)
+            if want_blocker:
+                return blocked, torch.full(o.shape[:1], -1,
+                                           dtype=torch.int32,
+                                           device=o.device)
+            return blocked
+
+        return intersect_fn, occluded_fn, traverse.hint_test(packed)
 
     if scene.clusters is None:
         raise ValueError("cfg.intersector='cluster' but the scene has no "
@@ -237,8 +262,11 @@ def render_frame_batched(scene: Scene, cfg: RenderConfig,
 
 def _initial_prime(cfg: RenderConfig, prime, device):
     """The hint table a frame starts from: None without priming, all -1
-    before the first primed frame."""
-    if not (cfg.primary_priming and cfg.intersector == "cluster"):
+    before the first primed frame. Priming runs on the cluster and bvh
+    routes (the JAX package primes the cluster route only; on the bvh
+    route the port's verified primary hint bounds K5's walk, and its
+    film equals the unprimed one)."""
+    if not (cfg.primary_priming and cfg.intersector in ("cluster", "bvh")):
         return None
     if prime is None:
         prime = torch.full((cfg.width * cfg.height, 3), -1,
@@ -252,8 +280,8 @@ def render_frame_with_stats(scene: Scene, cfg: RenderConfig,
                             gbuffer: bool = False):
     """One frame's radiance estimate (mean of cfg.spp samples) and rays.
 
-    With cfg.primary_priming on the cluster intersector, `prime` (the
-    previous frame's hints, or None) seeds this frame's first sample and
+    With cfg.primary_priming on the cluster or bvh intersector, `prime`
+    (the previous frame's hints, or None) seeds this frame's first sample and
     the hints chain across its samples; return_prime appends this
     frame's hints (None when priming is off). gbuffer appends the
     frame's G-buffer (None at max_depth 1): one primary lane's features
@@ -331,6 +359,10 @@ class Renderer:
                              "pathtracer_torch yet (ROADMAP.md Queue 1, "
                              "item 7)")
         self.device = torch.device(device)
+        if cfg.intersector == "bvh" and scene.bvh is None:
+            from pathtracer_torch.accel import lbvh
+
+            scene = lbvh.build_scene_bvh(scene.to(self.device))
         if cfg.intersector == "cluster" and scene.clusters is None:
             from pathtracer_torch.accel import cluster
 

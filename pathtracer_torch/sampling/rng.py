@@ -1,4 +1,4 @@
-"""Counter-based PCG4D random numbers (counterpart of pathtracer/sampling/rng.py).
+"""Counter-based random numbers (counterpart of pathtracer/sampling/rng.py).
 
 Every random number is a pure hash of the key (pixel, sample,
 depth * _SALTS_PER_DEPTH + salt, seed), bit for bit the JAX package's.
@@ -75,11 +75,23 @@ def _to_unit(bits):
 
 
 def uniform4(pixel, sample, depth, salt, seed=0, sampler="pcg"):
-    """Four U[0,1) floats keyed on (pixel, sample, depth, salt)."""
-    if sampler != "pcg":
-        raise ValueError(f"sampler {sampler!r} is not ported "
-                         "(ROADMAP.md Queue 1, item 2)")
+    """Four U[0,1) floats keyed on (pixel, sample, depth, salt).
+
+    sampler: "pcg" = independent PCG4D uniforms; "sobol" = padded 4D
+    Owen-scrambled Sobol (sampling/sobol.py), keyed per (pixel, depth,
+    salt, seed) group with the sample index as its counter.
+    """
     depth_salt = (int(depth) * _SALTS_PER_DEPTH + salt) & M32
+    if sampler == "sobol":
+        from pathtracer_torch.sampling import sobol
+
+        key = _key(pixel, sample, depth_salt, seed)
+        # group key: everything but the sample index (the Sobol counter)
+        gk = pcg4d(_key(pixel, 0x536F626C, depth_salt, seed))
+        gk = gk.expand(key.shape)
+        return _to_unit(sobol.scrambled_sobol4(key[..., 1], gk))
+    if sampler != "pcg":
+        raise ValueError(f"unknown sampler {sampler!r} (pcg|sobol)")
     return _to_unit(pcg4d(_key(pixel, sample, depth_salt, seed)))
 
 

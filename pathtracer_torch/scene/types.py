@@ -1,7 +1,8 @@
 """Device scene tables (counterpart of pathtracer/scene/types.py).
 
 `Scene` is a plain dataclass of tensors on one device, with the JAX
-`Scene`'s field names, env-map tables included.
+`Scene`'s field names, env-map tables included. `Bvh` is the threaded
+LBVH of accel/lbvh.py.
 """
 
 from __future__ import annotations
@@ -27,6 +28,26 @@ TENSOR_FIELDS = (
     "env_marginal_cdf", "env_cond_cdf", "env_pdf")
 OPTIONAL_FIELDS = ("tex_comp", "tex_comp_wh", "envmap_blocks")
 META_FIELDS = ("has_lights", "n_lights", "has_textures", "has_envmap")
+
+
+@dataclasses.dataclass(frozen=True)
+class Bvh:
+    """Threaded (stackless) LBVH in flat tensors (accel/lbvh.py).
+
+    n_nodes = 2 * n_tris - 1 in DFS preorder, root at 0. Traversal
+    follows hit_link on a box hit and miss_link on a miss; leaves carry
+    one triangle id. -1 terminates.
+    """
+
+    aabb_min: torch.Tensor   # f32 [n_nodes, 3]
+    aabb_max: torch.Tensor   # f32 [n_nodes, 3]
+    hit_link: torch.Tensor   # i32 [n_nodes] next node in DFS order (or -1)
+    miss_link: torch.Tensor  # i32 [n_nodes] skip link (or -1)
+    tri_id: torch.Tensor     # i32 [n_nodes] leaf triangle, -1 internal
+
+    def to(self, device) -> "Bvh":
+        return Bvh(**{f.name: getattr(self, f.name).to(device)
+                      for f in dataclasses.fields(self)})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +92,8 @@ class Scene:
     env_cond_cdf: torch.Tensor      # f32 [H, W]
     env_pdf: torch.Tensor           # f32 [H, W] solid-angle pdf
 
+    # Threaded LBVH (accel/lbvh.py), the intersector="bvh" route.
+    bvh: Optional[Bvh] = None
     # Packet-traversal accel (accel/cluster.py); one build serves both
     # the closest and the occlusion calls.
     clusters: Optional[object] = None
@@ -103,11 +126,14 @@ class Scene:
     def n_materials(self) -> int:
         return self.mat_albedo.shape[0]
 
+    def with_bvh(self, bvh: Bvh) -> "Scene":
+        return dataclasses.replace(self, bvh=bvh)
+
     def with_clusters(self, accel) -> "Scene":
         return dataclasses.replace(self, clusters=accel)
 
     def to(self, device) -> "Scene":
-        """Copy every tensor (and the accel) to `device`."""
+        """Copy every tensor (and the accels) to `device`."""
         kw = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)

@@ -502,3 +502,115 @@ def test_skip_cull_kernel_limits_raise(dev):
     kw.update(tile_rays=256, n_tiles=2, blk=1)
     with pytest.raises(ValueError, match="shared memory"):
         cull.tile_cull_skip(lo, lo, o, o, o[:, 0].contiguous(), **kw)
+
+
+def _bvh_case(n_tris, seed, dev, n_rays=4000):
+    """A packed LBVH over a soup and rays: half from random origins, half
+    aimed at points of random triangles, the last 64 parked (origin
+    1e30) as the integrator parks dead lanes."""
+    from pathtracer_torch.accel import lbvh
+    from pathtracer_torch.kernels import traverse
+
+    v0, v1, v2 = _soup(n_tris, seed)
+    t = n_tris
+    verts = torch.stack([v0, v1, v2], 1).reshape(-1, 3)
+    idx = torch.arange(3 * t, dtype=torch.int32).reshape(t, 3)
+    packed = traverse.pack_bvh(lbvh.build_lbvh(v0, v1, v2), idx, verts)
+    o, d = _rays(n_rays, seed + 1, "cpu", park_tail=64)
+    rng = np.random.default_rng(seed + 2)
+    m = n_rays // 2
+    k = torch.from_numpy(rng.integers(0, t, m))
+    b = torch.from_numpy(rng.dirichlet((1.0, 1.0, 1.0), m)
+                         .astype(np.float32))
+    p = b[:, :1] * v0[k] + b[:, 1:2] * v1[k] + b[:, 2:] * v2[k]
+    d[m:-64] = torch.nn.functional.normalize(p - o[m:], dim=1)[:-64]
+    tm = torch.from_numpy(rng.uniform(0.2, 3.0, n_rays).astype(np.float32))
+    return (traverse.PackedBvh(packed.nodes.to(dev), packed.tris.to(dev)),
+            o.to(dev), d.to(dev), tm.to(dev))
+
+
+@pytest.mark.parametrize("n_tris,seed", [(1, 3), (2, 4), (3000, 5),
+                                         (20000, 6)])
+def test_bvh_kernels_match_plain_bit_for_bit(dev, n_tris, seed):
+    """K5 and K6 against their plain versions on the card: hit ids, t, u
+    and v bit for bit (scalar and per-ray t_max), blocked flags equal."""
+    from pathtracer_torch.kernels import traverse
+
+    packed, o, d, tm = _bvh_case(n_tris, seed, dev)
+    before = dict(kernels.LAUNCHES)
+    for t_max in (1e20, tm):
+        got = traverse.intersect_bvh(packed, o, d, 1e-3, t_max)
+        ref = traverse.intersect_bvh_plain(packed, o, d, 1e-3, t_max)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    assert bool((got.tri >= 0).any())
+    occ = traverse.occluded_bvh(packed, o, d, tm)
+    assert occ.dtype == torch.bool
+    assert torch.equal(occ, traverse.occluded_bvh_plain(packed, o, d, tm))
+    assert kernels.LAUNCHES["bvh_closest"] == before["bvh_closest"] + 2
+    assert kernels.LAUNCHES["bvh_occluded"] == before["bvh_occluded"] + 1
+
+
+def test_bvh_wrappers_check_their_inputs(dev):
+    from pathtracer_torch.kernels import traverse
+
+    packed, o, d, tm = _bvh_case(300, 7, dev, n_rays=256)
+    with pytest.raises(ValueError):
+        traverse.intersect_bvh(packed, o.double(), d, 1e-3, 1e20)
+    with pytest.raises(ValueError):
+        traverse.occluded_bvh(packed, o.t().contiguous().t(), d, tm)
+    with pytest.raises(ValueError):
+        traverse.occluded_bvh(traverse.PackedBvh(packed.nodes.cpu(),
+                                                 packed.tris), o, d, tm)
+
+
+def test_lbvh_build_on_cuda_matches_cpu(dev):
+    from pathtracer_torch.accel import lbvh
+
+    v0, v1, v2 = _soup(80000, 8)
+    cpu = lbvh.build_lbvh(v0, v1, v2)
+    gpu = lbvh.build_lbvh(v0.to(dev), v1.to(dev), v2.to(dev))
+    for f in ("aabb_min", "aabb_max", "hit_link", "miss_link", "tri_id"):
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+
+
+def test_sobol_on_cuda_matches_cpu(dev):
+    from pathtracer_torch.sampling import rng
+
+    g = np.random.default_rng(9)
+    pix = torch.from_numpy(g.integers(0, 1 << 22, 1 << 16))
+    samp = torch.from_numpy(g.integers(0, 1 << 32, 1 << 16))
+    for depth, salt in ((0, rng.SALT_JITTER), (4, rng.SALT_BSDF_UV)):
+        cpu = rng.uniform4(pix, samp, depth, salt, 5, sampler="sobol")
+        gpu = rng.uniform4(pix.to(dev), samp.to(dev), depth, salt, 5,
+                           sampler="sobol")
+        assert torch.equal(gpu.cpu(), cpu)
+
+
+def test_bvh_render_on_cuda_matches_cpu(dev):
+    """The bvh route with sobol and the Hosek sky on the card against the
+    CPU; primed equal to unprimed on the card."""
+    from pathtracer_torch.config import RenderConfig
+    from pathtracer_torch.integrator.camera import Camera
+    from pathtracer_torch.render import Renderer
+    from pathtracer_torch.scene.procedural import cornell_box
+
+    kw = dict(width=32, height=32, spp=2, max_depth=4, spp_batch=True,
+              intersector="bvh", sampler="sobol")
+    films = {}
+    for device, primed in (("cpu", False), (dev, False), (dev, True)):
+        c = Camera(position=(0.5, 0.5, 2.2))
+        c.look_at((0.5, 0.5, 0.0))
+        r = Renderer(cornell_box(materials_suite=True).finalize(
+            device="cpu"), RenderConfig(primary_priming=primed, **kw), c,
+            device=device)
+        films[(str(device), primed)] = (r.run(2).accum.cpu().numpy(),
+                                        int(r.last_rays))
+    cpu, _ = films[("cpu", False)]
+    gpu, rays = films[(str(dev), False)]
+    diff = np.abs(cpu - gpu).max(-1)
+    assert (diff > 0.01).mean() <= 0.02
+    assert abs(cpu.mean() - gpu.mean()) <= 1e-3 * cpu.mean()
+    primed, rays_p = films[(str(dev), True)]
+    assert rays_p == rays
+    np.testing.assert_allclose(primed, gpu, rtol=1e-5, atol=1e-6)
