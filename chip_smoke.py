@@ -58,7 +58,19 @@ Drives pathtracer_torch's paths on the card and checks them:
    sampler="sobol" against pcg (ms/frame, finite film); config 1 with
    reference_quirks (256x256, 4 spp, depth 6) against
    tests/golden_cornell_quirks_256.npy; the Hosek sky on config 2's
-   scene at 64x64, the card's film against the port's CPU render.
+   scene at 64x64, the card's film against the port's CPU render;
+10. sharded (parallel/sharding.py): the headline through Renderer(mesh=
+   ...) over NCCL at world size 1 in this process, its film within the
+   gate of phase 4's and its ray counts equal; then SHARD_RANKS gloo
+   ranks spawned on cuda:0 (sharing its SMs: their times say nothing of
+   scaling), each with its own scenes: the collectives on CUDA tensors
+   (SUM f32 and int64, MAX int32), the headline unprimed and primed on
+   mesh (1, ranks), goldens 1-5 and config 3 with the denoiser on mesh
+   (ranks, 1); every rank must launch K1-K3 (K3b primed), hold the same
+   films (checksums) and exit 0 within SHARD_TIMEOUT_S, and the films
+   pass the gates against tests/goldens and phases 4 and 6 (the primed
+   one also against the unprimed one, with equal rays); all_reduce ms
+   and bytes a step and peak memory per rank are logged.
 
 Prints one JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line,
@@ -146,10 +158,14 @@ NODE_BYTES, TRI_BYTES = 32, 36
 CONFIG2_SIZE = 512
 QUIRKS_SIZE = 256      # BASELINE config 1 (run_configs.py:99-102)
 SOBOL_LANES = 1 << 21
+# the sharded phase: gloo ranks sharing cuda:0, and how long they may run
+SHARD_RANKS, SHARD_TIMEOUT_S = 2, 300
 
 
 def log(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    # one write a line: the sharded phase's ranks share this stdout
+    sys.stdout.write(json.dumps({"phase": phase, **kw}) + "\n")
+    sys.stdout.flush()
 
 
 class PhaseError(RuntimeError):
@@ -703,17 +719,14 @@ def config4_cfg(**kw):
                         spp_batch=True, **kw)
 
 
-def phase_goldens(tmp_dir):
-    import numpy as np
-
-    from pathtracer_torch.accel.cluster import build_scene_clusters
+def golden_configs(tmp_dir):
+    """benchmarks/run_configs.py configs 1-5 at the 64x64 / 4 spp probe:
+    [(index, scene builder, cfg, camera spec)]."""
     from pathtracer_torch.config import RenderConfig
-    from pathtracer_torch.render import render_frame
     from pathtracer_torch.scene import procedural
 
     probe = dict(width=64, height=64, spp=4)
-    # benchmarks/run_configs.py configs 1-5 at the 64x64 / 4 spp probe
-    configs = [
+    return [
         (1, lambda: procedural.cornell_box().finalize(device="cpu"),
          RenderConfig(max_depth=6, spp_batch=False, **probe), BOX_CAM),
         (2, lambda: procedural.bunny_like().finalize(device="cpu"),
@@ -725,28 +738,45 @@ def phase_goldens(tmp_dir):
         (5, lambda: procedural.sponza_like().finalize(device="cpu"),
          RenderConfig(max_depth=6, spp_batch=True, **probe), SPONZA_CAM),
     ]
-    failed = []
-    for idx, scene_fn, cfg, cam in configs:
+
+
+def phase_goldens(tmp_dir, mesh=None, label="golden"):
+    """The config 1-5 golden gates; with a mesh, each frame rendered
+    across it (render_frame_sharded). Returns {config: image}."""
+    import numpy as np
+
+    from pathtracer_torch.accel.cluster import build_scene_clusters
+    from pathtracer_torch.parallel import sharding
+    from pathtracer_torch.render import render_frame
+
+    failed, images = [], {}
+    for idx, scene_fn, cfg, cam in golden_configs(tmp_dir):
         t0 = time.perf_counter()
         scene = build_scene_clusters(scene_fn()).to(DEVICE)
-        img = render_frame(scene, cfg, camera(cam).state(device=DEVICE), 0)
-        img = img.cpu().numpy()
+        state = camera(cam).state(device=DEVICE)
+        if mesh is None:
+            img = render_frame(scene, cfg, state, 0)
+        else:
+            img = sharding.render_frame_sharded(scene, cfg, state, 0,
+                                                mesh)[0]
+        img = images[idx] = img.cpu().numpy()
         g = np.load(os.path.join(GOLDEN_DIR, f"config_{idx}_64.npz"))["img"]
         res = robust_gate(img, g)
-        log("golden", config=idx, tris=scene.n_tris,
+        log(label, config=idx, tris=scene.n_tris,
             seconds=time.perf_counter() - t0, **res)
         if not res["ok"]:
             failed.append(idx)
     if failed:
-        raise PhaseError(f"golden gate failed for configs {failed}")
+        raise PhaseError(f"{label} gate failed for configs {failed}")
+    return images
 
 
-def drive(label, scene, cfg, cam, frames, need, env=None):
-    """One warm-up step and `frames` timed steps through Renderer, with
-    the launch counts set to 0 just before and read just after; `env`
-    sets environment variables for the run. A step folds
-    cfg.frame_batch frames, so ms per frame is step time / frame_batch.
-    Returns (result dict, the Renderer)."""
+def drive(label, scene, cfg, cam, frames, need, env=None, mesh=None):
+    """One warm-up step and `frames` timed steps through Renderer (on
+    `mesh` when given), with the launch counts set to 0 just before and
+    read just after; `env` sets environment variables for the run. A
+    step folds cfg.frame_batch frames, so ms per frame is step time /
+    frame_batch. Returns (result dict, the Renderer)."""
     import torch
 
     from pathtracer_torch import kernels
@@ -758,7 +788,7 @@ def drive(label, scene, cfg, cam, frames, need, env=None):
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        r = Renderer(scene, cfg, cam, device=DEVICE)
+        r = Renderer(scene, cfg, cam, device=DEVICE, mesh=mesh)
         t0 = time.perf_counter()
         r.step()
         torch.cuda.synchronize()
@@ -779,7 +809,8 @@ def drive(label, scene, cfg, cam, frames, need, env=None):
                 os.environ[k] = v
     f = cfg.frame_batch
     img = r.film.accum
-    res = dict(width=cfg.width, height=cfg.height, spp=cfg.spp,
+    res = dict(mesh=list(mesh.shape) if mesh else None,
+               width=cfg.width, height=cfg.height, spp=cfg.spp,
                max_depth=cfg.max_depth, frame_batch=f, tris=scene.n_tris,
                priming=cfg.primary_priming, env=env or {}, warmup_s=warm_s,
                step_ms=[t * 1e3 for t in times],
@@ -832,7 +863,7 @@ def phase_headline(scene, cfg, cam, frames):
                         dataclasses.replace(cfg, primary_priming=True), cam,
                         frames, PRIMED_KERNELS)
     same_render("priming_ab", primed, r_p, base, r_b)
-    return base, skip, primed
+    return base, skip, primed, r_b.film.accum.cpu().numpy()
 
 
 def phase_config4(tmp_dir, frames):
@@ -893,12 +924,7 @@ def phase_config4(tmp_dir, frames):
     return primed
 
 
-def phase_config3():
-    """BASELINE config 3 with the denoiser: 512x512, 4 spp, frame_batch
-    8; two steps = 64 spp."""
-    import numpy as np
-    import torch
-
+def config3_denoise_setup():
     from pathtracer_torch.accel.cluster import build_scene_clusters
     from pathtracer_torch.config import RenderConfig, saturating_frame_batch
     from pathtracer_torch.scene import procedural
@@ -909,6 +935,16 @@ def phase_config3():
                        max_depth=6, spp_batch=True, denoise=True,
                        frame_batch=saturating_frame_batch(
                            CONFIG3_SIZE, CONFIG3_SIZE, 4))
+    return scene, cfg
+
+
+def phase_config3():
+    """BASELINE config 3 with the denoiser: 512x512, 4 spp, frame_batch
+    8; two steps = 64 spp. Returns (result, the denoised display)."""
+    import numpy as np
+    import torch
+
+    scene, cfg = config3_denoise_setup()
     res, r = drive("config3_denoise", scene, cfg, camera(BOX_CAM), 1,
                    UNPRIMED_KERNELS)
     r.denoised()                                               # warm-up
@@ -929,7 +965,7 @@ def phase_config3():
         raise PhaseError("config 3: denoised display or AOVs bad")
     del scene, r
     torch.cuda.empty_cache()
-    return res
+    return res, disp
 
 
 def config2_cfg(**kw):
@@ -1259,6 +1295,281 @@ def phase_estimators(cpu_scene2, frames):
     return runs
 
 
+class CollectiveLog:
+    """Times sharding.all_reduce (one call a step: every buffer of a
+    contribution) with CUDA events and counts the bytes it reduces."""
+
+    def __enter__(self):
+        from pathtracer_torch.parallel import sharding
+
+        self.ms, self.bytes, self.real = [], [], sharding.all_reduce
+
+        def all_reduce(c, group=None):
+            self.bytes.append(sum(t.numel() * t.element_size()
+                                  for t, _ in c.buffers()))
+            out, ms = timed(lambda: self.real(c, group))
+            self.ms.append(ms)
+            return out
+
+        sharding.all_reduce = all_reduce
+        return self
+
+    def __exit__(self, *exc):
+        from pathtracer_torch.parallel import sharding
+
+        sharding.all_reduce = self.real
+
+    def summary(self):
+        return dict(all_reduce_ms=self.ms, all_reduce_bytes=self.bytes)
+
+
+def rays_match(what, rays, ref_rays):
+    """Ray counts step for step: any difference is logged, and one above
+    1e-5 relative fails."""
+    rel = max(abs(a - b) / max(b, 1) for a, b in zip(rays, ref_rays))
+    if rays != ref_rays:
+        log("ray_count_difference", run=what, rays=rays, ref_rays=ref_rays,
+            max_rel=rel)
+    if rel > 1e-5 or len(rays) != len(ref_rays):
+        raise PhaseError(f"{what}: ray counts {rays} vs {ref_rays}")
+
+
+def film_checksum(a):
+    import hashlib
+
+    return hashlib.sha256(a.tobytes()).hexdigest()
+
+
+def sharded_headline_nccl(scene, cfg, cam, frames, ref, ref_film, tmp_dir):
+    """(a) The headline through Renderer(mesh=...) over NCCL at world size
+    1 in this process: the film within the gate of the single-device
+    headline's, the ray counts equal."""
+    import torch
+    import torch.distributed as dist
+
+    from pathtracer_torch.parallel import sharding
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_dir}/nccl",
+                            world_size=1, rank=0)
+    try:
+        mesh = sharding.make_mesh()
+        with CollectiveLog() as coll:
+            res, r = drive("sharded_headline_nccl", scene, cfg, cam, frames,
+                           UNPRIMED_KERNELS, mesh=mesh)
+        gate = robust_gate(r.film.accum.cpu().numpy(), ref_film)
+    finally:
+        dist.destroy_process_group()
+    log("sharded_nccl", backend="nccl", world=1, mesh=list(mesh.shape),
+        ms_per_frame=res["ms_per_frame"],
+        single_device_ms_per_frame=ref["ms_per_frame"],
+        rays=res["rays_per_step"], ref_rays=ref["rays_per_step"],
+        peak_mem_bytes=res["peak_mem_bytes"],
+        seconds=time.perf_counter() - t0, **coll.summary(), **gate)
+    if not gate["ok"]:
+        raise PhaseError(f"sharded headline (NCCL) differs: {gate}")
+    rays_match("sharded headline (NCCL)", res["rays_per_step"],
+               ref["rays_per_step"])
+    return res
+
+
+def _sharded_rank(rank, world, store, out_dir, frames):
+    """One gloo rank of the sharded phase, on cuda:0 beside the others:
+    the collectives' check, the headline on mesh (1, world) unprimed and
+    primed, goldens 1-5 and config 3 with the denoiser on mesh (world,
+    1). Writes its results to out_dir/rank<r>.json (rank 0 also its
+    images as .npy); raises on any failed check, so the rank exits
+    non-zero."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pathtracer_torch.parallel import sharding
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    out, seconds, t0 = {"rank": rank}, {}, time.perf_counter()
+
+    def save(name, a):
+        out[name + "_sha256"] = film_checksum(a)
+        if rank == 0:
+            np.save(os.path.join(out_dir, name + ".npy"), a)
+
+    try:
+        # the reductions the path makes, on CUDA tensors through gloo
+        f = torch.full((3,), rank + 1.0, device=DEVICE)
+        n = torch.tensor([(1 << 40) + rank], dtype=torch.int64,
+                         device=DEVICE)
+        h = torch.tensor([rank, -1, 7 * rank], dtype=torch.int32,
+                         device=DEVICE)
+        dist.all_reduce(f)
+        dist.all_reduce(n)
+        dist.all_reduce(h, op=dist.ReduceOp.MAX)
+        top = world - 1
+        ok = (f.tolist() == [world * (world + 1) / 2] * 3
+              and n.tolist() == [world * (1 << 40) + world * top // 2]
+              and h.tolist() == [top, -1, 7 * top])
+        log("gloo_cuda_collectives", rank=rank, sum_f32=f.tolist(),
+            sum_i64=n.tolist(), max_i32=h.tolist(), ok=ok)
+        if not ok:
+            raise PhaseError("gloo all_reduce on CUDA tensors is wrong")
+        seconds["collectives"] = time.perf_counter() - t0
+
+        t1 = time.perf_counter()
+        scene, cfg, cam = headline_setup()
+        tile_mesh = sharding.make_mesh(world, 1)
+        sample_mesh = sharding.make_mesh(1, world)
+        for label, c, need in (
+                ("headline", cfg, UNPRIMED_KERNELS),
+                ("headline_primed",
+                 dataclasses.replace(cfg, primary_priming=True),
+                 PRIMED_KERNELS)):
+            with CollectiveLog() as coll:
+                res, r = drive(f"sharded_{label}_rank{rank}", scene, c, cam,
+                               frames, need, mesh=sample_mesh)
+            out[label] = dict(res, **coll.summary())
+            save(label, r.film.accum.cpu().numpy())
+            del r
+        del scene
+        torch.cuda.empty_cache()
+        seconds["headline"] = time.perf_counter() - t1
+
+        t1 = time.perf_counter()
+        rank_dir = os.path.join(out_dir, f"rank{rank}")
+        os.makedirs(rank_dir, exist_ok=True)
+        for idx, img in phase_goldens(rank_dir, tile_mesh,
+                                      f"sharded_golden_rank{rank}").items():
+            save(f"golden{idx}", img)
+        seconds["goldens"] = time.perf_counter() - t1
+
+        t1 = time.perf_counter()
+        scene3, cfg3 = config3_denoise_setup()
+        with CollectiveLog() as coll:
+            res, r = drive(f"sharded_config3_denoise_rank{rank}", scene3,
+                           cfg3, camera(BOX_CAM), 1, UNPRIMED_KERNELS,
+                           mesh=tile_mesh)
+        disp = r.display()
+        out["config3"] = dict(res, **coll.summary(),
+                              display_finite=bool(np.isfinite(disp).all()),
+                              display_min=float(disp.min()),
+                              display_max=float(disp.max()))
+        save("config3_display", disp)
+        seconds["config3"] = time.perf_counter() - t1
+        out["seconds"] = seconds
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_gloo_ranks(frames, tmp_dir, ref, ref_film, ref_display):
+    """(b) SHARD_RANKS gloo ranks on cuda:0, spawned, each with its own
+    scenes: the headline (unprimed and primed) on mesh (1, ranks),
+    goldens 1-5 and config 3 with the denoiser on mesh (ranks, 1). Every
+    rank must exit 0 within SHARD_TIMEOUT_S; the parent holds the ranks'
+    films to one another (checksums) and to the single-device runs."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(tmp_dir, "sharded")
+    os.makedirs(out_dir)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        _sharded_rank, args=(SHARD_RANKS, os.path.join(out_dir, "store"),
+                             out_dir, frames),
+        nprocs=SHARD_RANKS, join=False, start_method="spawn")
+    deadline = t0 + SHARD_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.perf_counter())):
+            if time.perf_counter() > deadline:
+                raise PhaseError(f"sharded ranks still running after "
+                                 f"{SHARD_TIMEOUT_S} s")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        raise PhaseError(f"sharded rank {e.error_index} failed: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(SHARD_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    files = {k[:-len("_sha256")] for k in ranks[0] if k.endswith("_sha256")}
+    images = {k: np.load(os.path.join(out_dir, k + ".npy")) for k in files}
+    for k, a in images.items():
+        sums = {res[k + "_sha256"] for res in ranks} | {film_checksum(a)}
+        if len(sums) != 1:
+            raise PhaseError(f"sharded ranks hold different {k}")
+    for res in ranks:
+        for label, need in (("headline", UNPRIMED_KERNELS),
+                            ("headline_primed", PRIMED_KERNELS),
+                            ("config3", UNPRIMED_KERNELS)):
+            missing = [k for k in need if not res[label]["launches"][k]]
+            if missing:
+                raise PhaseError(f"rank {res['rank']} {label}: launched no "
+                                 f"{missing}")
+        if not min(res["headline_primed"]["hinted_pixels"][:2]) > 0:
+            raise PhaseError(f"rank {res['rank']}: no hints recorded")
+    r0 = ranks[0]
+    checks = {
+        "headline_vs_single_device": robust_gate(images["headline"],
+                                                 ref_film),
+        "primed_vs_single_device": robust_gate(images["headline_primed"],
+                                               ref_film),
+        "primed_vs_unprimed": robust_gate(images["headline_primed"],
+                                          images["headline"]),
+        "config3_display_vs_single_device": robust_gate(
+            images["config3_display"], ref_display)}
+    disp = images["config3_display"]
+    display_ok = bool(np.isfinite(disp).all() and 0.0 <= disp.min()
+                      and disp.max() <= 1.0)
+    log("sharded_gloo", backend="gloo", ranks=SHARD_RANKS, device="cuda:0",
+        shared_card=True, seconds=ranks_s,
+        rank_seconds=[res["seconds"] for res in ranks],
+        checksums_agree=True, display_ok=display_ok,
+        **{k: v for k, v in checks.items()})
+    for label in ("headline", "headline_primed", "config3"):
+        log("sharded_gloo_run", run=label, mesh=r0[label]["mesh"],
+            ms_per_frame=[res[label]["ms_per_frame"] for res in ranks],
+            step_ms=[res[label]["step_ms"] for res in ranks],
+            all_reduce_ms=[res[label]["all_reduce_ms"] for res in ranks],
+            all_reduce_bytes=r0[label]["all_reduce_bytes"],
+            peak_mem_bytes=[res[label]["peak_mem_bytes"] for res in ranks],
+            rays_per_step=r0[label]["rays_per_step"],
+            launches=[res[label]["launches"] for res in ranks],
+            hinted_pixels=r0[label].get("hinted_pixels"))
+    bad = [k for k, v in checks.items() if not v["ok"]]
+    if bad or not display_ok:
+        raise PhaseError(f"sharded gloo ranks: {bad} outside the gate "
+                         f"(display ok: {display_ok})")
+    rays_match("sharded headline (gloo)", r0["headline"]["rays_per_step"],
+               ref["rays_per_step"])
+    rays_match("sharded primed headline (gloo)",
+               r0["headline_primed"]["rays_per_step"],
+               r0["headline"]["rays_per_step"])
+    return ranks
+
+
+def phase_sharded(scene, cfg, cam, frames, tmp_dir, ref, ref_film,
+                  ref_display):
+    """Multi-device rendering on the one card: (a) NCCL at world size 1,
+    (b) SHARD_RANKS gloo ranks sharing cuda:0. Two ranks on one card
+    share its SMs: their times measure correctness, not scaling."""
+    t0 = time.perf_counter()
+    nccl = sharded_headline_nccl(scene, cfg, cam, frames, ref, ref_film,
+                                 tmp_dir)
+    t1 = time.perf_counter()
+    ranks = sharded_gloo_ranks(frames, tmp_dir, ref, ref_film, ref_display)
+    log("sharded", nccl_s=t1 - t0, gloo_s=time.perf_counter() - t1)
+    return nccl, ranks
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--frames", type=int, default=2,
@@ -1291,16 +1602,17 @@ def main(argv=None):
             scene, cfg, cam = headline_setup()
             stats = phase_kernels(scene, cfg, cam)
             phase_goldens(tmp_dir)
-            base, skip, primed = phase_headline(scene, cfg, cam,
-                                                args.frames)
-            del scene
+            base, skip, primed, ref_film = phase_headline(scene, cfg, cam,
+                                                          args.frames)
             phase_config4(tmp_dir, args.frames)
-            phase_config3()
+            _, ref_display = phase_config3()
             scene2, cpu_scene2, bvh_stats = phase_lbvh()
             stats.update(bvh_stats)
             config2 = phase_config2(scene2, args.frames)
             del scene2
             phase_estimators(cpu_scene2, args.frames)
+            phase_sharded(scene, cfg, cam, args.frames, tmp_dir, base,
+                          ref_film, ref_display)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

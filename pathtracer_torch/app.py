@@ -11,12 +11,17 @@
         --sampler sobol --sky hosek --spp 1 --frame-batch auto --out b.png
     python -m pathtracer_torch.app --scene cornell --width 32 --height 32 \
         --device cpu --out c.png
+    torchrun --nproc-per-node 4 -m pathtracer_torch.app --mesh auto \
+        --scene sponza --textured --width 1920 --height 1080 --out s.png
 
 Renders progressively on --device (default cuda; it is an error when no
 CUDA device is present - the CPU runs only on --device cpu) and writes
-one JSON line per step (ms, Mrays/s, mean radiance) and a PNG. The JAX
-CLI's scene files, --mesh, --orbit and the interactive viewer are not
-ported yet (ROADMAP.md Queue 1, items 7-9).
+one JSON line per step (ms, Mrays/s, mean radiance) and a PNG. With
+--mesh, one process per rank under torchrun: rank r renders its shard
+on cuda:{LOCAL_RANK} (NCCL; gloo with --device cpu), every rank holds
+the film, and rank 0 alone prints and writes files. The JAX CLI's scene
+files, --orbit and the interactive viewer are not ported yet (ROADMAP.md
+Queue 1, items 8-9).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from pathtracer_torch.config import RenderConfig, saturating_frame_batch
 from pathtracer_torch.film import film as film_mod
@@ -128,6 +134,11 @@ def main(argv=None):
     ap.add_argument("--checkpoint", default=None, metavar="PATH",
                     help="film checkpoint (.npz) to resume from if it "
                          "exists, written at the end")
+    ap.add_argument("--mesh", default=None, metavar="TILE,SAMPLE",
+                    help="render across a (tile, sample) mesh of ranks "
+                         "(parallel/sharding.py), one process per rank "
+                         "under torchrun; e.g. '2,2' on 4 ranks, 'auto' "
+                         "factorizes the world size")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--out", default="out.png")
@@ -144,6 +155,48 @@ def main(argv=None):
         raise SystemExit("--sky envmap requires --envmap PATH "
                          "(a zero envmap would render black)")
 
+    device, mesh, own_group = torch.device(args.device), None, False
+    if args.mesh:
+        device, mesh, own_group = _join_mesh(args.mesh, device)
+    try:
+        return _render(args, device, mesh)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _join_mesh(spec: str, device):
+    """Initialise this rank's process group from torchrun's environment
+    (unless the caller already did) and build the mesh. Returns (this
+    rank's device: cuda:{LOCAL_RANK} on CUDA, the mesh, whether the group
+    is ours to destroy)."""
+    from pathtracer_torch.parallel import sharding
+
+    own = not dist.is_initialized()
+    if own and "WORLD_SIZE" not in os.environ:
+        raise SystemExit("--mesh renders one process per rank: launch with "
+                         "torchrun --nproc-per-node N -m pathtracer_torch.app "
+                         "--mesh ... (no process group and no WORLD_SIZE in "
+                         "the environment)")
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    if own:
+        dist.init_process_group(
+            backend="nccl" if device.type == "cuda" else "gloo")
+    try:
+        if spec == "auto":
+            return device, sharding.make_mesh(), own
+        tile, sample = (int(x) for x in spec.split(","))
+        return device, sharding.make_mesh(tile, sample), own
+    except ValueError:
+        if own:
+            dist.destroy_process_group()
+        raise
+
+
+def _render(args, device, mesh):
+    lead = mesh is None or mesh.rank == 0      # rank 0 prints and writes
     builder = build_scene(args.scene, args.tris, args.textured)
     if args.envmap:
         if not args.envmap.lower().endswith(".hdr"):
@@ -167,21 +220,25 @@ def main(argv=None):
                        clamp_radiance=args.clamp, tonemap=args.tonemap,
                        capture_gbuffer=args.aov)
     r = Renderer(builder.finalize(device="cpu"), cfg,
-                 default_camera(args.scene), device=args.device)
+                 default_camera(args.scene), device=device, mesh=mesh)
     if args.checkpoint and os.path.exists(args.checkpoint):
         r.film = film_mod.load_checkpoint(args.checkpoint, device=r.device)
         r.camera.moved = False
-        print(f"resumed at frame {r.film.frame}")
+        if lead:
+            print(f"resumed at frame {r.film.frame}")
     for _ in range(max(1, -(-args.frames // frame_batch))):
         t0 = time.perf_counter()
         film = r.step()
         mean = float(film.accum.mean())          # syncs the device
         dt = time.perf_counter() - t0
-        print(json.dumps({
-            "frame": film.frame, "ms": round(dt * 1e3, 2),
-            "mrays_per_sec": round(int(r.last_rays) / dt / 1e6, 3),
-            "spp_accumulated": film.frame * cfg.spp,
-            "mean_radiance": round(mean, 5), "device": str(r.device)}))
+        if lead:
+            print(json.dumps({
+                "frame": film.frame, "ms": round(dt * 1e3, 2),
+                "mrays_per_sec": round(int(r.last_rays) / dt / 1e6, 3),
+                "spp_accumulated": film.frame * cfg.spp,
+                "mean_radiance": round(mean, 5), "device": str(r.device)}))
+    if not lead:
+        return 0
     r.save_png(args.out)
     print(f"wrote {args.out}")
     if args.aov:

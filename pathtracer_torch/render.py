@@ -15,7 +15,8 @@ the SVGF luminance moments m1/m2 that feed film/denoise.py.
 `Renderer` runs the progressive loop: frame batching, auto frame
 batching, motion preview, the running-mean G-buffer, the denoised and
 tone-mapped display, AOVs. Every entry point takes an explicit device.
-The mesh/sharded path is not ported yet (ROADMAP.md Queue 1, item 7).
+With a mesh (parallel/sharding.py) each step renders this rank's
+(tile, sample) shard and the ranks reduce their shards into one film.
 """
 
 from __future__ import annotations
@@ -125,8 +126,9 @@ BLOCK_W = 8
 BLOCK_H = 8
 
 
-def _swizzled_pixel_ids(w: int, h: int, device="cpu"):
-    """Flat pixel ids in (block_y, block_x, in_y, in_x) order, or None."""
+def _swizzled_pixel_ids(w: int, h: int, device):
+    """Flat pixel ids in (block_y, block_x, in_y, in_x) order on `device`,
+    or None."""
     if w % BLOCK_W or h % BLOCK_H:
         return None
     ys = torch.arange(h, device=device).reshape(h // BLOCK_H, BLOCK_H)
@@ -169,12 +171,23 @@ def _primary_rays(cfg: RenderConfig, cam, pixel_ids, sample_ids):
         focus_dist=cfg.focus_dist)
 
 
+def _part_bounds(n_pixels: int, lanes_per_pixel: int):
+    """Pixel bounds of the spatial parts a pool of n_pixels x
+    lanes_per_pixel lanes splits into: at most PT_MAX_WAVEFRONT lanes a
+    part (default POOL_SATURATION_LANES), contiguous in lane order."""
+    cap = int(os.environ.get("PT_MAX_WAVEFRONT",
+                             str(config_mod.POOL_SATURATION_LANES)))
+    parts = max(1, -(-(n_pixels * lanes_per_pixel) // cap))
+    return [n_pixels * p // parts for p in range(parts + 1)]
+
+
 def _trace_pool_part(scene: Scene, cfg: RenderConfig,
-                     cam: cam_mod.CameraState, frame_idx: int, pix_part,
-                     spp_eff: int, prime_part=None, gbuffer: bool = False):
-    """Trace spp_eff samples of one pixel part as one wavefront: the
-    samples frame_idx * spp + [0, spp_eff), so F frames' samples when
-    spp_eff = spp * F.
+                     cam: cam_mod.CameraState, pix_part, samples,
+                     sample_window: int, prime_part=None,
+                     gbuffer: bool = False):
+    """Trace the sample ids `samples` (int64 [S]) of one pixel part as one
+    wavefront, sample-major; sample_window sizes the env-NEE table (the
+    span of sample ids the pool's samples come from).
 
     Returns the part's per-pixel radiance SUM [m, 3], the ray count, the
     part's hints [m, 3] (rows follow pix_part; None unprimed) and its
@@ -183,16 +196,16 @@ def _trace_pool_part(scene: Scene, cfg: RenderConfig,
     """
     m = pix_part.shape[0]
     dev = pix_part.device
+    n_s = samples.shape[0]
     intersect_fn, occluded_fn, hint_fn = make_intersectors(scene, cfg)
     # sample-major lane order: each sample's segment keeps the swizzle
-    pixel_ids = pix_part.repeat(spp_eff)
-    rows = torch.arange(m, device=dev).repeat(spp_eff)
-    sample_ids = frame_idx * cfg.spp + torch.arange(
-        spp_eff, dtype=torch.int64, device=dev).repeat_interleave(m)
+    pixel_ids = pix_part.repeat(n_s)
+    rows = torch.arange(m, device=dev).repeat(n_s)
+    sample_ids = samples.repeat_interleave(m)
     o, d = _primary_rays(cfg, cam, pixel_ids, sample_ids)
     radiance, rays, prime_out, gbuf = path_mod.trace_paths(
         scene, cfg, o, d, pixel_ids, sample_ids, intersect_fn, occluded_fn,
-        prime=prime_part, local_pix=rows, sample_window=spp_eff,
+        prime=prime_part, local_pix=rows, sample_window=sample_window,
         hint_fn=hint_fn, want_gbuffer=gbuffer, n_pixels=m)
     part_img = torch.zeros((m, 3), dtype=torch.float32, device=dev)
     # atomics on CUDA: the per-pixel sum order varies at the ulp level
@@ -229,20 +242,19 @@ def render_frame_batched(scene: Scene, cfg: RenderConfig,
     n = w * h
     spp_eff = cfg.spp * frames
     base_pix = _base_pixels(w, h, scene.device)
-    cap = int(os.environ.get("PT_MAX_WAVEFRONT",
-                             str(config_mod.POOL_SATURATION_LANES)))
-    parts = max(1, -(-(n * spp_eff) // cap))
-    bounds = [n * p // parts for p in range(parts + 1)]
+    samples = frame_idx * cfg.spp + torch.arange(
+        spp_eff, dtype=torch.int64, device=scene.device)
+    bounds = _part_bounds(n, spp_eff)
     img = torch.zeros((n, 3), dtype=torch.float32, device=scene.device)
     primed = prime is not None
     prime_out = torch.empty_like(prime) if primed else None
     gbuf = None
     rays = 0
-    for p in range(parts):
+    for p in range(len(bounds) - 1):
         pix_part = base_pix[bounds[p]:bounds[p + 1]]
         rows = pix_part.long()
         part_img, rays_p, prime_p, gbuf_p = _trace_pool_part(
-            scene, cfg, cam, frame_idx, pix_part, spp_eff,
+            scene, cfg, cam, pix_part, samples, spp_eff,
             prime[rows] if primed else None, gbuffer)
         img[rows] = part_img            # parts partition the pixels
         if primed:
@@ -348,17 +360,20 @@ class Renderer:
     upscales; the film never sees it. With cfg.denoise or
     cfg.capture_gbuffer the G-buffer is kept as a running mean over the
     frames for the denoiser (display) and the AOVs.
+
+    mesh (parallel/sharding.make_mesh): every step renders this rank's
+    (tile, sample) shard and the ranks reduce the shards, so every rank
+    holds the same film, hints and G-buffer. The motion preview stays a
+    single-device render on each rank (deterministic: every rank shows
+    the same preview).
     """
 
     def __init__(self, scene: Scene, cfg: RenderConfig,
                  camera: Optional[cam_mod.Camera] = None, *, device,
                  mesh=None, auto_frame_batch: int = 0,
                  motion_preview: int = 0):
-        if mesh is not None:
-            raise ValueError("mesh (sharded rendering) is not ported to "
-                             "pathtracer_torch yet (ROADMAP.md Queue 1, "
-                             "item 7)")
         self.device = torch.device(device)
+        self.mesh = mesh
         if cfg.intersector == "bvh" and scene.bvh is None:
             from pathtracer_torch.accel import lbvh
 
@@ -428,14 +443,21 @@ class Renderer:
         f = self.cfg.frame_batch
         if f == 1 and self.auto_frame_batch > 1 and self._frames_done > 0:
             f = self.auto_frame_batch
-        if f > 1:
-            radiance_sum, rays, prime, gb = render_frame_batched(
-                self.scene, self.cfg, cam, self.film.frame,
-                _initial_prime(self.cfg, self._prime, self.device),
-                gbuffer=want_gb, frames=f)
+        if self.mesh is not None or f > 1:
+            prime = _initial_prime(self.cfg, self._prime, self.device)
+            if self.mesh is not None:
+                from pathtracer_torch.parallel import sharding
+
+                radiance_sum, rays, prime, gb = sharding.render_frame_sharded(
+                    self.scene, self.cfg, cam, self.film.frame, self.mesh,
+                    prime, gbuffer=want_gb, frames=f)
+            else:
+                radiance_sum, rays, prime, gb = render_frame_batched(
+                    self.scene, self.cfg, cam, self.film.frame, prime,
+                    gbuffer=want_gb, frames=f)
             if gb is not None:
                 # moments come back summed over the F frames; the features
-                # are one primary lane's
+                # are one primary lane's (sharded loop branch: the mean)
                 gb = dict(gb, m1=gb["m1"] / f, m2=gb["m2"] / f)
             self.film = film_mod.accumulate_many(self.film, radiance_sum, f)
         else:

@@ -614,3 +614,79 @@ def test_bvh_render_on_cuda_matches_cpu(dev):
     primed, rays_p = films[(str(dev), True)]
     assert rays_p == rays
     np.testing.assert_allclose(primed, gpu, rtol=1e-5, atol=1e-6)
+
+
+def _gate(img, ref):
+    """The robust image gate of benchmarks/run_configs.py:127-131."""
+    d = img - ref
+    ad = np.abs(d).max(-1)
+    inl = ad <= np.percentile(ad, 98.0)
+    rmse = float(np.sqrt(np.mean(d[inl] ** 2)))
+    mean_rel = abs(float(img.mean()) - float(ref.mean())) / max(
+        abs(float(ref.mean())), 1e-6)
+    assert rmse <= 5e-3 and (ad > 0.01).mean() <= 0.02 \
+        and mean_rel <= 1e-3, (rmse, (ad > 0.01).mean(), mean_rel)
+
+
+def _one_rank_group(backend, tmp_path):
+    import torch.distributed as dist
+
+    dist.init_process_group(backend, init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    return dist
+
+
+def test_gloo_all_reduce_on_cuda_tensors(dev, tmp_path):
+    """The reductions the sharded path makes, on CUDA tensors through
+    gloo (the backend of several ranks on one card): SUM of f32 and
+    int64, MAX of int32."""
+    dist = _one_rank_group("gloo", tmp_path)
+    try:
+        f = torch.arange(6, dtype=torch.float32, device=dev)
+        n = torch.tensor([5], dtype=torch.int64, device=dev)
+        h = torch.tensor([-1, 7], dtype=torch.int32, device=dev)
+        dist.all_reduce(f)
+        dist.all_reduce(n)
+        dist.all_reduce(h, op=dist.ReduceOp.MAX)
+        assert f.tolist() == list(range(6)) and n.tolist() == [5]
+        assert h.tolist() == [-1, 7] and h.dtype == torch.int32
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_render_nccl_world1_matches_single_device(dev, tmp_path):
+    """Renderer(mesh=...) over NCCL at world size 1 on a textured
+    sponza_like at 64x64, 4 spp, depth 6, cluster route: the film passes
+    the gate against the single-device render, the ray counts are equal,
+    and K1-K3 launched."""
+    from pathtracer_torch.accel.cluster import build_scene_clusters
+    from pathtracer_torch.config import RenderConfig
+    from pathtracer_torch.integrator.camera import Camera
+    from pathtracer_torch.parallel import sharding
+    from pathtracer_torch.render import Renderer
+    from pathtracer_torch.scene.procedural import sponza_like
+
+    scene = build_scene_clusters(sponza_like(20_000, textured=True)
+                                 .finalize(device="cpu"))
+    cfg = RenderConfig(width=64, height=64, spp=4, max_depth=6,
+                       spp_batch=True)
+    dist = _one_rank_group("nccl", tmp_path)
+    try:
+        out = {}
+        for name, mesh in (("single", None), ("mesh", sharding.make_mesh())):
+            cam = Camera(position=(3.0, 4.5, 6.0))
+            cam.look_at((14.0, 3.0, 6.0))
+            kernels.reset_launch_counts()
+            r = Renderer(scene, cfg, cam, device=dev, mesh=mesh)
+            rays = []
+            for _ in range(2):
+                r.step()
+                rays.append(int(r.last_rays))
+            out[name] = (r.film.accum.cpu().numpy(), rays,
+                         dict(kernels.LAUNCHES))
+        assert out["mesh"][1] == out["single"][1]
+        _gate(out["mesh"][0], out["single"][0])
+        assert all(out["mesh"][2][k] > 0 for k in
+                   ("tile_cull", "sweep_closest", "sweep_occluded"))
+    finally:
+        dist.destroy_process_group()
