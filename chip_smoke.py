@@ -35,31 +35,47 @@ Drives pathtracer_torch's paths on the card and checks them:
    each through Renderer, launch counts reset just before and read just
    after each run; the primed film must pass the gate against the
    unprimed one with the same ray counts;
-5. config 4 at BASELINE's size and frame batch (1024x1024, 1 spp, depth
+5. assets: the headline scene exported to .glb by the port's exporter
+   and loaded back by its glTF loader (export, load and accel seconds,
+   the file's bytes), its host tables equal to the procedural build's
+   (geometry and light tables bit for bit, material fields per face,
+   texels per texture pair) and its blocks_t equal; the 1080p headline
+   rendered from the file with phase 4's ray counts and a film within
+   its gate; then app.main on the card composing the .glb under an
+   '@tx,ty,tz,scale,ry' transform, an OBJ/MTL with a map_Kd PNG and an
+   LDR PNG env map, all written by the port;
+6. viewer: viewer.run_interactive on the .glb headline (4 spp) with
+   auto frame batch 8 and motion preview 2, stdin piped and stdout
+   captured: a fresh camera's preview, a single frame and an 8-frame
+   batch, then a camera move and the same three kinds again; every
+   display finite and in [0, 1], every ANSI body rows - 1 lines, K1-K3
+   launched, ms per step; then app.main --orbit --quiet at 256x256 on
+   the .glb: four PNGs and no output;
+7. config 4 at BASELINE's size and frame batch (1024x1024, 1 spp, depth
    6, env-map NEE, frame_batch = saturating_frame_batch = 8), unprimed,
    unprimed with PT_CULL_SKIP=1 (K4 where its 256 clusters gate: same
    ray counts, film within the gate) and primed, and one 8-frame step
    held to 8 single-frame steps (gate, equal rays);
-6. config 3 at BASELINE's size (materials suite, 512x512, 4 spp, depth
+8. config 3 at BASELINE's size (materials suite, 512x512, 4 spp, depth
    6, frame_batch 8: two steps = 64 spp) with the denoiser: the denoised
    display finite and in [0, 1], three AOVs;
-7. lbvh: config 2's scene (bunny_like(), ~80k triangles) with its LBVH
+9. lbvh: config 2's scene (bunny_like(), ~80k triangles) with its LBVH
    built on the card, bit for bit the CPU build; K5 (closest) and K6
    (any-hit) BVH walks against their plain versions (t/u/v/tri and
    blocked bit-exact) on the arguments the main path handed them in one
    step of config 2 on the bvh route, with the nodes and leaf tests the
    data needs and the bound they give;
-8. config 2 at BASELINE's size on the bvh route (512x512, 1 spp, depth
+10. config 2 at BASELINE's size on the bvh route (512x512, 1 spp, depth
    6, frame_batch = saturating_frame_batch = 8): K5/K6 and none of
    K1-K4 launched, the film within the gate of the cluster route's on
    the same seed, and config 2's 64x64 golden gate on the bvh route;
-9. estimators: Sobol draws on the card equal to the CPU's over 2M
+11. estimators: Sobol draws on the card equal to the CPU's over 2M
    lanes (sample ids up to 2^32 - 1); config 3 at its size with
    sampler="sobol" against pcg (ms/frame, finite film); config 1 with
    reference_quirks (256x256, 4 spp, depth 6) against
    tests/golden_cornell_quirks_256.npy; the Hosek sky on config 2's
    scene at 64x64, the card's film against the port's CPU render;
-10. sharded (parallel/sharding.py): the headline through Renderer(mesh=
+12. sharded (parallel/sharding.py): the headline through Renderer(mesh=
    ...) over NCCL at world size 1 in this process, its film within the
    gate of phase 4's and its ray counts equal; then SHARD_RANKS gloo
    ranks spawned on cuda:0 (sharing its SMs: their times say nothing of
@@ -68,7 +84,7 @@ Drives pathtracer_torch's paths on the card and checks them:
    mesh (1, ranks), goldens 1-5 and config 3 with the denoiser on mesh
    (ranks, 1); every rank must launch K1-K3 (K3b primed), hold the same
    films (checksums) and exit 0 within SHARD_TIMEOUT_S, and the films
-   pass the gates against tests/goldens and phases 4 and 6 (the primed
+   pass the gates against tests/goldens and phases 4 and 8 (the primed
    one also against the unprimed one, with equal rays); all_reduce ms
    and bytes a step and peak memory per rank are logged.
 
@@ -863,7 +879,271 @@ def phase_headline(scene, cfg, cam, frames):
                         dataclasses.replace(cfg, primary_priming=True), cam,
                         frames, PRIMED_KERNELS)
     same_render("priming_ab", primed, r_p, base, r_b)
-    return base, skip, primed, r_b.film.accum.cpu().numpy()
+    return base, skip, primed, r_b
+
+
+# the composed CLI scene: the .glb turned a quarter and halved so that
+# the file camera ((0, 1, 4) looking at the origin) stands in its hall,
+# an OBJ quad with a map_Kd PNG, and an LDR PNG sky
+GLB_SPEC = "@-3,-1,5,0.5,90"
+ASSET_OBJ = """mtllib floor.mtl
+v -1 0 -3
+v 1 0 -3
+v 1 0 -1
+v -1 0 -1
+vt 0 0
+vt 1 0
+vt 1 1
+vt 0 1
+usemtl checker
+f 1/1 2/2 3/3 4/4
+"""
+ASSET_MTL = "newmtl checker\nKd 1 1 1\nNs 100\nmap_Kd checker.png\n"
+
+
+# what the .glb must reproduce: geometry and light tables bit for bit,
+# material fields per face (the loader numbers materials by first use),
+# texels per texture pair
+EXACT_FIELDS = ("positions", "normals", "uvs", "tangents", "indices",
+                "light_cdf", "light_pdf", "light_v0", "light_emission",
+                "tri_light_pdf_area")
+FACE_FIELDS = ("mat_albedo", "mat_emission", "mat_roughness",
+               "mat_metallic", "mat_ior", "mat_alpha", "mat_type")
+TEXTURE_FIELDS = ("mat_albedo_tex", "mat_mr_tex", "mat_normal_tex")
+
+
+def same_tables(loaded, built):
+    """Names of the fields in which the .glb's host tables differ from
+    the procedural build's, held as tests/test_export.py holds them."""
+    import numpy as np
+
+    fm_l, fm_b = loaded["face_material"], built["face_material"]
+    bad = [n for n in EXACT_FIELDS if not np.array_equal(loaded[n],
+                                                         built[n])]
+    bad += [n for n in FACE_FIELDS
+            if not np.array_equal(loaded[n][fm_l], built[n][fm_b])]
+    for n in TEXTURE_FIELDS:
+        for o, b in set(zip(built[n][fm_b].tolist(),
+                            loaded[n][fm_l].tolist())):
+            if (o >= 0) != (b >= 0) or o >= 0 and not (
+                    np.array_equal(built["tex_wh"][o], loaded["tex_wh"][b])
+                    and np.array_equal(built["textures"][o],
+                                       loaded["textures"][b])):
+                bad.append(n)
+                break
+    return bad
+
+
+def run_cli(argv):
+    """app.main(argv) with its standard output captured: (return code,
+    the output, the JSON step lines, the launch counts, seconds)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from pathtracer_torch import app, kernels
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = app.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out = buf.getvalue()
+    steps = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    return rc, out, steps, dict(kernels.LAUNCHES), secs
+
+
+def phase_assets(scene, cfg, cam, frames, base, r_b, tmp_dir):
+    """The headline scene through a .glb: export (the same procedural
+    builder phase 4's scene came from), load back, host tables
+    and blocks_t against the procedural build, the 1080p headline from
+    the file (equal rays, film within the gate of phase 4's), then a
+    composed scene through app.main on the card."""
+    import numpy as np
+    import torch
+
+    from pathtracer_torch.accel.cluster import build_scene_clusters
+    from pathtracer_torch.scene.export import export_glb
+    from pathtracer_torch.scene.gltf import load_gltf
+    from pathtracer_torch.scene.procedural import sponza_like
+    from pathtracer_torch.utils import native
+
+    t_phase = time.perf_counter()
+    builder = sponza_like(target_tris=HEADLINE_TRIS, textured=True)
+    glb = os.path.join(tmp_dir, "headline.glb")
+    t0 = time.perf_counter()
+    export_glb(builder, glb)
+    t1 = time.perf_counter()
+    loaded = load_gltf(glb)
+    t2 = time.perf_counter()
+    tables = loaded.finalize_numpy()
+    t3 = time.perf_counter()
+    lscene = build_scene_clusters(loaded.finalize(device="cpu"))
+    t4 = time.perf_counter()
+    built = {n: getattr(scene, n).cpu().numpy() for n in (
+        EXACT_FIELDS + FACE_FIELDS + TEXTURE_FIELDS
+        + ("face_material", "textures", "tex_wh"))}
+    bad = same_tables(tables, built)
+    blocks_equal = bool(torch.equal(lscene.clusters.blocks_t,
+                                    scene.clusters.blocks_t.cpu()))
+    info = dict(glb_bytes=os.path.getsize(glb), export_s=t1 - t0,
+                load_s=t2 - t1, finalize_s=t3 - t2, accel_s=t4 - t3,
+                tris=lscene.n_tris, clusters=lscene.clusters.n_clusters,
+                textures=len(loaded.textures),
+                materials=len(loaded.materials), tables_differ=bad,
+                blocks_t_equal=blocks_equal)
+    log("assets_load", **info)
+    if bad or not blocks_equal:
+        raise PhaseError(f"assets: the .glb's tables differ from the "
+                         f"build's: {bad}, blocks_t equal: {blocks_equal}")
+    lscene = lscene.to(DEVICE)
+    res, r = drive("assets_glb_headline", lscene, cfg, cam, frames,
+                   UNPRIMED_KERNELS)
+    same_render("assets_glb_vs_build", res, r, base, r_b)
+    del r
+
+    # composed: the .glb under a transform, an OBJ/MTL with a map_Kd PNG
+    # and an LDR PNG env map, all files written by the port
+    rng = np.random.default_rng(0)
+    checker = ((np.indices((32, 32)).sum(0) // 4) % 2 * 180 + 40).astype(
+        np.uint8)
+    sky = np.concatenate([np.linspace(60, 250, 64)[:, None, None]
+                          * np.ones((64, 128, 1)),
+                          rng.integers(0, 40, (64, 128, 2))], -1)
+    for name, img in (("checker.png", np.stack([checker] * 3, -1)),
+                      ("sky.png", sky.astype(np.uint8))):
+        with open(os.path.join(tmp_dir, name), "wb") as f:
+            f.write(native.png_encode(img))
+    for name, text in (("floor.obj", ASSET_OBJ), ("floor.mtl", ASSET_MTL)):
+        with open(os.path.join(tmp_dir, name), "w") as f:
+            f.write(text)
+    argv = ["--scene", glb + GLB_SPEC,
+            "--scene", os.path.join(tmp_dir, "floor.obj"),
+            "--sky", "envmap", "--envmap", os.path.join(tmp_dir, "sky.png"),
+            "--width", "512", "--height", "288", "--spp", "2",
+            "--spp-batch", "--frames", "2", "--device", "cuda",
+            "--out", os.path.join(tmp_dir, "composed.png")]
+    rc, _, steps, counts, secs = run_cli(argv)
+    log("assets_cli", argv=argv[:-1], rc=rc, steps=steps, launches=counts,
+        seconds=secs)
+    if rc != 0 or len(steps) != 2 or not all(
+            s["mean_radiance"] > 0 and np.isfinite(s["mean_radiance"])
+            for s in steps):
+        raise PhaseError(f"assets: composed CLI run failed: rc {rc}, "
+                         f"steps {steps}")
+    missing = [k for k in UNPRIMED_KERNELS if counts[k] == 0]
+    if missing:
+        raise PhaseError(f"assets: the composed CLI run launched no "
+                         f"{missing}")
+    log("assets", **info, glb_ms_per_frame=res["ms_per_frame"],
+        glb_mrays_per_s=res["mrays_per_s"],
+        build_ms_per_frame=base["ms_per_frame"],
+        build_mrays_per_s=base["mrays_per_s"],
+        launches={k: res["launches"][k] for k in UNPRIMED_KERNELS},
+        cli_steps=steps, seconds=time.perf_counter() - t_phase)
+    return res, lscene, glb
+
+
+def phase_viewer(lscene, cfg, glb, tmp_dir):
+    """viewer.run_interactive on the .glb headline at 4 spp (auto frame
+    batch 8, motion preview 2), stdin piped and stdout captured: three
+    steps (the preview of a fresh camera, a single frame, an 8-frame
+    batch), a camera move, three more of the same kinds; every display
+    finite and in [0, 1], every ANSI body rows - 1 lines, K1-K3 launched.
+    Then app.main --orbit --quiet at 256x256 on the .glb: four PNGs and
+    no output."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from pathtracer_torch import kernels, viewer
+    from pathtracer_torch.render import Renderer
+
+    t_phase = time.perf_counter()
+    r = Renderer(lscene, cfg, camera(SPONZA_CAM), device=DEVICE,
+                 auto_frame_batch=8, motion_preview=2)
+    steps, shown = [], []
+    step, display = r.step, r.display
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        film = step()
+        torch.cuda.synchronize()
+        steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                          preview=r._preview is not None, frame=film.frame))
+        return film
+
+    def checked_display():
+        img = display()
+        shown.append(bool(np.isfinite(img).all() and img.min() >= 0.0
+                          and img.max() <= 1.0))
+        return img
+
+    r.step, r.display = timed_step, checked_display
+    rows = 40
+    out = io.StringIO()
+    rd, wr = os.pipe()
+    os.close(wr)
+    saved_stdin = sys.stdin
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with os.fdopen(rd) as stdin, contextlib.redirect_stdout(out):
+            sys.stdin = stdin
+            n = viewer.run_interactive(r, rows=rows, max_frames=3)
+            r.camera.process_keyboard("forward", 0.05)
+            n += viewer.run_interactive(r, rows=rows, max_frames=3)
+    finally:
+        sys.stdin = saved_stdin
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    bodies = [fr.split("\x1b[0m\nframe")[0]
+              for fr in out.getvalue().split("\x1b[H")[1:]]
+    want = [(True, 0), (False, 1), (False, 9)] * 2
+    got = [(s["preview"], s["frame"]) for s in steps]
+    res = dict(frames=n, steps=got, step_ms=[s["ms"] for s in steps],
+               wall_s=wall, displays_ok=shown,
+               body_lines=[len(b.split("\n")) for b in bodies],
+               launches=counts,
+               preview_ms=[s["ms"] for s in steps if s["preview"]],
+               single_frame_ms=[s["ms"] for s in steps
+                                if not s["preview"] and s["frame"] == 1],
+               batched_ms_per_frame=[s["ms"] / 8 for s in steps
+                                     if s["frame"] == 9])
+    log("viewer", **res)
+    if n != 6 or got != want:
+        raise PhaseError(f"viewer: steps {got}, want {want}")
+    if len(shown) != 6 or not all(shown):
+        raise PhaseError(f"viewer: displays bad: {shown}")
+    lines = min(rows - 1, cfg.height // 2)   # two pixel rows a line
+    if len(bodies) != 6 or any(x != lines for x in res["body_lines"]):
+        raise PhaseError(f"viewer: ANSI bodies {res['body_lines']}")
+    missing = [k for k in UNPRIMED_KERNELS if counts[k] == 0]
+    if missing:
+        raise PhaseError(f"viewer: launched no {missing}")
+    del r
+
+    orbit_dir = os.path.join(tmp_dir, "orbit")
+    rc, text, _, counts, secs = run_cli(
+        ["--scene", glb + GLB_SPEC, "--orbit", "--frames", "4", "--quiet",
+         "--width", "256", "--height", "256", "--device", "cuda",
+         "--out", orbit_dir])
+    pngs = sorted(os.listdir(orbit_dir)) if os.path.isdir(orbit_dir) else []
+    log("viewer_orbit", rc=rc, output_chars=len(text), pngs=pngs,
+        launches=counts, seconds=secs,
+        phase_seconds=time.perf_counter() - t_phase)
+    if rc != 0 or text or pngs != [f"frame_{i:04d}.png" for i in range(4)]:
+        raise PhaseError(f"viewer: --orbit --quiet gave rc {rc}, "
+                         f"{len(text)} characters of output, {pngs}")
+    return res
 
 
 def phase_config4(tmp_dir, frames):
@@ -1602,8 +1882,14 @@ def main(argv=None):
             scene, cfg, cam = headline_setup()
             stats = phase_kernels(scene, cfg, cam)
             phase_goldens(tmp_dir)
-            base, skip, primed, ref_film = phase_headline(scene, cfg, cam,
-                                                          args.frames)
+            base, skip, primed, r_b = phase_headline(scene, cfg, cam,
+                                                     args.frames)
+            glb_res, lscene, glb = phase_assets(scene, cfg, cam,
+                                                args.frames, base, r_b,
+                                                tmp_dir)
+            phase_viewer(lscene, cfg, glb, tmp_dir)
+            ref_film = r_b.film.accum.cpu().numpy()
+            del lscene, r_b
             phase_config4(tmp_dir, args.frames)
             _, ref_display = phase_config3()
             scene2, cpu_scene2, bvh_stats = phase_lbvh()
@@ -1621,7 +1907,8 @@ def main(argv=None):
         s = stats[name]
         launches = {"sweep_occluded_blocker": primed,
                     "tile_cull_skip": skip, "bvh_closest": config2,
-                    "bvh_occluded": config2}.get(name, base)["launches"][name]
+                    "bvh_occluded": config2}.get(name,
+                                                 glb_res)["launches"][name]
         kern.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches,
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],

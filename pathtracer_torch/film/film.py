@@ -6,8 +6,7 @@ raygen.rgen:300-302 in f32, accum' = (accum * frame + radiance) /
 an optional reinhard or aces tone map. PNGs are written through the
 native encoder (utils/native.py). A checkpoint is an .npz with the JAX
 package's keys (`accum`, `frame`), so either package resumes the
-other's; the counter-based RNG makes a resume exact. Reading PNGs waits
-for the loaders (ROADMAP.md Queue 1, item 9).
+other's; the counter-based RNG makes a resume exact.
 """
 
 from __future__ import annotations

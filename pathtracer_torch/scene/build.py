@@ -44,6 +44,9 @@ class SceneBuilder:
         self._normals: List[np.ndarray] = []
         self._uvs: List[np.ndarray] = []
         self._tangents: List[np.ndarray] = []
+        # glTF tangent w (bitangent handedness, +-1) per vertex: the
+        # renderer's TBN takes w = +1; export_glb writes the sign back
+        self._tangent_w: List[np.ndarray] = []
         self._indices: List[np.ndarray] = []
         self._face_material: List[np.ndarray] = []
         self.materials: List[MaterialDesc] = []
@@ -87,11 +90,13 @@ class SceneBuilder:
             uvs = np.zeros((n, 2), np.float32)
         else:
             uvs = np.asarray(uvs, np.float32).reshape(-1, 2)
+        tan_w = np.ones((n,), np.float32)
         if tangents is None:
             tangents = np.tile(np.array([[1, 0, 0]], np.float32), (n, 1))
         else:
             tangents = np.asarray(tangents, np.float32)
             if tangents.ndim == 2 and tangents.shape[-1] == 4:
+                tan_w = tangents[..., 3].astype(np.float32).copy()
                 tangents = tangents[..., :3]
             tangents = tangents.reshape(-1, 3)
 
@@ -110,6 +115,7 @@ class SceneBuilder:
         self._normals.append(normals)
         self._uvs.append(uvs)
         self._tangents.append(tangents)
+        self._tangent_w.append(tan_w)
         self._indices.append(indices + self._vertex_offset)
         self._face_material.append(
             np.full(len(indices), material, np.int64))

@@ -1,14 +1,19 @@
 """ctypes binding to the native host runtime (counterpart of pathtracer/utils/native.py).
 
-Binds two entry points of `native/pathtracer_native.cpp`:
-`pt_sah_split_build` (the SBVH leaf build behind the cluster accel) and
-`pt_png_encode` (PNG output without PIL). The C++ source is the JAX
-package's own; it is compiled at first use with
+Binds the entry points of `native/pathtracer_native.cpp` the port uses:
+`pt_sah_split_build` (the SBVH leaf build behind the cluster accel), the
+PNG codec (`pt_png_encode`; `pt_png_probe` + `pt_png_decode`, which read
+8-bit non-interlaced PNG: gray, gray + alpha, RGB, RGBA and palette)
+and the glTF accessor unpack (`pt_accessor_to_f32` / `_to_i32`). The
+C++ source is the JAX package's own; it is compiled at first use with
 
     g++ -O3 -std=c++17 -fPIC -shared native/pathtracer_native.cpp -lz
 
 into `pathtracer_torch/_build/`. If it cannot be built, the call raises:
-the port has no Python fallback.
+the port has no Python fallback, and no other image decoder. An image the
+decoder declines (JPEG, 16-bit or interlaced PNG, a gray or RGB PNG with
+a tRNS colour key) is an error naming the file and its format
+(`png_rgba`).
 """
 
 from __future__ import annotations
@@ -66,6 +71,20 @@ def _load():
                 u8p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, u8p,
                 ctypes.POINTER(ctypes.c_int64)]
             lib.pt_png_encode.restype = ctypes.c_int
+            lib.pt_png_probe.argtypes = [u8p, ctypes.c_int64, i32p, i32p,
+                                         i32p]
+            lib.pt_png_probe.restype = ctypes.c_int
+            lib.pt_png_decode.argtypes = [u8p, ctypes.c_int64, u8p]
+            lib.pt_png_decode.restype = ctypes.c_int
+            lib.pt_accessor_to_f32.argtypes = [
+                u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                ctypes.c_int32, f32p]
+            lib.pt_accessor_to_f32.restype = ctypes.c_int
+            lib.pt_accessor_to_i32.argtypes = [
+                u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+                ctypes.c_int32, ctypes.c_int32, i32p]
+            lib.pt_accessor_to_i32.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -122,3 +141,93 @@ def png_encode(img: np.ndarray) -> bytes:
     if rc != 0:
         raise RuntimeError(f"pt_png_encode failed with code {rc}")
     return out[:n.value].tobytes()
+
+
+def png_decode(data: bytes):
+    """Decode an 8-bit non-interlaced PNG -> u8 [H, W, C] (C: 1 gray, 2
+    gray + alpha, 3 RGB, 4 RGBA; palettes expand to 3 or, with tRNS, 4).
+    None when the decoder declines the format (see `png_rgba`); a PNG it
+    accepts but cannot inflate raises."""
+    lib = _load()
+    buf = np.frombuffer(data, np.uint8)
+    w, h, ch = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
+    if lib.pt_png_probe(_ptr(buf, ctypes.c_uint8), buf.size,
+                        ctypes.byref(w), ctypes.byref(h),
+                        ctypes.byref(ch)) != 0:
+        return None
+    out = np.empty((h.value, w.value, ch.value), np.uint8)
+    if lib.pt_png_decode(_ptr(buf, ctypes.c_uint8), buf.size,
+                         _ptr(out, ctypes.c_uint8)) != 0:
+        raise ValueError("PNG data is corrupt (pt_png_decode failed)")
+    return out
+
+
+def image_format(data: bytes) -> str:
+    """Name an image's format, for the error of an image png_decode
+    declines."""
+    if data[:3] == b"\xff\xd8\xff":
+        return "JPEG"
+    if data[:8] != b"\x89PNG\r\n\x1a\n" or len(data) < 29:
+        return f"not a PNG (starts with {bytes(data[:8])!r})"
+    depth, color, interlace = data[24], data[25], data[28]
+    if depth != 8:
+        return f"{depth}-bit PNG"
+    if interlace:
+        return "interlaced (Adam7) PNG"
+    if color in (0, 2) and b"tRNS" in data:
+        return "gray or RGB PNG with a tRNS colour key"
+    return f"PNG of colour type {color}"
+
+
+def png_rgba(data: bytes, what: str) -> np.ndarray:
+    """Decode a PNG to u8 [H, W, 4] as PIL's convert("RGBA") gives it:
+    gray to (g, g, g, 255), gray + alpha to (g, g, g, a), RGB to
+    (r, g, b, 255). Raises ValueError naming `what` and the format when
+    the decoder declines the image."""
+    arr = png_decode(data)
+    if arr is None:
+        raise ValueError(f"{what}: cannot decode a {image_format(data)}: "
+                         "pathtracer_torch reads 8-bit non-interlaced PNG "
+                         "only")
+    if arr.shape[2] == 4:
+        return arr
+    rgba = np.empty(arr.shape[:2] + (4,), np.uint8)
+    rgba[..., :3] = arr[..., :1] if arr.shape[2] in (1, 2) else arr
+    rgba[..., 3] = arr[..., 1] if arr.shape[2] == 2 else 255
+    return rgba
+
+
+def accessor_to_f32(buf: bytes, offset: int, count: int, n_comp: int,
+                    component_type: int, stride: int,
+                    normalized: bool) -> np.ndarray:
+    """Strided glTF accessor -> f32 [count, n_comp] (stride 0: packed);
+    normalized integers follow the glTF rules (x / max, signed clamped
+    at -1)."""
+    lib = _load()
+    src = np.frombuffer(buf, np.uint8)
+    out = np.empty((count, n_comp), np.float32)
+    rc = lib.pt_accessor_to_f32(
+        _ptr(src, ctypes.c_uint8), src.size, offset, count, n_comp,
+        component_type, stride, int(normalized), _ptr(out, ctypes.c_float))
+    if rc != 0:
+        raise ValueError(f"glTF accessor ({count} x {n_comp} of type "
+                         f"{component_type} at byte {offset}) does not fit "
+                         f"its buffer (pt_accessor_to_f32 code {rc})")
+    return out
+
+
+def accessor_to_i32(buf: bytes, offset: int, count: int,
+                    component_type: int, stride: int) -> np.ndarray:
+    """Strided u8/u16/u32 glTF index accessor -> i32 [count] (stride 0:
+    packed; a u32 above 2^31 - 1 wraps, view the result as uint32)."""
+    lib = _load()
+    src = np.frombuffer(buf, np.uint8)
+    out = np.empty((count,), np.int32)
+    rc = lib.pt_accessor_to_i32(
+        _ptr(src, ctypes.c_uint8), src.size, offset, count, component_type,
+        stride, _ptr(out, ctypes.c_int32))
+    if rc != 0:
+        raise ValueError(f"glTF index accessor ({count} of type "
+                         f"{component_type} at byte {offset}) does not fit "
+                         f"its buffer (pt_accessor_to_i32 code {rc})")
+    return out

@@ -189,8 +189,12 @@ def test_app_renders_and_rejects_unported_flags(tmp_path):
               "--spp", "1", "--max-depth", "2", "--frames", "2",
               "--device", "cpu", "--out", out])
     assert open(out, "rb").read(8) == b"\x89PNG\r\n\x1a\n"
+    # every JAX flag is parsed; the xla traversal backend is refused
+    with pytest.raises(ValueError, match="not part of pathtracer_torch"):
+        app.main(["--scene", "cornell", "--traversal-backend", "xla",
+                  "--device", "cpu", "--out", out])
     with pytest.raises(SystemExit):
-        app.main(["--scene", "cornell", "--interactive", "--device", "cpu"])
+        app.main(["--scene", "cornell", "--no-such-flag", "--device", "cpu"])
 
 
 def test_app_cli_json_lines(tmp_path):
