@@ -26,6 +26,17 @@ Drives pathtracer_torch's paths on the card and checks them:
    a kernel testing every lane of every visited column runs, and those
    the kernel runs (from the plain versions' column walk), with its
    registers and occupancy;
+   probes: P1-P3 (kernels/probes.py, the JAX package's TPU probes)
+   through their drivers (bench/bf16_probe, cond_probe, sweep_attrib at
+   cpi 1 and 12) with the launch counts set to 0 just before and read
+   just after - P1's f32 and bf16 times and speedup, P2's gated and
+   always-extract times, P3's attribution of a column - then each
+   kernel against its plain version (P1 f32 and bf16 at 2 and 4096
+   steps and P2 gated and ungated bit-exact, P3's full variant hit-exact
+   with t bit-exact and the others +inf, at cpi 1 and 12); K2 on P3's
+   schedule at cpi 1, its t bit for bit P3's, and P3's cost a column
+   within P3_OVER_K2 of K2's; P3's bound from the lane-test branches its
+   plain version counts on the run's data;
 3. the config 1-5 golden gates at 64x64, 4 spp, through the kernels
    (robust gate of benchmarks/run_configs.py);
 4. the headline - textured sponza_like (~262k triangles), 1920x1080,
@@ -35,6 +46,16 @@ Drives pathtracer_torch's paths on the card and checks them:
    each through Renderer, launch counts reset just before and read just
    after each run; the primed film must pass the gate against the
    unprimed one with the same ray counts;
+   bench: python -m pathtracer_torch.bench in this process at the
+   headline with BENCH_FRAMES=2 (its default 8 cut to keep the phase
+   near 30 s; 4 warm-up frames a leg, the textured and the interleaved
+   untextured leg as the entry runs them), launch counts set to 0 just
+   before and read just after (K1-K3 and P3 must launch): its JSON line,
+   a finite positive value, pair_metrics without error and with the
+   rate P3 measured on the card; pair_metrics' visited/needed counts on
+   a 131,072-ray bounce-1 batch equal with K1 and with the plain cull;
+   K2's measured time on the whole bounce-1 batch beside the model's
+   sweep_model_ms;
 5. assets: the headline scene exported to .glb by the port's exporter
    and loaded back by its glTF loader (export, load and accel seconds,
    the file's bytes), its host tables equal to the procedural build's
@@ -140,6 +161,17 @@ KERNELS = {
                     "pathtracer/kernels/traverse.py:140"),
     "bvh_occluded": ("pathtracer_torch/csrc/traverse.cu",
                      "pathtracer/kernels/traverse.py:206"),
+    # the TPU probes P1-P3 of benchmarks/
+    "chain_f32": ("pathtracer_torch/csrc/probes.cu",
+                  "benchmarks/bf16_probe.py:56"),
+    "chain_bf16": ("pathtracer_torch/csrc/probes.cu",
+                   "benchmarks/bf16_probe.py:56 (bfloat16)"),
+    "cond_walk": ("pathtracer_torch/csrc/probes.cu",
+                  "benchmarks/cond_probe.py:24"),
+    "cond_walk_gated": ("pathtracer_torch/csrc/probes.cu",
+                        "benchmarks/cond_probe.py:24 (gate=True)"),
+    "sweep_attrib": ("pathtracer_torch/csrc/probes.cu",
+                     "benchmarks/sweep_attrib.py:56"),
 }
 CLUSTER_KERNELS = ("tile_cull", "tile_cull_skip", "sweep_closest",
                    "sweep_occluded", "sweep_occluded_blocker")
@@ -233,7 +265,7 @@ def phase_device():
 
     builds = [threading.Thread(target=run, args=(native.build,))] + [
         threading.Thread(target=run, args=(cuda_build.build, name))
-        for name in ("cull", "sweep", "traverse")]
+        for name in ("cull", "sweep", "traverse", "probes")]
     for t in builds:
         t.start()
     for t in builds:
@@ -694,6 +726,308 @@ def phase_kernels(scene, cfg, cam):
             columns=columns,
             **sweep.kernel_info(name, r, k))
     return stats
+
+
+# --- probes and bench -----------------------------------------------------
+
+# the bench phase runs the entry with BENCH_FRAMES timed frames a leg (its
+# default is 8; 4 warm-up frames a leg are the entry's own), and checks
+# pair_metrics' counts against the plain cull on a batch of this many rays
+BENCH_SMOKE_FRAMES = 2
+PAIR_CHECK_RAYS = 1 << 17
+# P1: FP32 instructions a chain step (2 sub, 4 mul, min, max, 2 add with
+# -fmad=false); packed bf16x2 instructions issue at the FP32 instruction
+# rate, two elements each: 133.8e12 bf16 FLOP/s outside the tensor cores
+# (NVIDIA H100 Tensor Core GPU Architecture white paper, H100 SXM5), an
+# FMA counted as two, is 33.45e12 bf16x2 instructions a second
+CHAIN_OPS = 10
+PEAK_BF16X2_INSTR = 133.8e12 / 2 / 2
+# P2: per element and step the add and the min; per element and step
+# that extracts the compare and the select
+WALK_OPS, EXTRACT_OPS = 2, 2
+# P3, FP32 instructions off csrc/sweep_column.cuh with -fmad=false (a
+# division as one), by the branch a lane takes (test_closest): every lane
+# tested the sign stage (denom 3 mul + 2 add, numerator 3 mul + 2 add +
+# 1 sub, |denom| > eps, the two signs: 14); a lane past the signs the
+# reciprocal, t's product and the two range compares (4); a lane in range
+# the hit point, u and v (3 x 6) and their three compares and add (22); a
+# hit the id's rounding (1). The plain version counts the branches on
+# this run's data. Per thread and column: merge_closest's candidate
+# compares (6), the tile maximum over 2 rays of 4 candidates (8) and the
+# warp's 5 maxima, then the stop rule's 3 compares and acc's add (23)
+P3_LANE_OPS = {"lanes": 14, "signs": 4, "in_range": 22, "hits": 1}
+P3_COLUMN_OPS = 23
+# P3's full variant runs K2's column body: its cost a column may differ
+# from K2's on the same schedule only by the walks' own parts (staging,
+# read-ahead, stop rule)
+P3_OVER_K2 = (0.8, 1.25)
+PROBE_KERNELS = ("chain_f32", "chain_bf16", "cond_walk", "cond_walk_gated",
+                 "sweep_attrib")
+
+
+def same_bits(a, b):
+    import torch
+
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(view), b.view(view)))
+
+
+def phase_probes():
+    """P1-P3 through their drivers (bench/bf16_probe, cond_probe,
+    sweep_attrib at cpi 1 and 12) with the launch counts set to 0 just
+    before and read just after; then each kernel against its plain
+    version on the card (not counted): P1 f32 and bf16 and P2 gated and
+    ungated bit-exact, P3's full variant hit-exact with t bit-exact and
+    the other variants +inf; then P3 against K2 (p3_against_k2)."""
+    import torch
+
+    from pathtracer_torch import kernels
+    from pathtracer_torch.bench import bf16_probe, cond_probe, sweep_attrib
+    from pathtracer_torch.kernels import probes
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    p1 = bf16_probe.run(DEVICE)
+    p2 = cond_probe.run(DEVICE)
+    p3 = {cpi: sweep_attrib.attribution(DEVICE, cpi=cpi) for cpi in (1, 12)}
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    drive_s = time.perf_counter() - t0
+    missing = [k for k in PROBE_KERNELS if launches[k] == 0]
+    if missing:
+        raise PhaseError(f"probes: the drivers launched no {missing}")
+    log("probe_p1", **p1)
+    log("probe_p2", **p2)
+    for cpi, res in p3.items():
+        log("probe_p3_attribution", **res)
+
+    stats = {}
+    # P1 at the probe's length (settled) and at 2 steps (input-dependent)
+    xf, yf = bf16_probe.probe_inputs(DEVICE)
+    n = xf.numel()
+    for name, dt in (("chain_f32", torch.float32),
+                     ("chain_bf16", torch.bfloat16)):
+        x, y = xf.to(dt), yf.to(dt)
+        for steps in (2, probes.CHAIN_STEPS):
+            got = probes.chain(x, y, steps)
+            ref = probes.chain_plain(x, y, steps)
+            if not same_bits(got, ref):
+                raise PhaseError(f"{name} at {steps} steps differs from its "
+                                 "plain version")
+        key = name.split("_")[1]
+        if dt == torch.float32:
+            ops_ms = n * (probes.CHAIN_STEPS * CHAIN_OPS + 1) \
+                / PEAK_FP32_INSTR * 1e3
+        else:
+            ops_ms = n / 2 * (probes.CHAIN_STEPS * CHAIN_OPS + 1) \
+                / PEAK_BF16X2_INSTR * 1e3
+        bytes_ms = 3 * n * x.element_size() / PEAK_BYTES * 1e3
+        stats[name] = dict(ms=p1[f"{key}_ms"], plain_ms=p1[f"plain_{key}_ms"],
+                           max_abs_err=0.0, ops_ms=ops_ms, bytes_ms=bytes_ms)
+    # P2 at the probe's shape, gated and ungated
+    x = cond_probe.probe_input(DEVICE)
+    for name, gate in (("cond_walk", False), ("cond_walk_gated", True)):
+        got = probes.cond_walk(x, cond_probe.N_ITER, gate, cond_probe.GRID)
+        ext = torch.zeros((), dtype=torch.int64, device=DEVICE)
+        ref = probes.cond_walk_plain(x, cond_probe.N_ITER, gate, ext)
+        if not same_bits(got, ref):
+            raise PhaseError(f"{name} differs from its plain version")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        probes.cond_walk_plain(x, cond_probe.N_ITER, gate)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        label = "gated" if gate else "always"
+        ops = cond_probe.GRID * x.numel() * (
+            cond_probe.N_ITER * WALK_OPS + int(ext) * EXTRACT_OPS)
+        stats[name] = dict(ms=p2[f"{label}_ms"], plain_ms=plain_ms,
+                           max_abs_err=0.0, extractions=int(ext),
+                           ops_ms=ops / PEAK_FP32_INSTR * 1e3,
+                           bytes_ms=(x.numel() + 64) * 4 / PEAK_BYTES * 1e3)
+    # P3: every variant at cpi 1 and 12 on 2048 tiles
+    lm, rays = sweep_attrib.probe_inputs(sweep_attrib.TILES,
+                                         device=DEVICE)
+    for cpi, n_cols in ((1, 64), (12, 16)):
+        st, si = sweep_attrib.schedule(sweep_attrib.TILES, n_cols, cpi,
+                                       sweep_attrib.CLUSTERS, DEVICE)
+        for v in probes.VARIANTS:
+            got = probes.sweep_attrib(st, si, rays, lm, cpi, v)
+            ref = probes.sweep_attrib_plain(st, si, rays, lm.transpose(1, 2),
+                                            cpi, v)
+            ok = (same_bits(got, ref) and bool(torch.isfinite(ref).any())
+                  if v == "full" else bool(torch.isinf(got).all())
+                  and bool(torch.isinf(ref).all()))
+            if not ok:
+                raise PhaseError(f"sweep_attrib {v} at cpi {cpi} differs "
+                                 "from its plain version")
+    p3_vs_k2 = p3_against_k2(lm, rays)
+    # P3's line: the full variant at cpi 1 and the longer length; its
+    # operations are the branches the plain version counts on this data
+    cols = p3[1]["cols"][1]
+    st, si = sweep_attrib.schedule(sweep_attrib.TILES, cols, 1,
+                                   sweep_attrib.CLUSTERS, DEVICE)
+    _, plain_ms = timed(lambda: probes.sweep_attrib_plain(
+        st, si, rays, lm.transpose(1, 2), 1, "full"))
+    counts = {}
+    probes.sweep_attrib_plain(st, si, rays, lm.transpose(1, 2), 1, "full",
+                              counts=counts)
+    ops = (sum(P3_LANE_OPS[k] * counts[k] for k in P3_LANE_OPS)
+           + counts["columns"] * sweep_attrib.R * 4 * P3_COLUMN_OPS)
+    stats["sweep_attrib"] = dict(
+        ms=p3[1]["ms"]["full"][1], plain_ms=plain_ms, max_abs_err=0.0,
+        **{f"lane_{k}": v for k, v in counts.items()},
+        ops_per_lane=ops / counts["lanes"],
+        ops_ms=ops / PEAK_FP32_INSTR * 1e3,
+        bytes_ms=(st.numel() * 8 + rays.numel() * 4 + lm.numel() * 4
+                  + sweep_attrib.TILES * sweep_attrib.R * 4)
+        / PEAK_BYTES * 1e3)
+    for name, s in stats.items():
+        s["bound_ms"] = max(s["ops_ms"], s["bytes_ms"])
+        s["bound_by"] = ("operations" if s["ops_ms"] >= s["bytes_ms"]
+                         else "bytes")
+        s["launches"] = launches[name]
+        log("kernel_vs_plain", kernel=name, **s)
+    log("probes", drive_s=drive_s, seconds=time.perf_counter() - t0,
+        bf16_speedup=p1["bf16_speedup"],
+        gated_over_always=p2["gated_over_always"],
+        us_per_col_cpi1=p3[1]["full"], us_per_col_cpi12=p3[12]["full"],
+        p3_over_k2=p3_vs_k2)
+    return stats
+
+
+def p3_against_k2(lm, rays):
+    """K2 (sweep_closest) on P3's synthetic schedule at cpi 1, beside
+    P3's full variant: every lane a real triangle (id row 1, n_lanes K),
+    t_cap +inf, P3's t_min. K2's t + the column count must equal P3's
+    output bit for bit, and P3's cost a (tile, column), dt / dcols at the
+    driver's two lengths, must lie within P3_OVER_K2 of K2's: P3 measures
+    K2's column for pair_metrics. Returns P3's over K2's."""
+    import types
+
+    import torch
+
+    from pathtracer_torch.bench import harness, sweep_attrib
+    from pathtracer_torch.kernels import probes, sweep
+
+    tiles, k = sweep_attrib.TILES, sweep_attrib.K
+    lm2 = lm.clone()
+    lm2[:, :, 12] = 1.0
+    accel = types.SimpleNamespace(
+        blocks_lm=lm2, blocks_t=lm2.transpose(1, 2),
+        n_lanes=torch.full((lm.shape[0],), k, dtype=torch.int32,
+                           device=DEVICE))
+    cap = torch.full((tiles, sweep_attrib.R), torch.inf, device=DEVICE)
+    dt = {"p3": [], "k2": []}
+    for n_cols in sweep_attrib.COLS:
+        st, si = sweep_attrib.schedule(tiles, n_cols, 1,
+                                       sweep_attrib.CLUSTERS, DEVICE)
+        d3, p3 = harness.time_call(
+            lambda: probes.sweep_attrib(st, si, rays, lm, 1, "full"),
+            torch.device(DEVICE), 3, 3)
+        d2, k2 = harness.time_call(
+            lambda: sweep.sweep_closest(st, si, rays, cap, accel, 1e-3),
+            torch.device(DEVICE), 3, 3)
+        if not same_bits(p3[:, 0], k2[0] + float(n_cols)):
+            raise PhaseError(f"P3's full variant and K2 differ on P3's "
+                             f"schedule of {n_cols} columns")
+        dt["p3"].append(d3)
+        dt["k2"].append(d2)
+    a, b = sweep_attrib.COLS
+    per_col = {kk: (v[1] - v[0]) / ((b - a) * tiles) * 1e6
+               for kk, v in dt.items()}
+    ratio = per_col["p3"] / per_col["k2"]
+    log("probe_p3_vs_k2", cols=[a, b], tiles=tiles,
+        p3_ms=[v * 1e3 for v in dt["p3"]], k2_ms=[v * 1e3 for v in dt["k2"]],
+        p3_us_per_col=per_col["p3"], k2_us_per_col=per_col["k2"],
+        p3_over_k2=ratio, limits=P3_OVER_K2)
+    if not P3_OVER_K2[0] <= ratio <= P3_OVER_K2[1]:
+        raise PhaseError(f"P3's cost a column is {ratio:.3f}x K2's on the "
+                         f"same schedule (limits {P3_OVER_K2}): P3 no "
+                         "longer measures K2's column")
+    return ratio
+
+
+def phase_bench(scene, cfg, cam):
+    """python -m pathtracer_torch.bench in this process at the headline
+    (BENCH_SMOKE_FRAMES timed frames a leg), launch counts set to 0
+    just before and read just after: its JSON line on a log line, a
+    finite positive value, pair_metrics without error and with the rate
+    P3 measured on the card. Then pair_metrics' visited/needed counts on
+    a PAIR_CHECK_RAYS bounce-1 batch against the plain cull's on the same
+    batch, and K2's time on the entry's whole bounce-1 batch beside the
+    model's sweep_model_ms."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from pathtracer_torch import kernels
+    from pathtracer_torch.bench import __main__ as entry
+    from pathtracer_torch.bench import pair_metrics
+    from pathtracer_torch.kernels import cull, sweep
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, BENCH_FRAMES=str(BENCH_SMOKE_FRAMES))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    rec = entry.run(env)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    run_s = time.perf_counter() - t0
+    log("bench", line=rec, launches=launches, seconds=run_s)
+    pm = rec["detail"].get("pair_metrics", {})
+    if not (math.isfinite(rec["value"]) and rec["value"] > 0):
+        raise PhaseError(f"bench: value {rec['value']}")
+    if "error" in pm or not pm:
+        raise PhaseError(f"bench: pair_metrics failed: {pm}")
+    if pm.get("sweep_us_per_iter") is None:
+        raise PhaseError("bench: pair_metrics' rate was not measured on "
+                         "the card")
+    missing = [k for k in UNPRIMED_KERNELS + ("sweep_attrib",)
+               if launches[k] == 0]
+    if missing:
+        raise PhaseError(f"bench: the path launched no {missing}")
+
+    # counts on the card against the plain cull on the same batch
+    o2, d2 = pair_metrics.bounce1_batch(scene, cfg, cam, PAIR_CHECK_RAYS)
+    card = pair_metrics.schedule_stats(scene.clusters, o2, d2)
+    real = cull.tile_cull
+    cull.tile_cull = cull.tile_cull_plain
+    try:
+        plain = pair_metrics.schedule_stats(scene.clusters, o2, d2)
+    finally:
+        cull.tile_cull = real
+    same = all(np.array_equal(a, b) for a, b in zip(card, plain))
+    log("bench_counts_vs_plain_cull", rays=PAIR_CHECK_RAYS, equal=same,
+        visited=int(card[0].sum()), needed=int(card[1].sum()))
+    if not same:
+        raise PhaseError("bench: pair_metrics' counts differ between K1 "
+                         "and the plain cull")
+
+    # K2 on the entry's bounce-1 batch: its measured time beside the model
+    o2, d2 = pair_metrics.bounce1_batch(scene, cfg, cam)
+    real_k2 = sweep.sweep_closest
+    k2_ms = []
+
+    def timed_k2(*a, **kw):
+        out, ms = timed(lambda: real_k2(*a, **kw))
+        k2_ms.append(ms)
+        return out
+
+    sweep.sweep_closest = timed_k2
+    try:
+        vis = pair_metrics.schedule_stats(scene.clusters, o2, d2)[0]
+    finally:
+        sweep.sweep_closest = real_k2
+    model_ms = float(vis.sum()) * pm["sweep_us_per_iter"] * 1e-3
+    log("bench_model_vs_k2", sweep_model_ms=pm["sweep_model_ms"],
+        model_ms_here=model_ms, k2_ms=sum(k2_ms), k2_launches=len(k2_ms),
+        model_over_k2=model_ms / sum(k2_ms),
+        us_per_col=pm["sweep_us_per_iter"],
+        visited_cols=int(vis.sum()), seconds=time.perf_counter() - t0)
+    return rec, launches
 
 
 def envmap_scene(tmp_dir):
@@ -1881,9 +2215,11 @@ def main(argv=None):
             phase_device()
             scene, cfg, cam = headline_setup()
             stats = phase_kernels(scene, cfg, cam)
+            stats.update(phase_probes())
             phase_goldens(tmp_dir)
             base, skip, primed, r_b = phase_headline(scene, cfg, cam,
                                                      args.frames)
+            _, bench_launches = phase_bench(scene, cfg, cam)
             glb_res, lscene, glb = phase_assets(scene, cfg, cam,
                                                 args.frames, base, r_b,
                                                 tmp_dir)
@@ -1903,12 +2239,16 @@ def main(argv=None):
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     kern = []
+    runs = {"sweep_occluded_blocker": primed, "tile_cull_skip": skip,
+            "bvh_closest": config2, "bvh_occluded": config2}
     for name, (src, replaces) in KERNELS.items():
         s = stats[name]
-        launches = {"sweep_occluded_blocker": primed,
-                    "tile_cull_skip": skip, "bvh_closest": config2,
-                    "bvh_occluded": config2}.get(name,
-                                                 glb_res)["launches"][name]
+        if name == "sweep_attrib":     # on the bench's path (pair_metrics)
+            launches = bench_launches[name]
+        elif name in PROBE_KERNELS:    # on the probe drivers' path
+            launches = s["launches"]
+        else:
+            launches = runs.get(name, glb_res)["launches"][name]
         kern.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches,
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],

@@ -20,9 +20,9 @@
         --scene sponza-textured --width 1920 --height 1080 --out s.png
 
 --scene takes one procedural preset (cornell, cornell-spheres, materials,
-bunny, sponza, sponza-textured; --tris and --textured size sponza), or
-any number of .gltf/.glb/.obj files, each with an optional
-'@tx,ty,tz[,scale[,ry_deg]]' transform, composed into one scene.
+bunny, sponza, sponza-textured), or any number of .gltf/.glb/.obj files,
+each with an optional '@tx,ty,tz[,scale[,ry_deg]]' transform, composed
+into one scene.
 Renders progressively on --device (default cuda; it is an error when no
 CUDA device is present - the CPU runs only on --device cpu) and writes
 one JSON line per step (ms, Mrays/s, mean radiance) and a PNG, or with
@@ -57,17 +57,13 @@ from pathtracer_torch.scene.hdr import read_hdr
 from pathtracer_torch.scene.objload import load_obj
 from pathtracer_torch.utils import native
 
-DEFAULT_TRIS = 262_000
 _PRESETS = {
-    "cornell": lambda tris, tex: procedural.cornell_box(),
-    "cornell-spheres": lambda tris, tex: procedural.cornell_box(
-        spheres=True),
-    "materials": lambda tris, tex: procedural.cornell_box(
-        materials_suite=True),
-    "bunny": lambda tris, tex: procedural.bunny_like(),
-    "sponza": lambda tris, tex: procedural.sponza_like(tris, textured=tex),
-    "sponza-textured": lambda tris, tex: procedural.sponza_like(
-        tris, textured=True),
+    "cornell": lambda: procedural.cornell_box(),
+    "cornell-spheres": lambda: procedural.cornell_box(spheres=True),
+    "materials": lambda: procedural.cornell_box(materials_suite=True),
+    "bunny": lambda: procedural.bunny_like(),
+    "sponza": lambda: procedural.sponza_like(),
+    "sponza-textured": lambda: procedural.sponza_like(textured=True),
 }
 _CAMERAS = {
     "cornell": ((0.5, 0.5, 2.2), (0.5, 0.5, 0.0)),
@@ -100,15 +96,14 @@ def _parse_spec(spec: str):
     return path, m
 
 
-def load_scene(specs, tris: int = DEFAULT_TRIS,
-               textured: bool = False) -> SceneBuilder:
+def load_scene(specs) -> SceneBuilder:
     """SceneBuilder from ONE procedural preset name, or from any number of
     .gltf/.glb/.obj paths (each with an optional transform) composed into
-    one scene. tris and textured size the sponza preset."""
+    one scene."""
     if isinstance(specs, str):
         specs = [specs]
     if len(specs) == 1 and specs[0] in _PRESETS:
-        return _PRESETS[specs[0]](tris, textured)
+        return _PRESETS[specs[0]]()
 
     builder = SceneBuilder()
     for spec in specs:
@@ -152,11 +147,6 @@ def main(argv=None):
                          "with an optional '@tx,ty,tz[,scale[,ry_deg]]' "
                          "transform; repeat to compose several files "
                          "(default cornell)")
-    ap.add_argument("--tris", type=int, default=DEFAULT_TRIS,
-                    help="sponza target triangle count")
-    ap.add_argument("--textured", action="store_true",
-                    help="sponza with the procedural texture set (the "
-                         "sponza-textured preset)")
     ap.add_argument("--width", type=int, default=512)
     ap.add_argument("--height", type=int, default=512)
     ap.add_argument("--spp", type=int, default=4)
@@ -310,7 +300,7 @@ def _render(args, device, mesh):
     lead = mesh is None or mesh.rank == 0      # rank 0 prints and writes
     say = lead and not args.quiet
     specs = args.scene or ["cornell"]
-    builder = load_scene(specs, args.tris, args.textured)
+    builder = load_scene(specs)
     if args.envmap:
         builder.set_envmap(load_envmap(args.envmap))
     if args.frame_batch == "auto":

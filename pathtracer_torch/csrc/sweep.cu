@@ -79,32 +79,19 @@
 #include <math.h>
 #include <stdint.h>
 
+// kParts, kNone, the copies, the lane test's parts and K2's column body
+// (candidate slabs, merge, lane tests), shared with P3 in csrc/probes.cu
+#include "sweep_column.cuh"
+
 namespace {
-
-constexpr float kDetEps = 1e-12f;
-constexpr int kParts = 4;              // threads a ray (lane parts)
-constexpr int kMaxThreads = 256;       // R * kParts, so R <= 64
-constexpr int kNone = 0x7fffffff;      // candidate lane of "no hit"
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
 
 // Stage the first n lane rows of cluster cid (n x 64 B) into ring slot
 // dst: 16-byte cp.async by every thread, committed as one group.
 __device__ __forceinline__ void stage(float4* dst,
                                       const float4* __restrict__ lm, int k,
                                       int cid, int n) {
-  const float4* src = lm + (size_t)cid * k * 4;
-  const uint32_t base = (uint32_t)__cvta_generic_to_shared(dst);
-  for (int i = threadIdx.x; i < 4 * n; i += blockDim.x)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     base + 16u * (uint32_t)i),
-                 "l"(src + i)
-                 : "memory");
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  copy16(dst, lm + (size_t)cid * k * 4, 4 * n);
+  commit();
 }
 
 // The tile's schedule walk: column j's cluster (n_cur real lanes) lies in
@@ -138,9 +125,7 @@ struct Walk {
     if (cs > 2) c_after = si[2];
   }
   // wait for this thread's copies of column j; a barrier must follow
-  __device__ __forceinline__ void ready() const {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  }
+  __device__ __forceinline__ void ready() const { wait_copies(); }
   __device__ __forceinline__ const float4* rows(int j) const {
     return ring + (j & 1) * 4 * k;
   }
@@ -161,37 +146,7 @@ struct Walk {
   }
 };
 
-// The plane part of the Baldwin-Weber test of lane row a = (n, d):
-// denom = dir.n and the numerator of t, d - o.n.
-__device__ __forceinline__ float dot_n(float x, float y, float z,
-                                       const float4 a) {
-  return x * a.x + y * a.y + z * a.z;
-}
-
-// u and v of the hit point o + t dir from rows b = (r1, c1), c = (r2, c2)
-__device__ __forceinline__ bool inside(const float4 b, const float4 c,
-                                       float ox, float oy, float oz,
-                                       float dx, float dy, float dz, float t,
-                                       float& u, float& v) {
-  const float hx = ox + t * dx;
-  const float hy = oy + t * dy;
-  const float hz = oz + t * dz;
-  u = b.x * hx + b.y * hy + b.z * hz + b.w;
-  v = c.x * hx + c.y * hy + c.z * hz + c.w;
-  return u >= 0.0f && v >= 0.0f && u + v <= 1.0f;
-}
-
-// Thread layout of both kernels: blockDim = R * kParts; thread i tests
-// ray r = i % R with part p = i / R, i.e. lanes p, p + kParts, ... of
-// each column. R is a multiple of 32, so a warp holds one part of 32
-// rays and every lane row it reads is a broadcast.
-//
-// Candidates of a column (shared, two slabs by column parity, each
-// [kParts][R]): a part's first minimum among its lanes that hit with
-// t < the ray's best t, seeded with the best t and lane kNone. After the
-// barrier every thread of a ray merges the kParts candidates in the same
-// order - smaller t wins, the lower lane on a tie - which is the first
-// minimum over the column in lane order.
+// Thread layout and candidates: see sweep_column.cuh.
 
 __global__ void __launch_bounds__(kMaxThreads)
     sweep_closest_kernel(const float* __restrict__ st,
@@ -207,12 +162,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int nr = blockDim.x / kParts;
   const int r = threadIdx.x % nr, p = threadIdx.x / nr;
   const int lane = threadIdx.x & 31;
-  const int slab = kParts * nr, me = p * nr + r;
-  float* ct = reinterpret_cast<float*>(sh + 8 * k);   // [2][kParts][R]
-  int* cl = reinterpret_cast<int*>(ct + 2 * slab);
-  int* ctri = cl + 2 * slab;
-  float* cu = reinterpret_cast<float*>(ctri + 2 * slab);
-  float* cv = cu + 2 * slab;
+  const int me = p * nr + r;
+  const Cands c(sh + 8 * k, nr);   // after the ring's two slots
   const size_t tile = blockIdx.x;
   const float* ray = rays + tile * 6 * nr;
   const float ox = ray[r], oy = ray[nr + r], oz = ray[2 * nr + r];
@@ -221,80 +172,20 @@ __global__ void __launch_bounds__(kMaxThreads)
   float best_t = t_cap[tile * nr + r];
   int best_tri = -1;
   float best_u = 0.0f, best_v = 0.0f;
-  ct[slab + me] = best_t;   // column -1: no candidate
-  cl[slab + me] = kNone;
+  seed_closest(c, me, best_t);
   Walk w{st + tile * cs, si + tile * cs, lm, n_lanes, sh, cs, k};
   w.begin();
   for (int j = 0;; ++j) {
     w.ready();
     __syncthreads();
     // merge column j-1's candidates: this ray's, then the tile's maximum
-    const int prev = ((j + 1) & 1) * slab;
-    float tq[kParts];
-    int lq[kParts];
-#pragma unroll
-    for (int q = 0; q < kParts; ++q) {
-      tq[q] = ct[prev + q * nr + r];
-      lq[q] = cl[prev + q * nr + r];
-    }
-    float wt = tq[0];
-    int wl = lq[0], wq = 0;
-#pragma unroll
-    for (int q = 1; q < kParts; ++q)
-      if (tq[q] < wt || (tq[q] == wt && lq[q] < wl)) {
-        wt = tq[q];
-        wl = lq[q];
-        wq = q;
-      }
-    if (wl != kNone) {
-      const int i = prev + wq * nr + r;
-      best_t = wt;
-      best_tri = ctri[i];
-      best_u = cu[i];
-      best_v = cv[i];
-    }
-    float m = -INFINITY;
-    for (int rr = lane; rr < nr; rr += 32) {
-      float t = ct[prev + rr];
-      for (int q = 1; q < kParts; ++q) t = fminf(t, ct[prev + q * nr + rr]);
-      m = fmaxf(m, t);
-    }
-    const float tile_max = warp_max(m);   // the same in every warp
+    const float tile_max =
+        merge_closest(c, ((j + 1) & 1) * c.slab, nr, r, lane, best_t,
+                      best_tri, best_u, best_v);
     if (j == cs || !(w.st_cur < tile_max)) break;
     w.next(j);
-    const float4* rows = w.rows(j);
-    float c_t = best_t, c_u = 0.0f, c_v = 0.0f;
-    int c_l = kNone, c_tri = 0;
-    if (best_t > t_min) {   // else no t with t_min < t < best_t
-      for (int l = p; l < w.n_cur; l += kParts) {
-        const float4 a = rows[4 * l];
-        const float denom = dot_n(dx, dy, dz, a);
-        const float num = a.w - dot_n(ox, oy, oz, a);
-        // t > t_min >= 0 needs |denom| > eps and num of denom's sign
-        if (!(fabsf(denom) > kDetEps &&
-              (denom > 0.0f ? num > 0.0f : num < 0.0f)))
-          continue;
-        const float t = num * (1.0f / denom);
-        if (!(t > t_min && t < c_t)) continue;
-        float u, v;
-        if (!inside(rows[4 * l + 1], rows[4 * l + 2], ox, oy, oz, dx, dy,
-                    dz, t, u, v))
-          continue;
-        const int id = (int)rintf(rows[4 * l + 3].x) - 1;
-        if (id < 0) continue;
-        c_t = t;
-        c_l = l;
-        c_tri = id;
-        c_u = u;
-        c_v = v;
-      }
-    }
-    const int cur = (j & 1) * slab + me;
-    ct[cur] = c_t;
-    cl[cur] = c_l;
-    ctri[cur] = c_tri;
-    cu[cur] = c_u;
-    cv[cur] = c_v;
+    test_closest<true>(w.rows(j), w.n_cur, p, ox, oy, oz, dx, dy, dz, t_min,
+                       best_t, c, (j & 1) * c.slab + me);
     w.shift();
   }
   if (p == 0) {
@@ -420,9 +311,9 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 // ring (2 slots of K lane rows) + candidate slabs (2 x kParts x R words)
 size_t shmem_bytes(int kind, int tile_rays, int k) {
-  const int words = kind == 0 ? 5 : 4;
   return 2 * (size_t)k * 16 * sizeof(float) +
-         2 * (size_t)kParts * tile_rays * words * sizeof(float);
+         (kind == 0 ? cands_bytes(tile_rays)
+                    : 2 * (size_t)kParts * tile_rays * 4 * sizeof(float));
 }
 
 const void* kernel_of(int kind) {

@@ -16,6 +16,7 @@ Nothing here is imported or built when a module is imported.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -44,10 +45,13 @@ def nvcc_path() -> str:
 
 
 def build(name: str) -> str:
-    """Compile csrc/<name>.cu if the library is missing or stale."""
+    """Compile csrc/<name>.cu if the library is missing or older than the
+    source or a header of csrc/ (csrc/*.cuh)."""
     src = os.path.join(CSRC, f"{name}.cu")
     so = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+    deps = [src] + glob.glob(os.path.join(CSRC, "*.cuh"))
+    if os.path.exists(so) and os.path.getmtime(so) >= max(
+            os.path.getmtime(d) for d in deps):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"

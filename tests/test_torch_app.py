@@ -9,6 +9,7 @@ the interactive loop, --orbit and --quiet run on the CPU.
 """
 
 import dataclasses
+import inspect
 import io
 import os
 import sys
@@ -179,6 +180,24 @@ def test_preset_cannot_compose(tmp_path):
         tapp.load_scene(["cornell", obj])
     with pytest.raises(SystemExit, match="unknown scene"):
         tapp.load_scene([obj, str(tmp_path / "x.ply")])
+
+
+@pytest.mark.parametrize("flag", [["--tris", "1000"], ["--textured"]])
+def test_port_only_sponza_knobs_are_rejected(flag, capsys):
+    """--tris and --textured were the port's alone: both CLIs now reject
+    them as unrecognized arguments (the sponza-textured preset is the
+    textured scene), and load_scene and the presets take JAX's
+    arguments."""
+    for mod in (japp, tapp):
+        with pytest.raises(SystemExit) as e:
+            mod.main(["--scene", "sponza", *flag])
+        assert e.value.code == 2
+        assert "unrecognized arguments" in capsys.readouterr().err
+    assert list(inspect.signature(tapp.load_scene).parameters) == \
+        list(inspect.signature(japp.load_scene).parameters)
+    assert set(tapp._PRESETS) == set(japp._PRESETS)
+    assert all(not inspect.signature(f).parameters
+               for f in tapp._PRESETS.values())
 
 
 def test_sky_envmap_requires_envmap(tmp_path):

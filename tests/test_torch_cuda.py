@@ -768,3 +768,112 @@ def test_app_composes_glb_and_obj_on_cuda(dev, tmp_path, capsys):
     assert [r["frame"] for r in lines] == [1, 2]
     assert all(r["device"].startswith("cuda") and r["mean_radiance"] > 0
                and r["mrays_per_sec"] > 0 for r in lines)
+
+
+# --- P1-P3 probe kernels (csrc/probes.cu) ---------------------------------
+
+def chain_case(dtype, seed=0):
+    """[64, 1024] inputs: the probe's range, and two rows of the kinds
+    that round specially (+-0, f32 and bf16 subnormals, the smallest
+    normals, x equal to y), all in [-1, 1], where the chain stays finite
+    (its domain: fminf and torch.minimum differ on NaN)."""
+    from pathtracer_torch.bench.bf16_probe import probe_inputs
+
+    x, y = probe_inputs("cpu", 64, seed)
+    tiny = torch.finfo(torch.bfloat16).tiny
+    row = torch.tensor([0.0, -0.0, tiny, -tiny, tiny / 8, -tiny / 64,
+                        1e-40, 1e-45, 1.0, -1.0, 0.5, -0.5])
+    x[0, :12] = row
+    y[0, :12] = row.flip(0)
+    y[1, :12] = row
+    x[1, :12] = row
+    return x.to(dtype), y.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("steps", [1, 2, 9, 4096])
+def test_chain_kernel_matches_plain(dev, dtype, steps):
+    from pathtracer_torch.kernels import probes
+
+    x, y = chain_case(dtype)
+    x, y = x.to(dev), y.to(dev)
+    name = "chain_f32" if dtype == torch.float32 else "chain_bf16"
+    before = kernels.LAUNCHES[name]
+    got = probes.chain(x, y, steps)
+    assert kernels.LAUNCHES[name] == before + 1
+    ref = probes.chain_plain(x, y, steps)
+    assert got.dtype == dtype
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32),
+                       ref.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32))
+
+
+def cond_case(kind, dev):
+    from pathtracer_torch.bench.cond_probe import probe_input
+
+    if kind == "probe":
+        return probe_input(dev)
+    rng = np.random.default_rng(7)
+    x = rng.integers(0, 3, (1, 64, 512)).astype(np.float32)  # many ties
+    if kind == "steps":
+        x = x * 7.0 - 150.0 * np.arange(64)[None, :, None]
+        x[0, 1::2] += 1e4
+        x[0, 3::4] -= 1e4 - 150.0
+    return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("gate", [False, True])
+@pytest.mark.parametrize("kind", ["probe", "ties", "steps"])
+@pytest.mark.parametrize("n_iter", [1, 256])
+def test_cond_walk_kernel_matches_plain(dev, gate, kind, n_iter):
+    from pathtracer_torch.kernels import probes
+
+    x = cond_case(kind, dev)
+    got = probes.cond_walk(x, n_iter, gate, grid=4)
+    ref = probes.cond_walk_plain(x, n_iter, gate)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("variant", ["empty", "nodma", "noalu", "dma1",
+                                     "full"])
+@pytest.mark.parametrize("cpi,n_cols", [(1, 1), (1, 5), (12, 1), (12, 3)])
+def test_sweep_attrib_kernel_matches_plain(dev, variant, cpi, n_cols):
+    from pathtracer_torch.bench import sweep_attrib
+    from pathtracer_torch.kernels import probes
+
+    tiles, c = 16, 512
+    lm, rays = sweep_attrib.probe_inputs(tiles, c, dev)
+    st, si = sweep_attrib.schedule(tiles, n_cols, cpi, c, dev)
+    before = kernels.LAUNCHES["sweep_attrib"]
+    got = probes.sweep_attrib(st, si, rays, lm, cpi, variant)
+    assert kernels.LAUNCHES["sweep_attrib"] == before + 1
+    ref = probes.sweep_attrib_plain(st, si, rays, lm.transpose(1, 2), cpi,
+                                    variant)
+    if variant != "full":
+        assert bool(torch.isinf(got).all()) and bool(torch.isinf(ref).all())
+        return
+    assert torch.equal(torch.isfinite(got), torch.isfinite(ref))
+    assert bool(torch.isfinite(ref).any())
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def test_probe_wrappers_check_their_inputs(dev):
+    from pathtracer_torch.bench import sweep_attrib
+    from pathtracer_torch.kernels import probes
+
+    lm, rays = sweep_attrib.probe_inputs(2, 64, dev)
+    st, si = sweep_attrib.schedule(2, 1, 14, 64, dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        probes.sweep_attrib(st, si, rays, lm, 14, "full")
+    st, si = sweep_attrib.schedule(2, 1, 1, 64, dev)
+    with pytest.raises(ValueError, match="dma1"):
+        probes.sweep_attrib(st, si, rays, lm, 1, "dma1")
+    with pytest.raises(ValueError, match="int32"):
+        probes.sweep_attrib(st, si.long(), rays, lm, 1, "full")
+    x = torch.zeros((1, 64, 511), device=dev)
+    with pytest.raises(ValueError, match="cond_walk"):
+        probes.cond_walk(x)
+    with pytest.raises(ValueError, match="even"):
+        probes.chain(torch.zeros(3, dtype=torch.bfloat16, device=dev),
+                     torch.zeros(3, dtype=torch.bfloat16, device=dev))
