@@ -25,7 +25,10 @@ Drives pathtracer_torch's paths on the card and checks them:
    share of bound; per sweep kernel the lane tests its data needs, those
    a kernel testing every lane of every visited column runs, and those
    the kernel runs (from the plain versions' column walk), with its
-   registers and occupancy;
+   registers and occupancy; K7 (the frustum cull) and K8 (the first
+   cluster of the firstcluster key) bit-exact against their plain
+   versions on the chunks and calls of a headline frame traced with
+   cull="frustum" and firstcluster keys for both call kinds;
    probes: P1-P3 (kernels/probes.py, the JAX package's TPU probes)
    through their drivers (bench/bf16_probe, cond_probe, sweep_attrib at
    cpi 1 and 12) with the launch counts set to 0 just before and read
@@ -46,6 +49,17 @@ Drives pathtracer_torch's paths on the card and checks them:
    each through Renderer, launch counts reset just before and read just
    after each run; the primed film must pass the gate against the
    unprimed one with the same ray counts;
+   variants: the headline once per default-off alternative of the
+   cluster route (VARIANTS: the median/morton accel split, the sah,
+   sahleaf and sahdeep builds, the mixed and firstcluster keys (K8),
+   cull="frustum" (K7), wavefront_sort, PT_SCHED_PACK=1,
+   PT_FETCH_GROUP=2, PT_SORT_SCOPE=chunk, PT_TILE_RAYS=32 and
+   skip_nee), one warm-up and one timed frame each, against the default
+   route's run of the same frames: rays within 1e-5 and the film within
+   the gate (skip_nee: fewer rays, a finite display), and config 5's
+   64x64 golden under the same knobs (skip_nee: finite); ms/frame,
+   Mrays/s, the ratio to the default, build seconds, peak memory and
+   K7/K8 launches per variant;
    bench: python -m pathtracer_torch.bench in this process at the
    headline with BENCH_FRAMES=2 (its default 8 cut to keep the phase
    near 30 s; 4 warm-up frames a leg, the textured and the interleaved
@@ -118,6 +132,7 @@ any phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -156,6 +171,12 @@ KERNELS = {
                                "(want_blocker=True)"),
     "tile_cull_skip": ("pathtracer_torch/csrc/cull.cu",
                        "pathtracer/kernels/pallas_cull.py:66"),
+    # XLA code in the JAX package, not Pallas: the default-off frustum
+    # cull (cull="frustum") and the firstcluster key's nearest cluster
+    "frustum_cull": ("pathtracer_torch/csrc/cull.cu",
+                     "pathtracer/kernels/packet.py:418"),
+    "first_cluster": ("pathtracer_torch/csrc/cull.cu",
+                      "pathtracer/kernels/packet.py:171"),
     # XLA code in the JAX package (lax.while_loop), not Pallas
     "bvh_closest": ("pathtracer_torch/csrc/traverse.cu",
                     "pathtracer/kernels/traverse.py:140"),
@@ -173,8 +194,11 @@ KERNELS = {
     "sweep_attrib": ("pathtracer_torch/csrc/probes.cu",
                      "benchmarks/sweep_attrib.py:56"),
 }
+KERNEL_IDS = {"tile_cull": "K1", "frustum_cull": "K7",
+              "first_cluster": "K8"}
 CLUSTER_KERNELS = ("tile_cull", "tile_cull_skip", "sweep_closest",
-                   "sweep_occluded", "sweep_occluded_blocker")
+                   "sweep_occluded", "sweep_occluded_blocker",
+                   "frustum_cull", "first_cluster")
 BVH_KERNELS = ("bvh_closest", "bvh_occluded")
 UNPRIMED_KERNELS = ("tile_cull", "sweep_closest", "sweep_occluded")
 PRIMED_KERNELS = UNPRIMED_KERNELS + ("sweep_occluded_blocker",)
@@ -192,6 +216,16 @@ JAX_SKIP = {128: {"primary": 0.870, "shadow0": 0.821, "bounce1": 0.680},
 PEAK_FP32_INSTR, PEAK_BYTES = 67e12 / 2, 3.35e12
 # FP32 instructions per pair, counted off csrc/*.cu (a division as one):
 CULL_OPS = 28   # (ray, cluster): 6 sub, 6 mul, 10 min/max, 3 tests, 3
+# K7 a (tile, cluster): per axis 4 sub, 8 mul, 12 min/max for the interval
+# products and 2 for near/far (26 x 3), then 3 tests, the clamp and the
+# select; its per-tile reduction 13 min/max a ray. K8 a (ray, cluster): 6
+# sub, 6 mul, 10 min/max, the clamp, 2 tests, the select, the compare
+# with the best and 2 selects
+FRUSTUM_OPS, FRUSTUM_RAY_OPS, FIRST_OPS = 83, 13, 29
+# the firstcluster keys of both call kinds (K8) and the frustum cull (K7)
+# of the kernel phase's variant capture
+VARIANT_CAPTURE_ENV = {"PT_KEY_SCHEME": "firstcluster",
+                       "PT_KEY_SCHEME_OCCL": "firstcluster"}
 BW_OPS = {"sweep_closest": 38,             # (ray, triangle): bw_lane
           "sweep_occluded": 40,            # + denom < 0, t < t_max
           "sweep_occluded_blocker": 40}
@@ -300,16 +334,61 @@ def headline_setup():
     return scene, cfg, camera(SPONZA_CAM)
 
 
-def capture_chunks(scene, cfg, cam, frame_idx=0, prime=None):
+@contextlib.contextmanager
+def knob_env(env):
+    """Set environment variables for the duration of a block."""
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def cull_route(kind):
+    """Every cluster-route intersector made in the block passes
+    cull=kind to its traversal calls (the packet layer's cull= choice;
+    "ray" leaves them as they are)."""
+    from pathtracer_torch import render
+
+    real = render.make_intersectors
+
+    def make_intersectors(scene, cfg):
+        fns = real(scene, cfg)
+        if kind == "ray" or cfg.intersector != "cluster" \
+                or scene.n_tris <= 256:
+            return fns
+        fi, fo, fh = fns
+        return (lambda *a, **kw: fi(*a, cull=kind, **kw),
+                lambda *a, **kw: fo(*a, cull=kind, **kw), fh)
+
+    render.make_intersectors = make_intersectors
+    try:
+        yield
+    finally:
+        render.make_intersectors = real
+
+
+def capture_chunks(scene, cfg, cam, frame_idx=0, prime=None, env=None,
+                   cull_kind="ray"):
     """Kernel arguments of one frame's primary, bounce-0 shadow and
     bounce-1 batches, recorded inside packet.py's chunk bodies while
     render_frame_with_stats renders the frame: every CHUNK_STRIDE-th
-    chunk of each batch, at most CMP_CHUNKS of them.
+    chunk of each batch, at most CMP_CHUNKS of them, and each batch's
+    first K8 call (the firstcluster key of a sorted batch). env: knobs
+    set for the frame; cull_kind: the traversal calls' cull=.
     """
     from pathtracer_torch import render
     from pathtracer_torch.kernels import cull, sweep
 
-    real = {"tile_cull": cull.tile_cull, "sweep_closest": sweep.sweep_closest,
+    real = {"tile_cull": cull.tile_cull, "frustum_cull": cull.frustum_cull,
+            "first_cluster": cull.first_cluster,
+            "sweep_closest": sweep.sweep_closest,
             "sweep_occluded": sweep.sweep_occluded,
             "make_intersectors": render.make_intersectors}
     batches, cur = [], {"batch": None, "keep": False}
@@ -318,16 +397,24 @@ def capture_chunks(scene, cfg, cam, frame_idx=0, prime=None):
         return tuple(a.clone() if i in per_chunk else a
                      for i, a in enumerate(args))
 
-    def rec_cull(*a, **kw):
+    def rec_cull(name):
+        def call(*a, **kw):
+            b = cur["batch"]
+            cur["keep"] = False
+            if b is not None:
+                b["chunks"] += 1
+                cur["keep"] = ((b["chunks"] - 1) % CHUNK_STRIDE == 0
+                               and len(b[name]) < CMP_CHUNKS)
+                if cur["keep"]:
+                    b[name].append((copies(a, (2, 3, 4)), dict(kw)))
+            return real[name](*a, **kw)
+        return call
+
+    def rec_first(*a):
         b = cur["batch"]
-        cur["keep"] = False
-        if b is not None:
-            b["chunks"] += 1
-            cur["keep"] = ((b["chunks"] - 1) % CHUNK_STRIDE == 0
-                           and len(b["tile_cull"]) < CMP_CHUNKS)
-            if cur["keep"]:
-                b["tile_cull"].append((copies(a, (2, 3, 4)), dict(kw)))
-        return real["tile_cull"](*a, **kw)
+        if b is not None and not b["first_cluster"]:
+            b["first_cluster"].append((copies(a, (2, 3)), {}))
+        return real["first_cluster"](*a)
 
     def rec_sweep(name):
         def call(*a, **kw):
@@ -353,16 +440,21 @@ def capture_chunks(scene, cfg, cam, frame_idx=0, prime=None):
             scene, cfg)
         return traversal(intersect_fn), traversal(occluded_fn), hint_fn
 
-    cull.tile_cull = rec_cull
+    cull.tile_cull = rec_cull("tile_cull")
+    cull.frustum_cull = rec_cull("frustum_cull")
+    cull.first_cluster = rec_first
     sweep.sweep_closest = rec_sweep("sweep_closest")
     sweep.sweep_occluded = rec_sweep("sweep_occluded")
     render.make_intersectors = make_intersectors
     try:
-        render.render_frame_with_stats(scene, cfg,
-                                       cam.state(device=DEVICE), frame_idx,
-                                       prime=prime)
+        with knob_env(env), cull_route(cull_kind):
+            render.render_frame_with_stats(scene, cfg,
+                                           cam.state(device=DEVICE),
+                                           frame_idx, prime=prime)
     finally:
         cull.tile_cull = real["tile_cull"]
+        cull.frustum_cull = real["frustum_cull"]
+        cull.first_cluster = real["first_cluster"]
         sweep.sweep_closest = real["sweep_closest"]
         sweep.sweep_occluded = real["sweep_occluded"]
         render.make_intersectors = real["make_intersectors"]
@@ -387,15 +479,36 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
-def bound_ms(name, args, pair_tests):
+def bound_ms(name, args, pair_tests, tile_rays=64):
     """Least time of one call on the card, as (operations ms, bytes ms):
     its FP32 instructions over PEAK_FP32_INSTR and its bytes (each input
     read once, each output written once) over PEAK_BYTES; the bound is
     the larger. Operations count what this call's data needs: K1 the
     (ray, cluster) pairs of unparked rays and real clusters; the sweeps
     the (ray, triangle) tests their plain versions count (pair_tests:
-    live rays, real lanes, K3 up to the first blocking lane)."""
+    live rays, real lanes, K3 up to the first blocking lane); K7 the
+    (tile, cluster) pairs of tiles with an unparked ray and real
+    clusters, with each tile's reduction; K8 every unparked ray against
+    every cluster (its minimum needs every box)."""
     nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa
+    if name == "frustum_cull":
+        # every tile with an unparked ray against every real cluster,
+        # and each tile's reduction over its rays
+        lo, hi, o, inv_d, t_max = args
+        tiles = t_max.numel() // tile_rays
+        live = int((o[:, 0] < 1e29).reshape(tiles, tile_rays).any(1).sum())
+        pairs = live * int((lo[:, 0] < 1e29).sum())
+        ops = pairs * FRUSTUM_OPS + t_max.numel() * FRUSTUM_RAY_OPS
+        moved = nbytes(lo, hi, o, inv_d, t_max) + tiles * lo.shape[0] * 4
+        return ops / PEAK_FP32_INSTR * 1e3, moved / PEAK_BYTES * 1e3, pairs
+    if name == "first_cluster":
+        # every unparked ray against every cluster: the kernel walks them
+        # all (a pad box's test is as long as a real one's)
+        lo, hi, o, inv_d = args
+        pairs = int((o[:, 0] < 1e29).sum()) * lo.shape[0]
+        ops = pairs * FIRST_OPS
+        moved = nbytes(lo, hi, o, inv_d) + o.shape[0] * 8
+        return ops / PEAK_FP32_INSTR * 1e3, moved / PEAK_BYTES * 1e3, pairs
     if name in ("tile_cull", "tile_cull_skip"):
         lo, hi, o, inv_d, t_max = args
         tiles = t_max.numel() // 64
@@ -439,6 +552,10 @@ def phase_kernels(scene, cfg, cam):
     def run_plain(name, args, kw, pair_tests):
         if name == "tile_cull":
             return cull.tile_cull_plain(*args, **kw)
+        if name == "frustum_cull":
+            return cull.frustum_cull_plain(*args, **kw)
+        if name == "first_cluster":
+            return cull.first_cluster_plain(*args)
         if name == "sweep_closest":
             return sweep.sweep_closest_plain(*plain_args(args),
                                              pair_tests=pair_tests)
@@ -462,8 +579,10 @@ def phase_kernels(scene, cfg, cam):
         return int(cols.sum()), int(tests)
 
     def run_kernel(name, args, kw):
-        if name == "tile_cull":
-            return cull.tile_cull(*args, **kw)
+        if name in ("tile_cull", "frustum_cull"):
+            return getattr(cull, name)(*args, **kw)
+        if name == "first_cluster":
+            return cull.first_cluster(*args)
         return getattr(sweep, name.replace("_blocker", ""))(*args, **kw)
 
     bw_rows = scene.clusters.bw_rows
@@ -496,10 +615,11 @@ def phase_kernels(scene, cfg, cam):
                                  "re-verify")
         return int(sel.sum()), int(edge.sum())
 
-    def record_stats(s, name, args, ms, ms_p, pair_tests, err):
+    def record_stats(s, name, args, ms, ms_p, pair_tests, err,
+                     tile_rays=64):
         s["ms"].append(ms)
         s["plain_ms"].append(ms_p)
-        ops_ms, bytes_ms, pairs = bound_ms(name, args, pair_tests)
+        ops_ms, bytes_ms, pairs = bound_ms(name, args, pair_tests, tile_rays)
         s["pairs"].append(pairs)
         s["ops_ms"].append(ops_ms)
         s["bytes_ms"].append(bytes_ms)
@@ -597,13 +717,24 @@ def phase_kernels(scene, cfg, cam):
             cull_chunks.append((label, args, kw, ms))
         pair_tests = torch.zeros((), dtype=torch.int64, device=DEVICE)
         ref, ms_p = timed(lambda: run_plain(name, args, kw, pair_tests))
-        if name == "tile_cull":
+        if name in ("tile_cull", "frustum_cull"):
             if not torch.equal(out, ref):
                 bad = int((out != ref).sum())
-                raise PhaseError(f"K1 {label}: {bad} entries differ")
+                raise PhaseError(f"{KERNEL_IDS[name]} {label}: {bad} "
+                                 "entries differ")
             fin = torch.isfinite(out)
             err = float((out[fin] - ref[fin]).abs().max()) \
                 if bool(fin.any()) else 0.0
+        elif name == "first_cluster":
+            for x, y, nm in zip(out, ref, ("id", "t")):
+                if not torch.equal(x, y):
+                    raise PhaseError(f"K8 {label}: {nm} differs on "
+                                     f"{int((x != y).sum())} rays")
+            err = 0.0
+            log("k8_call", batch=label, rays=out[0].numel(),
+                unparked=int((args[2][:, 0] < 1e29).sum()),
+                clusters=args[0].shape[0],
+                entered=int(torch.isfinite(out[1]).sum()))
         elif name == "sweep_closest":
             if not torch.equal(out[1], ref[1]):
                 bad = int((out[1] != ref[1]).sum())
@@ -635,8 +766,9 @@ def phase_kernels(scene, cfg, cam):
                 hints_on_edges=edge)
             err = 0.0
         if record:
-            record_stats(stats[name], name, args, ms, ms_p, pair_tests, err)
-            if name != "tile_cull":
+            record_stats(stats[name], name, args, ms, ms_p, pair_tests, err,
+                         kw.get("tile_rays", 64))
+            if name.startswith("sweep"):
                 stats[name]["walk"].append(walk_counts(name, args, kw))
                 stats[name]["shape"] = (args[2].shape[2],
                                         args[4].tris_per_cluster)
@@ -664,6 +796,17 @@ def phase_kernels(scene, cfg, cam):
             compare("sweep_occluded_blocker", label, args, kw)
         log("kernels_batch", batch=label, chunks=b["chunks"],
             compared=len(b["tile_cull"]))
+    # K7 and K8 on the chunks and calls of a frame traced with the
+    # frustum cull and the firstcluster keys of both call kinds
+    for b in capture_chunks(scene, cfg, cam, env=VARIANT_CAPTURE_ENV,
+                            cull_kind="frustum"):
+        label = "variant_" + b["label"]
+        for name in ("frustum_cull", "first_cluster"):
+            for args, kw in b[name]:
+                compare(name, label, args, kw)
+        log("kernels_batch", batch=label, chunks=b["chunks"],
+            compared=len(b["frustum_cull"]),
+            first_cluster_calls=len(b["first_cluster"]))
     # K4 on every replayed K1 chunk (unprimed primary, shadow0, bounce1;
     # primed primary), at each block width
     for label, args, kw, k1_ms in cull_chunks:
@@ -1132,9 +1275,7 @@ def drive(label, scene, cfg, cam, frames, need, env=None, mesh=None):
     from pathtracer_torch import kernels
     from pathtracer_torch.render import Renderer
 
-    saved = {k: os.environ.get(k) for k in (env or {})}
-    os.environ.update(env or {})
-    try:
+    with knob_env(env):
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -1151,12 +1292,6 @@ def drive(label, scene, cfg, cam, frames, need, env=None, mesh=None):
             times.append(time.perf_counter() - t0)
             rays.append(int(r.last_rays))
         counts = dict(kernels.LAUNCHES)
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     f = cfg.frame_batch
     img = r.film.accum
     res = dict(mesh=list(mesh.shape) if mesh else None,
@@ -1214,6 +1349,216 @@ def phase_headline(scene, cfg, cam, frames):
                         frames, PRIMED_KERNELS)
     same_render("priming_ab", primed, r_p, base, r_b)
     return base, skip, primed, r_b
+
+
+# the variants phase: the cluster route's default-off alternatives, each
+# held hit for hit to the default route on its first three calls, then a
+# headline run (one warm-up and VARIANT_FRAMES timed frames) beside the
+# default route's run of the same frames, and config 5's 64x64 golden
+# under the same knobs. (label, environment, RenderConfig fields, cull=)
+VARIANT_FRAMES = 1
+VARIANT_RAY_TOL = 1e-5
+VARIANTS = [
+    ("split_median_morton", {"PT_FINE_METHOD": "median",
+                             "PT_COARSE_METHOD": "morton"}, {}, "ray"),
+    ("build_sah", {"PT_FINE_METHOD": "sah", "PT_COARSE_METHOD": "sah"}, {},
+     "ray"),
+    ("build_sahleaf", {"PT_FINE_METHOD": "sahleaf",
+                       "PT_COARSE_METHOD": "sahleaf"}, {}, "ray"),
+    ("build_sahdeep", {"PT_FINE_METHOD": "sahdeep",
+                       "PT_COARSE_METHOD": "sahdeep"}, {}, "ray"),
+    ("key_mixed", {"PT_KEY_SCHEME": "mixed"}, {}, "ray"),
+    ("key_firstcluster", {"PT_KEY_SCHEME": "firstcluster",
+                          "PT_KEY_SCHEME_OCCL": "firstcluster"}, {}, "ray"),
+    ("cull_frustum", {}, {}, "frustum"),
+    ("wavefront_sort", {}, {"wavefront_sort": True}, "ray"),
+    ("sched_pack", {"PT_SCHED_PACK": "1"}, {}, "ray"),
+    ("fetch_group2", {"PT_FETCH_GROUP": "2"}, {}, "ray"),
+    ("sort_scope_chunk", {"PT_SORT_SCOPE": "chunk"}, {}, "ray"),
+    ("tile_rays32", {"PT_TILE_RAYS": "32"}, {}, "ray"),
+    ("skip_nee", {}, {"skip_nee": True}, "ray"),
+]
+BUILD_KNOBS = ("PT_FINE_METHOD", "PT_COARSE_METHOD")
+
+
+def capture_calls(scene, cfg, cam):
+    """The whole traversal calls (kind, args, kwargs) of an unprimed
+    headline frame's primary, bounce-0 shadow and bounce-1 batches."""
+    from pathtracer_torch import render
+
+    real = render.make_intersectors
+    calls = []
+
+    def rec(kind, fn):
+        def call(*a, **kw):
+            if len(calls) < len(BATCH_NAMES):
+                calls.append((kind, tuple(x.clone() if hasattr(x, "clone")
+                                          else x for x in a), dict(kw)))
+            return fn(*a, **kw)
+        return call
+
+    def make_intersectors(scene, cfg):
+        fi, fo, fh = real(scene, cfg)
+        return rec("closest", fi), rec("occluded", fo), fh
+
+    render.make_intersectors = make_intersectors
+    try:
+        render.render_frame_with_stats(scene, cfg, cam.state(device=DEVICE),
+                                       0)
+    finally:
+        render.make_intersectors = real
+    return calls
+
+
+def replay_calls(scene, cfg, calls, env, cull_kind):
+    """The calls through the intersectors of (scene, cfg) under env and
+    cull_kind."""
+    from pathtracer_torch import render
+
+    with knob_env(env), cull_route(cull_kind):
+        fi, fo, _ = render.make_intersectors(scene, cfg)
+        return [(fi if kind == "closest" else fo)(*a, **kw)
+                for kind, a, kw in calls]
+
+
+def same_hits(label, got, ref):
+    """Per batch: the closest hits and occlusion against the default
+    route's. A closest hit must have the same t bit for bit, its triangle
+    may differ only at an equal t (an exact tie, which the traversal
+    order decides). The box tests are conservative in exact arithmetic,
+    not under rounding: a ray grazing a box face can lose (or keep) a hit
+    on the face in another build, so at most VARIANT_RAY_TOL of a batch
+    may hit elsewhere or block otherwise. Returns (ties, rays that
+    differ) per batch."""
+    import torch
+
+    ties, moved = [], []
+    for name, g, r in zip(BATCH_NAMES, got, ref):
+        if isinstance(r, torch.Tensor):
+            n, bad, tie = r.numel(), int((g != r).sum()), 0
+        else:
+            n = r.t.numel()
+            same = ((g.tri >= 0) == (r.tri >= 0)) & (
+                (g.t == r.t) | (r.tri < 0))
+            bad = int((~same).sum())
+            tie = int((same & (g.tri != r.tri)).sum())
+        if bad > VARIANT_RAY_TOL * n:
+            raise PhaseError(f"variant {label} {name}: {bad} of {n} rays "
+                             "hit or block otherwise than on the default "
+                             "route")
+        ties.append(tie)
+        moved.append(bad)
+    return ties, moved
+
+
+def phase_variants(scene, cfg, cam, tmp_dir):
+    """Each of VARIANTS on the headline: ms/frame, Mrays/s, the ratio to
+    the default route's run in this phase, build seconds, peak memory and
+    K7/K8 launches. A variant fails the phase unless (1) on the default
+    route's primary, bounce-0 shadow and bounce-1 calls it finds the
+    hits and occlusion of the default route (same_hits: t bit for bit,
+    the triangle free only at an exact tie - two triangles at one t,
+    which the order of a traversal decides; coplanar overlaps make ties
+    common in this scene - and at most VARIANT_RAY_TOL of a batch
+    elsewhere, rays grazing a box face), (2) config 5 at 64x64 under it
+    passes its golden (skip_nee, another estimator: a finite image), and
+    (3) where (1) found every ray as on the default route, its ray count
+    is within VARIANT_RAY_TOL of the default route's run and its film
+    passes the gate against it (skip_nee: fewer rays and a finite
+    display); where a tie or a grazing ray went another way, the paths
+    from there differ, and the film and rays are measured beside the
+    default's. Returns {label: drive result}."""
+    import numpy as np
+    import torch
+
+    from pathtracer_torch.accel.cluster import build_scene_clusters
+    from pathtracer_torch.render import render_frame
+
+    t_phase = time.perf_counter()
+    calls = capture_calls(scene, cfg, cam)
+    ref_hits = replay_calls(scene, cfg, calls, {}, "ray")
+    base, r_b = drive("variant_default", scene, cfg, cam, VARIANT_FRAMES,
+                      UNPRIMED_KERNELS)
+    base_film = r_b.film.accum.cpu().numpy()
+    base_rays = base["rays_per_step"]
+    del r_b
+    g_idx, g_scene_fn, g_cfg, g_cam = golden_configs(tmp_dir)[4]
+    golden = np.load(os.path.join(GOLDEN_DIR, f"config_{g_idx}_64.npz"))[
+        "img"]
+    g_host = g_scene_fn()
+    g_default = build_scene_clusters(g_host).to(DEVICE)
+    out = {"default": base}
+    for label, env, fields, cull_kind in VARIANTS:
+        t0 = time.perf_counter()
+        build_env = {k: v for k, v in env.items() if k in BUILD_KNOBS}
+        vscene, g_scene, build_s = scene, g_default, None
+        if build_env:
+            with knob_env(build_env):
+                vscene = build_scene_clusters(scene)
+                build_s = time.perf_counter() - t0
+                g_scene = build_scene_clusters(g_host).to(DEVICE)
+        vcfg = dataclasses.replace(cfg, **fields)
+        ties, moved = same_hits(label, replay_calls(vscene, vcfg, calls,
+                                                    env, cull_kind),
+                                ref_hits)
+        need = (("frustum_cull" if cull_kind == "frustum" else "tile_cull"),
+                "sweep_closest")
+        if not vcfg.skip_nee:
+            need += ("sweep_occluded",)
+        if env.get("PT_KEY_SCHEME") == "firstcluster":
+            need += ("first_cluster",)
+        with cull_route(cull_kind):
+            res, r = drive("variant_" + label, vscene, vcfg, cam,
+                           VARIANT_FRAMES, need, env=env)
+            with knob_env(env):
+                g_img = render_frame(
+                    g_scene, dataclasses.replace(g_cfg, **fields),
+                    camera(g_cam).state(device=DEVICE), 0).cpu().numpy()
+        if cull_kind == "frustum" and res["launches"]["tile_cull"]:
+            raise PhaseError(f"variant {label}: K1 launched "
+                             f"{res['launches']['tile_cull']} times")
+        rays = res["rays_per_step"]
+        rel = max(abs(a - b) / b for a, b in zip(rays, base_rays))
+        film = r.film.accum.cpu().numpy()
+        if vcfg.skip_nee:
+            shown = r.display()
+            ok_film = bool(np.isfinite(shown).all()) and all(
+                a < b for a, b in zip(rays, base_rays))
+            gate, g_gate = {}, {"ok": bool(np.isfinite(g_img).all())}
+        else:
+            gate = robust_gate(film, base_film)
+            ok_film = (gate["ok"] and rel <= VARIANT_RAY_TOL) or any(
+                ties) or any(moved)
+            g_gate = robust_gate(g_img, golden)
+        cv = dict(variant=label, env=env, fields=fields, cull=cull_kind,
+                  ms_per_frame=res["ms_per_frame"],
+                  default_ms_per_frame=base["ms_per_frame"],
+                  ms_ratio=res["ms_per_frame"] / base["ms_per_frame"],
+                  mrays_per_s=res["mrays_per_s"],
+                  default_mrays_per_s=base["mrays_per_s"],
+                  rays=rays, default_rays=base_rays, rays_rel_diff=rel,
+                  ties_by_batch=ties, other_hits_by_batch=moved,
+                  replayed_rays=[int(a[0].shape[0]) for _, a, _ in calls],
+                  build_s=build_s, peak_mem_bytes=res["peak_mem_bytes"],
+                  k7_launches=res["launches"]["frustum_cull"],
+                  k8_launches=res["launches"]["first_cluster"],
+                  film_gate=gate, golden_gate=g_gate,
+                  clusters=[vscene.clusters.n_clusters,
+                            (vscene.clusters_fine or vscene.clusters)
+                            .n_clusters],
+                  seconds=time.perf_counter() - t0)
+        log("variant", **cv)
+        if not ok_film or not g_gate["ok"]:
+            raise PhaseError(f"variant {label}: film or rays differ from the "
+                             f"default route or config 5 fails its golden: "
+                             f"{cv}")
+        out[label] = res
+        del r, vscene, g_scene
+        torch.cuda.empty_cache()
+    del calls, ref_hits
+    log("variants", count=len(VARIANTS),
+        seconds=time.perf_counter() - t_phase)
+    return out
 
 
 # the composed CLI scene: the .glb turned a quarter and halved so that
@@ -2219,6 +2564,7 @@ def main(argv=None):
             phase_goldens(tmp_dir)
             base, skip, primed, r_b = phase_headline(scene, cfg, cam,
                                                      args.frames)
+            variants = phase_variants(scene, cfg, cam, tmp_dir)
             _, bench_launches = phase_bench(scene, cfg, cam)
             glb_res, lscene, glb = phase_assets(scene, cfg, cam,
                                                 args.frames, base, r_b,
@@ -2240,6 +2586,8 @@ def main(argv=None):
         return 1
     kern = []
     runs = {"sweep_occluded_blocker": primed, "tile_cull_skip": skip,
+            "frustum_cull": variants["cull_frustum"],
+            "first_cluster": variants["key_firstcluster"],
             "bvh_closest": config2, "bvh_occluded": config2}
     for name, (src, replaces) in KERNELS.items():
         s = stats[name]

@@ -252,9 +252,6 @@ def main(argv=None):
     if args.sky == "envmap" and not args.envmap:
         raise SystemExit("--sky envmap requires --envmap PATH "
                          "(a zero envmap would render black)")
-    if args.interactive and args.mesh:
-        raise SystemExit("--interactive drives one process; it does not "
-                         "take --mesh")
 
     device, mesh, own_group = torch.device(args.device), None, False
     if args.mesh:

@@ -1,9 +1,8 @@
 """Render configuration (counterpart of pathtracer/config.py).
 
 Same fields and defaults as the JAX `RenderConfig`, so a config can be
-carried across field by field. The two default-off knobs this port
-does not implement (wavefront_sort, skip_nee) raise `ValueError` naming
-the ROADMAP item that covers them.
+carried across field by field; every field is implemented
+(wavefront_sort and skip_nee in integrator/path.py).
 
 traversal_backend: only "pallas", the hand-written traversal kernels
 (kernels/cull.py, kernels/sweep.py): CUDA kernels for CUDA tensors,
@@ -27,11 +26,6 @@ def saturating_frame_batch(width: int, height: int, spp: int,
     (the '--frame-batch auto' policy; pathtracer/config.py:35-44)."""
     pool = width * height * spp
     return max(1, min(cap, POOL_SATURATION_LANES // pool))
-
-
-def _unported(what: str, item: str):
-    return ValueError(f"{what} is not ported to pathtracer_torch yet "
-                      f"(ROADMAP.md Queue 1, {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,11 +124,6 @@ class RenderConfig:
             raise ValueError("frame_batch > 1 requires spp_batch "
                              "(the cross-frame pool IS the batched "
                              "wavefront)")
-        # what the port does not implement yet
-        if self.wavefront_sort:
-            raise _unported("wavefront_sort", "item 11 (default-off knobs)")
-        if self.skip_nee:
-            raise _unported("skip_nee", "item 11 (default-off knobs)")
 
     @property
     def n_pixels(self) -> int:

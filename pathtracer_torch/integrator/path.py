@@ -21,6 +21,13 @@ emitter hits and the conditional-lobe BSDF pdf.
 Every random number is keyed on (pixel, sample, depth, salt) by the
 counter-based PCG4D (sampling/rng.py). The ray counter is exact: path
 rays traced plus NEE visibility queries resolved (int64).
+
+cfg.wavefront_sort re-orders the carried state once per bounce after
+bounce 0 (_wavefront_order: dead lanes last, then direction octant and
+origin Morton), with the pixel and sample ids riding along; radiance
+comes back in the last bounce's order beside those pixel ids.
+cfg.skip_nee drops both NEE stages (a cost-attribution knob: a
+different estimator).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from pathtracer_torch.accel import morton as morton_mod
 from pathtracer_torch.bsdf import microfacet as mf
 from pathtracer_torch.config import RenderConfig
 from pathtracer_torch.integrator import sky as sky_mod
@@ -444,6 +452,20 @@ def _nee_env(scene: Scene, cfg: RenderConfig, surf: Surface, view, pixel,
         else (out, traced)
 
 
+def _wavefront_order(scene: Scene, o, d, active):
+    """Compaction + coherence permutation for one bounce (path.py:574):
+    key = (dead?, direction octant, origin Morton over the scene's vertex
+    box); stable, so lanes with equal keys keep their order."""
+    lo = scene.positions.amin(dim=0)
+    hi = scene.positions.amax(dim=0)
+    octant = ((d[:, 0] > 0).to(torch.int64)
+              + 2 * (d[:, 1] > 0).to(torch.int64)
+              + 4 * (d[:, 2] > 0).to(torch.int64))
+    m = morton_mod.morton_codes(o, lo=lo, hi=hi)      # 30-bit
+    key = torch.where(active, (octant << 27) | (m >> 3), 0xFFFFFFFF)
+    return torch.sort(key, stable=True).indices
+
+
 def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
                 pixel_ids, sample_ids, intersect_fn: Callable,
                 occluded_fn: Callable, prime=None, local_pix=None,
@@ -451,8 +473,11 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
                 want_gbuffer: bool = False, n_pixels: int = None):
     """Trace a batch of paths to completion.
 
-    Returns (radiance f32[N,3], rays_traced int64 scalar, prime_out,
-    gbuf); lanes stay in input order. With cfg.clamp_radiance > 0 each
+    Returns (radiance f32[N,3], pixel ids [N], rays_traced int64 scalar,
+    prime_out, gbuf): radiance lane i belongs to pixel id i of the
+    second result. Lanes stay in input order unless cfg.wavefront_sort
+    re-orders them (once per bounce after bounce 0); callers scatter by
+    the returned pixel ids. With cfg.clamp_radiance > 0 each
     lane's radiance is clamped to it (the firefly clamp, path.py:997-1002).
     intersect_fn(o, d, t_min, t_max, primary=False) -> Hit, t_max a
         scalar or per-ray [N]
@@ -489,7 +514,6 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
     gain = cfg.emission_gain
     surf_rows = pack_surface_rows(scene)
     mat_rows = pack_material_rows(scene)
-    pix, samp = pixel_ids, sample_ids
     use_tex_u = scene.has_textures and cfg.stochastic_texture_filtering
     sample_window = sample_window or max(1, cfg.spp * cfg.frame_batch)
     env_nee = (cfg.env_importance_sampling and cfg.sky == "envmap"
@@ -508,7 +532,12 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
 
     def segment(state, depth, primary=False):
         """Trace + emission collection shared by every bounce."""
-        o, d, throughput, radiance, active, prev_pdf, rays = state
+        if cfg.wavefront_sort and not primary:
+            # bounce 0 keeps its swizzled pixel-block order; later ones
+            # re-order every carried lane (path.py:655-675)
+            order = _wavefront_order(scene, state[0], state[1], state[4])
+            state = tuple(x[order] for x in state[:-1]) + state[-1:]
+        o, d, throughput, radiance, active, prev_pdf, pix, samp, rays = state
         rays = rays + active.sum()
         o_eff = torch.where(active[..., None], o, 1e30)
         d_eff = torch.where(active[..., None], d, 1.0)
@@ -569,12 +598,13 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
         radiance = radiance + torch.where(
             hit_ok[..., None],
             throughput * surf.emission * gain * w_emit[..., None], 0.0)
-        return (o, d, throughput, radiance, active, prev_pdf, rays), surf
+        return (o, d, throughput, radiance, active, prev_pdf, pix, samp,
+                rays), surf
 
     def bounce(depth, state, primary=False):
         """One full bounce: segment + NEE + BSDF continuation."""
         state, surf = segment(state, depth, primary)
-        o, d, throughput, radiance, active, prev_pdf, rays = state
+        o, d, throughput, radiance, active, prev_pdf, pix, samp, rays = state
         view = -d
         primed = primary and prime is not None
         if primary and want_gbuffer:
@@ -604,7 +634,7 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
 
         # NEE (raygen.rgen:168-261)
         shade = active & ~passthrough & ~is_dielectric
-        if scene.has_lights:
+        if scene.has_lights and not cfg.skip_nee:
             if primed:
                 nee, new_blk = _nee(scene, cfg, surf, view, pix, samp, depth,
                                     occluded_fn, shade, primary,
@@ -617,7 +647,7 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
             radiance = radiance + torch.where(shade[..., None],
                                               throughput * nee, 0.0)
             rays = rays + shade.sum()
-        if env_nee:
+        if env_nee and not cfg.skip_nee:
             if primed:
                 env_c, new_blk, traced = _nee_env(
                     scene, cfg, surf, view, pix, samp, depth, occluded_fn,
@@ -683,13 +713,14 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
             throughput = torch.where((rr_applies & survive)[..., None],
                                      throughput / p[..., None], throughput)
         active = active & (vmath.maxc(throughput) >= cfg.throughput_cutoff)
-        return o, d, throughput, radiance, active, prev_pdf, rays
+        return o, d, throughput, radiance, active, prev_pdf, pix, samp, rays
 
     state = (origins.contiguous(), directions.contiguous(),
              torch.ones((n, 3), dtype=torch.float32, device=dev),
              torch.zeros((n, 3), dtype=torch.float32, device=dev),
              torch.ones(n, dtype=torch.bool, device=dev),
              torch.full((n,), torch.inf, dtype=torch.float32, device=dev),
+             pixel_ids, sample_ids,
              torch.zeros((), dtype=torch.int64, device=dev))
     if cfg.max_depth > 1:
         state = bounce(0, state, primary=True)
@@ -700,7 +731,7 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
     radiance = state[3]
     if cfg.clamp_radiance > 0.0:
         radiance = torch.clamp(radiance, max=cfg.clamp_radiance)
-    return radiance, state[6], prime_out, (gbuf or None)
+    return radiance, state[6], state[8], prime_out, (gbuf or None)
 
 
 def _gbuffer(surf: Surface, o, d, active, rows, n_rows: int):

@@ -219,17 +219,25 @@ def shard_contribution(scene: Scene, cfg: RenderConfig,
         intersect_fn, occluded_fn, hint_fn = render.make_intersectors(
             scene, cfg)
         lane_rows = torch.arange(m, device=dev)
+        # a pixel id's position in the lane-order buffers (lanes may come
+        # back permuted under cfg.wavefront_sort)
+        inv_base = torch.zeros((n,), dtype=torch.int64, device=dev)
+        inv_base[render._base_pixels(w, h, dev).long()] = torch.arange(
+            n, device=dev)
         gb_sum = None
         for s in range(local_spp):
             sample_ids = torch.full((m,), first + s, dtype=torch.int64,
                                     device=dev)
             o, d = render._primary_rays(cfg, cam, pix, sample_ids)
-            r, k, prime_o, gb = path_mod.trace_paths(
+            r, pix_out, k, prime_o, gb = path_mod.trace_paths(
                 scene, cfg, o, d, pix, sample_ids, intersect_fn,
                 occluded_fn, prime=prime_local, local_pix=lane_rows,
                 sample_window=1, hint_fn=hint_fn, want_gbuffer=want_gb,
                 n_pixels=m)
-            radiance[lo:lo + m] += r       # one lane a pixel, in lane order
+            r_rows = torch.empty_like(r)          # one lane a pixel
+            r_rows[inv_base[pix_out.long()] - lo] = r
+            r = r_rows
+            radiance[lo:lo + m] += r
             rays += k
             if prime_local is not None:
                 prime_local = prime_o      # hints chain across the loop

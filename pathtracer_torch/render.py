@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from pathtracer_torch import config as config_mod
+from pathtracer_torch import knobs
 from pathtracer_torch.config import RenderConfig
 from pathtracer_torch.film import film as film_mod
 from pathtracer_torch.integrator import camera as cam_mod
@@ -44,7 +45,12 @@ def make_intersectors(scene: Scene, cfg: RenderConfig):
 
     Scenes of at most 256 triangles use the dense brute-force test, as
     the JAX package does. The cluster route runs packet traversal through
-    the kernel wrappers (CUDA kernels on CUDA tensors, never demoted).
+    the kernel wrappers (CUDA kernels on CUDA tensors, never demoted):
+    closest calls on scene.clusters_fine and occlusion calls on
+    scene.clusters, with the per-call accel and fetch-group knobs
+    (PT_BOUNCE_ACCEL, PT_OCCL_ACCEL, PT_GROUP_*); its intersect_fn and
+    occluded_fn also take cull="frustum" (K7). It raises on a refused
+    knob (knobs.check_refused).
     occluded_fn(..., want_blocker=True) also returns blocker hints.
     hint_fn(tri, o, d, t_min, t_max, front_only=False) -> (t, u, v, ok)
     re-tests a hint (path.trace_paths) with the route's own ray-triangle
@@ -98,22 +104,49 @@ def make_intersectors(scene: Scene, cfg: RenderConfig):
         raise ValueError("cfg.intersector='cluster' but the scene has no "
                          "cluster accel; call "
                          "accel.cluster.build_scene_clusters(scene) first")
+    knobs.check_refused()
     accel = scene.clusters
-    sort_rays = cfg.packet_sort
+    accel_fine = scene.clusters_fine or accel
+    # closest calls trace the fine accel (bounce calls the coarse one
+    # under PT_BOUNCE_ACCEL=morton), occlusion calls the coarse one (the
+    # fine one under PT_OCCL_ACCEL=fine); render.py:46-104
+    bounce_accel = (accel if knobs.choice("PT_BOUNCE_ACCEL", "fine",
+                                          ("fine", "morton")) == "morton"
+                    else accel_fine)
+    occl_accel = (accel_fine if knobs.choice("PT_OCCL_ACCEL", "coarse",
+                                             ("coarse", "fine")) == "fine"
+                  else accel)
+    # fetch groups per call kind, falling back to PT_FETCH_GROUP
+    group = {name: (knobs.integer(name, 1) if os.environ.get(name)
+                    else None)
+             for name in ("PT_GROUP_PRIMARY", "PT_GROUP_BOUNCE",
+                          "PT_GROUP_OCCL")}
+    # with the integrator's per-bounce wavefront sort the rays arrive
+    # compacted and coherence-ordered: the packet layer skips its sort
+    sort_rays = (not cfg.wavefront_sort) and cfg.packet_sort
 
-    def intersect_fn(o, d, t_min, t_max, primary=False):
+    def intersect_fn(o, d, t_min, t_max, primary=False, cull="ray"):
         # primary rays arrive in swizzled 8x8 pixel-block order, already
         # tighter than the coherence key: they skip the sort
-        return packet.intersect_clusters(accel, o, d, t_min, t_max,
-                                         sort_rays=sort_rays and not primary)
+        return packet.intersect_clusters(
+            accel_fine if primary else bounce_accel, o, d, t_min, t_max,
+            sort_rays=sort_rays and not primary, cull=cull,
+            group=group["PT_GROUP_PRIMARY" if primary
+                        else "PT_GROUP_BOUNCE"])
 
-    def occluded_fn(o, d, t_max, primary=False, want_blocker=False):
-        return packet.occluded_clusters(accel, o, d, t_max,
+    def occluded_fn(o, d, t_max, primary=False, want_blocker=False,
+                    cull="ray"):
+        return packet.occluded_clusters(occl_accel, o, d, t_max,
                                         sort_rays=sort_rays,
-                                        want_blocker=want_blocker)
+                                        want_blocker=want_blocker, cull=cull,
+                                        group=group["PT_GROUP_OCCL"])
 
     def hint_fn(tri, o, d, t_min, t_max, front_only=False):
-        return sweep.bw_hit(accel.bw_rows[tri.clamp(min=0).long()], o, d,
+        # a shadow blocker (front_only) is re-tested with the rows of the
+        # accel the occlusion calls traverse, a primary hit with those of
+        # the accel the primary closest call traverses
+        rows = (occl_accel if front_only else accel_fine).bw_rows
+        return sweep.bw_hit(rows[tri.clamp(min=0).long()], o, d,
                             t_min, t_max, front_only=front_only)
 
     return intersect_fn, occluded_fn, hint_fn
@@ -156,11 +189,13 @@ def render_sample(scene: Scene, cfg: RenderConfig, cam: cam_mod.CameraState,
     sample_ids = torch.full((w * h,), frame_idx * cfg.spp + s,
                             dtype=torch.int64, device=dev)
     o, d = _primary_rays(cfg, cam, pixel_ids, sample_ids)
-    radiance, rays, prime_out, gbuf = path_mod.trace_paths(
+    radiance, pix_out, rays, prime_out, gbuf = path_mod.trace_paths(
         scene, cfg, o, d, pixel_ids, sample_ids, intersect_fn, occluded_fn,
         prime=prime, sample_window=1, hint_fn=hint_fn, want_gbuffer=gbuffer)
     img = torch.zeros((w * h, 3), dtype=torch.float32, device=dev)
-    img[pixel_ids.long()] = radiance
+    # lanes come back beside their pixel ids (permuted under
+    # cfg.wavefront_sort): one scatter lands them row-major
+    img[pix_out.long()] = radiance
     return img.reshape(h, w, 3), rays, prime_out, gbuf
 
 
@@ -203,10 +238,16 @@ def _trace_pool_part(scene: Scene, cfg: RenderConfig,
     rows = torch.arange(m, device=dev).repeat(n_s)
     sample_ids = samples.repeat_interleave(m)
     o, d = _primary_rays(cfg, cam, pixel_ids, sample_ids)
-    radiance, rays, prime_out, gbuf = path_mod.trace_paths(
+    radiance, pix_out, rays, prime_out, gbuf = path_mod.trace_paths(
         scene, cfg, o, d, pixel_ids, sample_ids, intersect_fn, occluded_fn,
         prime=prime_part, local_pix=rows, sample_window=sample_window,
         hint_fn=hint_fn, want_gbuffer=gbuffer, n_pixels=m)
+    # lanes may come back permuted (cfg.wavefront_sort): a lane's part row
+    # comes from its returned pixel id through the inverse part table
+    inv_part = torch.zeros((cfg.width * cfg.height,), dtype=torch.int64,
+                           device=dev)
+    inv_part[pix_part.long()] = torch.arange(m, device=dev)
+    rows = inv_part[pix_out.long()]
     part_img = torch.zeros((m, 3), dtype=torch.float32, device=dev)
     # atomics on CUDA: the per-pixel sum order varies at the ulp level
     part_img.index_add_(0, rows, radiance)

@@ -94,9 +94,12 @@ class Scene:
 
     # Threaded LBVH (accel/lbvh.py), the intersector="bvh" route.
     bvh: Optional[Bvh] = None
-    # Packet-traversal accel (accel/cluster.py); one build serves both
-    # the closest and the occlusion calls.
+    # Packet-traversal accels (accel/cluster.py): `clusters` serves the
+    # occlusion calls, `clusters_fine` the closest-hit calls (None: the
+    # closest calls use `clusters` too). build_scene_clusters puts one
+    # accel in both when the two build methods are equal.
     clusters: Optional[object] = None
+    clusters_fine: Optional[object] = None
     # Per-material composite texels: u32 words held in int64 [M, CH, CW, 3]
     # (torch has no general uint32), true dims i32 [M, 2].
     tex_comp: Optional[torch.Tensor] = None
@@ -129,17 +132,25 @@ class Scene:
     def with_bvh(self, bvh: Bvh) -> "Scene":
         return dataclasses.replace(self, bvh=bvh)
 
-    def with_clusters(self, accel) -> "Scene":
-        return dataclasses.replace(self, clusters=accel)
+    def with_clusters(self, accel, fine=None) -> "Scene":
+        """The scene with occlusion accel `accel` and closest-hit accel
+        `fine` (None: `accel` serves both)."""
+        return dataclasses.replace(self, clusters=accel, clusters_fine=fine)
 
     def to(self, device) -> "Scene":
-        """Copy every tensor (and the accels) to `device`."""
+        """Copy every tensor (and the accels) to `device`; an accel held
+        by both cluster fields is copied once and stays shared."""
         kw = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
+            if f.name == "clusters_fine" and v is self.clusters:
+                continue
             if isinstance(v, torch.Tensor) or hasattr(v, "to"):
                 v = v.to(device)
             kw[f.name] = v
+        if self.clusters_fine is not None \
+                and self.clusters_fine is self.clusters:
+            kw["clusters_fine"] = kw["clusters"]
         return Scene(**kw)
 
     def tri_vertices(self, tri_ids):

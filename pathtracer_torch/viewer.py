@@ -6,7 +6,10 @@ two vertical pixels: U+2580 with its own foreground and background).
 Input is raw-mode stdin: WASD + QE move, arrows or IJKL look, +/- speed,
 n denoise, t tone map, ESC/x quit, with the camera semantics of
 integrator/camera.py, so a move resets accumulation. With a piped
-stdin (no tty) the viewer only renders, until max_frames or ^C.
+stdin (no tty) the viewer only renders, until max_frames or ^C. With a
+Renderer over a mesh of ranks (`--interactive --mesh` under torchrun),
+rank 0 reads the keys and draws, and broadcasts its view before every
+step, so every rank renders the same frames.
 """
 
 from __future__ import annotations
@@ -129,31 +132,71 @@ _LOOKS = {"left": (-40.0, 0.0), "j": (-40.0, 0.0),
 _TONEMAPS = ("gamma", "reinhard", "aces")
 
 
+def _sync_view(renderer, quit_: bool) -> bool:
+    """Broadcast rank 0's view - camera, speed, moved flag, display
+    toggles and whether to quit - to every rank of renderer.mesh, so each
+    rank renders the same frame. Returns the quit flag."""
+    import torch
+    import torch.distributed as dist
+
+    cam = renderer.camera
+    dev = renderer.device
+    state = torch.tensor(
+        [*map(float, cam.position), cam.yaw, cam.pitch, cam.speed,
+         float(cam.moved), float(renderer.denoise),
+         float(_TONEMAPS.index(renderer.tonemap)), float(quit_)],
+        dtype=torch.float64, device=dev)
+    dist.broadcast(state, src=0, group=renderer.mesh.group)
+    v = state.cpu().tolist()
+    if renderer.mesh.rank != 0:
+        cam.position = np.asarray(v[0:3], np.float32)
+        cam.yaw, cam.pitch, cam.speed = v[3], v[4], v[5]
+        cam._update_basis()
+        cam.moved = bool(v[6])
+        renderer.denoise = bool(v[7])
+        renderer.tonemap = _TONEMAPS[int(v[8])]
+    return bool(v[9])
+
+
 def run_interactive(renderer, cols: int = 100, rows: int = 40,
-                    max_frames: int = 0) -> int:
+                    max_frames: int = 0, read_keys=None) -> int:
     """Drive a render.Renderer from the terminal; returns the frames
-    rendered. max_frames: stop after that many (0: until quit)."""
+    rendered. max_frames: stop after that many (0: until quit).
+    read_keys(timeout) -> list of keys: the input (default: the terminal
+    in cbreak mode; none from a piped stdin). With renderer.mesh over a
+    process group, rank 0 alone reads keys and draws, and broadcasts its
+    view before every step (_sync_view): every rank renders the same
+    frames, and all stop together."""
     import termios
     import tty
 
     cam = renderer.camera
-    fd = sys.stdin.fileno()
-    try:
-        old = termios.tcgetattr(fd)
-        tty.setcbreak(fd)
-    except termios.error:      # piped stdin: render-only preview
-        old = None
+    mesh = renderer.mesh
+    ranks = mesh is not None and mesh.rank is not None
+    lead = not ranks or mesh.rank == 0
+    old = None
+    if lead and read_keys is None:
+        fd = sys.stdin.fileno()
+        try:
+            old = termios.tcgetattr(fd)
+            tty.setcbreak(fd)
+            read_keys = _read_keys
+        except termios.error:      # piped stdin: render-only preview
+            old = None
     n = 0
     try:
-        sys.stdout.write("\x1b[2J")        # clear once
+        if lead:
+            sys.stdout.write("\x1b[2J")        # clear once
         t_prev = time.perf_counter()
         while True:
             now = time.perf_counter()
             dt = min(now - t_prev, 0.25)
             t_prev = now
-            for k in (_read_keys(0.0) if old is not None else ()):
+            quit_ = False
+            for k in (read_keys(0.0) if lead and read_keys else ()):
                 if k in ("esc", "x"):
-                    raise KeyboardInterrupt
+                    quit_ = True
+                    break
                 if k in _MOVES:
                     cam.process_keyboard(_MOVES[k], dt)
                 elif k in _LOOKS:
@@ -169,19 +212,26 @@ def run_interactive(renderer, cols: int = 100, rows: int = 40,
                     cam.speed *= 1.5
                 elif k == "-":
                     cam.speed /= 1.5
+            if ranks:
+                quit_ = _sync_view(renderer, quit_)
+            if quit_:
+                return n
             film = renderer.step()
             n += 1
-            body = frame_to_ansi(renderer.display() * 255.0, cols, rows - 1)
-            sys.stdout.write("\x1b[H" + body +
-                             f"\x1b[0m\nframe {film.frame:4d}  "
-                             f"spp {film.frame * renderer.cfg.spp:5d}  "
-                             f"{_KEY_HELP}\x1b[K")
-            sys.stdout.flush()
+            if lead:
+                body = frame_to_ansi(renderer.display() * 255.0, cols,
+                                     rows - 1)
+                sys.stdout.write("\x1b[H" + body +
+                                 f"\x1b[0m\nframe {film.frame:4d}  "
+                                 f"spp {film.frame * renderer.cfg.spp:5d}  "
+                                 f"{_KEY_HELP}\x1b[K")
+                sys.stdout.flush()
             if max_frames and n >= max_frames:
                 return n
     except KeyboardInterrupt:
         return n
     finally:
         if old is not None:
-            termios.tcsetattr(fd, termios.TCSADRAIN, old)
-        sys.stdout.write("\x1b[0m\n")
+            termios.tcsetattr(sys.stdin.fileno(), termios.TCSADRAIN, old)
+        if lead:
+            sys.stdout.write("\x1b[0m\n")

@@ -323,7 +323,10 @@ def test_cli_interactive_and_orbit(tmp_path, monkeypatch, capsys):
 
 
 def test_interactive_refuses_mesh(tmp_path):
-    with pytest.raises(SystemExit, match="does not take --mesh"):
+    """--interactive takes --mesh now (the viewer broadcasts rank 0's
+    view; tests/test_torch_sharding_gloo.py drives it): without a process
+    group the pair is refused only for the launch, naming torchrun."""
+    with pytest.raises(SystemExit, match="launch with torchrun"):
         tapp.main(["--interactive", "--mesh", "1,1", "--device", "cpu"])
 
 

@@ -37,8 +37,11 @@ def test_render_config_fields_and_defaults_match():
 @pytest.mark.parametrize("kw", [dict(wavefront_sort=True),
                                 dict(skip_nee=True)])
 def test_config_rejects_unported_values(kw):
-    with pytest.raises(ValueError, match="ROADMAP|requires"):
-        tconfig.RenderConfig(**kw)
+    """The two values the port once rejected are ported now: the config
+    takes them as the JAX package's does, and no value is unported."""
+    assert not hasattr(tconfig, "_unported")
+    assert dataclasses.asdict(tconfig.RenderConfig(**kw)) == \
+        dataclasses.asdict(jconfig.RenderConfig(**kw))
 
 
 @pytest.mark.parametrize("kw", [

@@ -49,7 +49,8 @@ def _rays(n, seed, dev, park_tail=0):
 @pytest.mark.parametrize("n_tris,n_tiles,t_max", [(3000, 40, 3.0),
                                                   (300, 3, 1e20)])
 def test_kernels_match_plain_bit_for_bit(dev, n_tris, n_tiles, t_max):
-    accel = build_clusters(*_soup(n_tris, n_tris)).to(dev)
+    accel = build_clusters(*_soup(n_tris, n_tris),
+                           method="sahsplit").to(dev)
     o, d = _rays(64 * n_tiles, n_tiles, dev, park_tail=70)
     tm = torch.full((o.shape[0],), t_max, device=dev)
     inv = packet._safe_inv(d)
@@ -80,7 +81,7 @@ def test_kernels_match_plain_bit_for_bit(dev, n_tris, n_tiles, t_max):
 
 
 def test_packet_traversal_on_cuda_matches_cpu(dev):
-    accel = build_clusters(*_soup(2000, 5))
+    accel = build_clusters(*_soup(2000, 5), method="sahsplit")
     o, d = _rays(5000, 6, "cpu")
     tm = torch.full((5000,), 2.0)
     for sort in (True, False):
@@ -96,7 +97,7 @@ def test_packet_traversal_on_cuda_matches_cpu(dev):
 
 
 def test_wrappers_check_their_inputs(dev):
-    accel = build_clusters(*_soup(300, 1)).to(dev)
+    accel = build_clusters(*_soup(300, 1), method="sahsplit").to(dev)
     o, d = _rays(64, 2, dev)
     tm = torch.full((64,), 2.0, device=dev)
     kw = dict(t_min=0.0, n_tiles=1, tile_rays=64)
@@ -146,7 +147,7 @@ def test_blocker_kernel_matches_plain_bit_for_bit(dev):
     under Moller-Trumbore - or, on a triangle edge where the two tests
     round apart, under the sweep's own Baldwin-Weber test."""
     v = _soup(3000, 8)
-    accel = build_clusters(*v).to(dev)
+    accel = build_clusters(*v, method="sahsplit").to(dev)
     n_tiles = 40
     o, d = _rays(64 * n_tiles, 9, dev, park_tail=70)
     tm = torch.full((o.shape[0],), 1.5, device=dev)
@@ -877,3 +878,107 @@ def test_probe_wrappers_check_their_inputs(dev):
     with pytest.raises(ValueError, match="even"):
         probes.chain(torch.zeros(3, dtype=torch.bfloat16, device=dev),
                      torch.zeros(3, dtype=torch.bfloat16, device=dev))
+
+
+# --- K7 frustum cull, K8 first cluster, grouped sweeps --------------------
+
+@pytest.mark.parametrize("tile_rays", [32, 64])
+@pytest.mark.parametrize("trap", CULL_TRAPS)
+def test_frustum_cull_kernel_on_adversarial_chunk(dev, trap, tile_rays):
+    """K7 on cull_trap_case's chunk (parked rays, pad boxes, equal
+    negative 1/d) as 7 tiles of 64 or 14 of 32: bit for bit its plain
+    version, one launch."""
+    pads, t_min, t_max = trap
+    lo, hi, o, inv, tm = cull_trap_case(pads, t_max, dev)
+    kw = dict(t_min=t_min, n_tiles=448 // tile_rays, tile_rays=tile_rays)
+    before = kernels.LAUNCHES["frustum_cull"]
+    got = cull.frustum_cull(lo, hi, o, inv, tm, **kw)
+    assert kernels.LAUNCHES["frustum_cull"] == before + 1
+    assert torch.equal(got, cull.frustum_cull_plain(lo, hi, o, inv, tm,
+                                                    **kw))
+    # conservative against K1's per-ray entries
+    k1 = cull.tile_cull_plain(lo, hi, o, inv, tm, **kw)
+    assert bool((torch.isfinite(got) | ~torch.isfinite(k1)).all())
+
+
+@pytest.mark.parametrize("method,min_k", [("morton", 8), ("sahsplit", 128)])
+def test_first_cluster_kernel_matches_plain(dev, method, min_k):
+    """K8 over 375 clusters (two 256-box stages, the tie rule across
+    them) or a sahsplit accel with pad boxes; rays inside the soup (ties
+    at entry 0: lowest id) and a parked tail (id 0, +inf)."""
+    accel = build_clusters(*_soup(3000, 9), 512, min_k=min_k,
+                           method=method).to(dev)
+    o, d = _rays(5000, 10, dev, park_tail=300)
+    o = o * 0.5
+    o[-300:] = 1e30
+    inv = packet._safe_inv(d)
+    before = kernels.LAUNCHES["first_cluster"]
+    got_i, got_t = cull.first_cluster(accel.aabb_lo, accel.aabb_hi, o, inv)
+    assert kernels.LAUNCHES["first_cluster"] == before + 1
+    ref_i, ref_t = cull.first_cluster_plain(accel.aabb_lo, accel.aabb_hi, o,
+                                            inv)
+    assert torch.equal(got_i, ref_i) and torch.equal(got_t, ref_t)
+    assert bool((got_i[-300:] == 0).all())
+    assert bool(torch.isinf(got_t[-300:]).all())
+    assert int((got_t == 0).sum()) > 100
+
+
+@pytest.mark.parametrize("g", [2, 4])
+@pytest.mark.parametrize("tile_rays", [32, 64])
+def test_grouped_sweeps_match_plain(dev, g, tile_rays):
+    """K2, K3 and K3b on fetch-group accels of K = 128 g lanes (ring
+    slots of 32 KB and 64 KB at g = 2 and 4): bit for bit their plain
+    versions."""
+    accel = build_clusters(*_soup(2500, 11), method="sahsplit").to(dev)
+    n_tiles = 20
+    o, d = _rays(tile_rays * n_tiles, 12, dev, park_tail=40)
+    tm = torch.full((o.shape[0],), 2.5, device=dev)
+    tn = cull.tile_cull(accel.aabb_lo, accel.aabb_hi, o, packet._safe_inv(d),
+                        tm, t_min=1e-3, n_tiles=n_tiles, tile_rays=tile_rays)
+    ttg, grouped = packet._group_blocks(accel, tn, g)
+    assert grouped.tris_per_cluster == 128 * g
+    st, si = packet._sorted_schedule(ttg)
+    rays6 = packet._tile_rays6(o, d, n_tiles, tile_rays)
+    tm2 = tm.reshape(n_tiles, tile_rays).contiguous()
+    cap = packet._scene_exit(accel, o, d, tm).reshape(n_tiles, tile_rays)
+    got = sweep.sweep_closest(st, si, rays6, cap.contiguous(), grouped, 1e-3)
+    ref = sweep.sweep_closest_plain(st, si, rays6, cap, grouped.blocks_t,
+                                    1e-3)
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+    assert torch.equal(sweep.sweep_occluded(st, si, rays6, tm2, grouped),
+                       sweep.sweep_occluded_plain(st, si, rays6, tm2,
+                                                  grouped.blocks_t))
+    for x, y in zip(sweep.sweep_occluded(st, si, rays6, tm2, grouped,
+                                         want_blocker=True),
+                    sweep.sweep_occluded_plain(st, si, rays6, tm2,
+                                               grouped.blocks_t,
+                                               want_blocker=True)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("env", [
+    {"PT_KEY_SCHEME": "firstcluster", "PT_KEY_SCHEME_OCCL": "firstcluster"},
+    {"PT_KEY_SCHEME": "mixed", "PT_FETCH_GROUP": "2", "PT_SCHED_PACK": "1"},
+    {"PT_TILE_RAYS": "32", "PT_SORT_SCOPE": "chunk", "PT_CHUNK_TILES": "4"},
+])
+@pytest.mark.parametrize("cull_kind", ["ray", "frustum"])
+def test_packet_knobs_card_equals_cpu(dev, env, cull_kind, monkeypatch):
+    """The packet layer under the knobs on the card (K1/K7, K8, K2, K3)
+    finds what its CPU route (the plain versions) finds, hit for hit."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    accel = build_clusters(*_soup(2000, 13), method="sahsplit")
+    o, d = _rays(1000, 14, torch.device("cpu"), park_tail=50)
+    tm = torch.full((1000,), 2.0)
+    out = {}
+    for where in ("cpu", dev):
+        a = accel.to(where)
+        hit = packet.intersect_clusters(a, o.to(where), d.to(where), 1e-3,
+                                        1e20, cull=cull_kind)
+        blocked = packet.occluded_clusters(a, o.to(where), d.to(where),
+                                           tm.to(where), cull=cull_kind)
+        out[str(where)] = [x.cpu() for x in (hit.t, hit.tri, hit.u, hit.v,
+                                             blocked)]
+    for x, y in zip(out["cpu"], out[str(dev)]):
+        assert torch.equal(x, y)

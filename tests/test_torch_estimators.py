@@ -327,9 +327,9 @@ def test_quirks_config1_matches_golden():
     for s in range(cfg.spp):
         samp = torch.full(pix.shape, s, dtype=torch.int64)
         o, d = trender._primary_rays(cfg, cam, pix, samp)
-        rad, _, _, _ = tpath.trace_paths(scene, cfg, o, d, pix, samp,
-                                         intersect_fn, occluded_fn,
-                                         sample_window=1, hint_fn=hint_fn)
+        rad, _, _, _, _ = tpath.trace_paths(scene, cfg, o, d, pix, samp,
+                                            intersect_fn, occluded_fn,
+                                            sample_window=1, hint_fn=hint_fn)
         acc += rad
     img = (acc / cfg.spp).numpy().reshape(len(rows), 256, 3)
     golden = np.load(os.path.join(REPO, "tests",

@@ -21,9 +21,15 @@ from pathtracer.kernels import packet as jpacket
 from pathtracer.kernels import pallas_cull, pallas_sweep
 from pathtracer.kernels.intersect import intersect_brute, occluded_brute
 from pathtracer_torch.accel.cluster import accel_from_numpy
-from pathtracer_torch.accel.cluster import build_clusters as tbuild
+from pathtracer_torch.accel.cluster import build_clusters
 from pathtracer_torch.kernels import cull, packet, sweep
 from pathtracer_torch.kernels import intersect as tisect
+
+
+def tbuild(v0, v1, v2):
+    """The port's production build (sahsplit: K = 128, the cluster count
+    padded to a multiple of 128)."""
+    return build_clusters(v0, v1, v2, method="sahsplit")
 
 
 @pytest.fixture(scope="module", autouse=True)

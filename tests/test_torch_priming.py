@@ -121,7 +121,7 @@ def test_occluded_brute_blocker_matches_jax(n_tris):
 
 def test_sweep_occluded_plain_blocker():
     v = _soup(600, 3)
-    accel = build_clusters(*v)
+    accel = build_clusters(*v, method="sahsplit")
     n_tiles = 8
     o, d = _rays(64 * n_tiles, 4, park=((450, 512),))
     o, d = _T(o), _T(d)
@@ -144,7 +144,7 @@ def test_occluded_clusters_blocker():
     """Sorted and unsorted, with a skipped all-parked chunk: blocked
     equals the brute oracle and every hint verifies."""
     v = _soup(700, 5)
-    accel = build_clusters(*v)
+    accel = build_clusters(*v, method="sahsplit")
     o, d = _rays(640, 6, park=((128, 320),))
     tm = np.full(640, 1.5, np.float32)
     ref = np.asarray(joccluded(jnp.asarray(o), jnp.asarray(d),
@@ -286,8 +286,8 @@ def test_primed_tie_keeps_traversal_order(intersector):
     other = torch.where(base.tri == 0, 1, 0).to(torch.int32)
     prime = torch.stack([other, -torch.ones_like(other),
                          -torch.ones_like(other)], 1)
-    _, _, out, _ = tpath.trace_paths(scene, cfg, o, d, pix, samp, fns[0],
-                                     fns[1], prime=prime, hint_fn=fns[2])
+    _, _, _, out, _ = tpath.trace_paths(scene, cfg, o, d, pix, samp, fns[0],
+                                        fns[1], prime=prime, hint_fn=fns[2])
     assert torch.equal(out[:, 0], base.tri)
 
 

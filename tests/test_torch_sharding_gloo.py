@@ -172,3 +172,49 @@ def test_gloo_app_mesh_writes_on_rank_0_only(tmp_path):
                        "r0_normal.png"]
     ck = film_mod.load_checkpoint(str(tmp_path / "r0.npz"), device="cpu")
     assert ck.frame == 2 and float(ck.accum.mean()) > 0.0
+
+
+# rank 0's scripted keys per viewer step: a move forward, a look to the
+# right, then still frames; rank 1 would walk backward if it read keys
+SCRIPT = {0: [[], ["w", "w"], ["l"], [], []], 1: [["s"]] * 5}
+
+
+def _viewer_rank(rank, out_dir):
+    import io
+
+    from pathtracer_torch import viewer
+
+    script = iter(SCRIPT[rank])
+    r = Renderer(box_scene(), RenderConfig(**GLOO_CFG, spp=2), box_camera(),
+                 device="cpu", mesh=sharding.make_mesh(1, 2))
+    start = r.camera.position.copy()
+    out = io.StringIO()
+    stdout, sys.stdout = sys.stdout, out
+    try:
+        n = viewer.run_interactive(r, cols=16, rows=9, max_frames=5,
+                                   read_keys=lambda t: next(script))
+    finally:
+        sys.stdout = stdout
+    cam = r.camera
+    np.savez(os.path.join(out_dir, f"view{rank}.npz"), film=r.film.accum,
+             frame=r.film.frame, n=n, start=start, pos=cam.position,
+             angles=np.array([cam.yaw, cam.pitch]), drawn=len(out.getvalue()))
+
+
+def test_gloo_interactive_mesh_ranks_follow_rank0(tmp_path):
+    """run_interactive over a (1, 2) mesh on two gloo ranks: rank 0 reads
+    a scripted move and look, broadcasts its view each step, and both
+    ranks end with the same camera and the same film; only rank 0
+    draws."""
+    spawn_ranks(tmp_path, 2, _viewer_rank, str(tmp_path))
+    res = [dict(np.load(str(tmp_path / f"view{r}.npz"))) for r in range(2)]
+    for res_r in res:
+        assert int(res_r["n"]) == 5
+        # the look at step 3 reset the film: steps 3-5 folded since
+        assert int(res_r["frame"]) == 3
+        assert np.array_equal(res_r["pos"], res[0]["pos"])
+        assert np.array_equal(res_r["angles"], res[0]["angles"])
+        assert np.array_equal(res_r["film"], res[0]["film"])
+    assert not np.array_equal(res[0]["pos"], res[0]["start"])
+    assert res[0]["film"].mean() > 0.0
+    assert int(res[0]["drawn"]) > 0 and int(res[1]["drawn"]) == 0
