@@ -4,8 +4,8 @@
 Drives pathtracer_torch's paths on the card and checks them:
 
 1. device: card name and power limit, versions, builds of the native
-   library and of the CUDA kernels (one nvcc per csrc/*.cu, all started
-   together);
+   libraries (host runtime and image decoders) and of the CUDA kernels
+   (one compiler per source, all started together);
 2. each kernel against its plain PyTorch version on the card, replaying
    the arguments the main path itself handed it: K1 tile cull, K2 closest
    sweep and K3 occlusion sweep in chunks of an unprimed headline frame's
@@ -86,6 +86,16 @@ Drives pathtracer_torch's paths on the card and checks them:
    display finite and in [0, 1], every ANSI body rows - 1 lines, K1-K3
    launched, ms per step; then app.main --orbit --quiet at 256x256 on
    the .glb: four PNGs and no output;
+   images: the port's PNG/JPEG decoders, no PIL
+   and no fallback: every committed fixture of tests/data/images held
+   bit for bit to its committed PIL arrays; decode seconds per
+   megapixel of 1024x1024 8-bit and 16-bit PNG and 4:2:0 baseline and
+   progressive JPEG beside the card's name and power limit; a .glb of
+   the textured sponza_like (target 20k triangles) whose images are JPEG and
+   16-bit PNG bytes: its tables, and its film and rays at 256x256, the
+   headline's 4 spp (K1-K3), bit for bit those of the scene built from
+   the decoded arrays directly (the film adds a pixel's samples in a
+   fixed order, render.sample_sum);
 7. config 4 at BASELINE's size and frame batch (1024x1024, 1 spp, depth
    6, env-map NEE, frame_batch = saturating_frame_batch = 8), unprimed,
    unprimed with PT_CULL_SKIP=1 (K4 where its 256 clusters gate: same
@@ -242,6 +252,10 @@ QUIRKS_SIZE = 256      # BASELINE config 1 (run_configs.py:99-102)
 SOBOL_LANES = 1 << 21
 # the sharded phase: gloo ranks sharing cuda:0, and how long they may run
 SHARD_RANKS, SHARD_TIMEOUT_S = 2, 300
+# the images phase: the .glb render's size, the PNG sizes whose decode is
+# timed (made in the phase: 8-bit by the port's encoder, 16-bit by
+# tests/image_codecs.png_file) and the timed decodes of each file
+IMAGE_RENDER, IMAGE_BENCH_PX, IMAGE_REPEATS = 256, 1024, 5
 
 
 def log(phase, **kw):
@@ -276,18 +290,23 @@ def camera(spec):
     return c
 
 
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi failed: {smi.stderr.strip()}")
+
+
 def phase_device():
     import torch
 
     from pathtracer_torch.kernels import cuda_build
     from pathtracer_torch.utils import native
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi failed: {smi.stderr.strip()}", flush=True)
+    print(card_line(), flush=True)
     t0 = time.perf_counter()
     errors = []
 
@@ -297,7 +316,8 @@ def phase_device():
         except Exception as e:     # reported below, after every build ends
             errors.append(e)
 
-    builds = [threading.Thread(target=run, args=(native.build,))] + [
+    builds = [threading.Thread(target=run, args=(native.build, lib))
+              for lib in native.LIBS] + [
         threading.Thread(target=run, args=(cuda_build.build, name))
         for name in ("cull", "sweep", "traverse", "probes")]
     for t in builds:
@@ -1727,6 +1747,134 @@ def phase_assets(scene, cfg, cam, frames, base, r_b, tmp_dir):
     return res, lscene, glb
 
 
+def load_image_codecs():
+    """tests/image_codecs.py by path (an installed package named `tests`
+    shadows the checkout's)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "image_codecs", os.path.join(ROOT, "tests", "image_codecs.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def decode_seconds_per_mp(raw, what):
+    """Median seconds per megapixel of IMAGE_REPEATS native decodes to
+    RGB, and the last decode."""
+    import numpy as np
+
+    from pathtracer_torch.utils import native
+
+    times = []
+    for _ in range(IMAGE_REPEATS):
+        t0 = time.perf_counter()
+        img = native.image_rgb(raw, what)
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) / (img.shape[0] * img.shape[1] / 1e6), img
+
+
+def phase_images(cfg, cam, frames, tmp_dir):
+    """The port's image decoders beside the card (no PIL needed, and
+    nothing falls back to the plain numpy decoder): every committed
+    fixture of tests/data/images decoded to RGBA and RGB and held bit
+    for bit to the committed PIL arrays; decode seconds per megapixel
+    of 8-bit and 16-bit PNG and 4:2:0 baseline and progressive JPEG
+    (each checked:
+    the PNGs against their source samples, the JPEGs against the sha256
+    of PIL's decode); then a .glb whose textures are JPEG and 16-bit PNG
+    bytes, loaded (its tables equal to those of the same scene built
+    from the decoded arrays directly) and rendered at IMAGE_RENDER^2 and
+    the headline's spp on the cluster route (K1-K3), its film and ray
+    counts bit for bit the direct scene's."""
+    import numpy as np
+
+    from pathtracer_torch.accel.cluster import build_scene_clusters
+    from pathtracer_torch.scene.gltf import load_gltf
+    from pathtracer_torch.utils import native
+
+    t_phase = time.perf_counter()
+    ic = load_image_codecs()
+    files, ref = ic.load_fixtures()
+    bad = [f"{name}:{ch}" for name, raw in sorted(files.items())
+           for k, ch in enumerate((4, 3))
+           if not np.array_equal(native.image_decode(raw, name, ch),
+                                 ref[name][k])]
+    log("images_fixtures", files=len(files), mismatched=bad)
+    if bad:
+        raise PhaseError(f"images: the native decode differs from PIL's "
+                         f"on {bad}")
+
+    rng = np.random.default_rng(0)
+    n = IMAGE_BENCH_PX
+    y, x = np.mgrid[0:n, 0:n]
+    base = np.stack([np.sin(x / 17.0), np.cos(y / 23.0),
+                     np.sin((x + y) / 31.0)], -1)
+    src8 = np.clip(128 + 100 * base + rng.normal(0, 6, base.shape), 0,
+                   255).astype(np.uint8)
+    src16 = np.clip(32768 + 30000 * base + rng.normal(0, 1500, base.shape),
+                    0, 65535).astype(np.int64)
+    with open(os.path.join(ic.DATA_DIR, "bench_sha256.json")) as f:
+        digests = json.load(f)
+    bench = {"png8_rgb": (native.png_encode(src8), src8),
+             "png16_rgb": (ic.png_file(src16, 2, 16), src16 >> 8)}
+    for name in sorted(k.split(":")[0] for k in digests):
+        with open(os.path.join(ic.DATA_DIR, name), "rb") as f:
+            bench[name] = (f.read(), digests[f"{name}:RGB"])
+    per_mp, wrong = {}, []
+    for name, (raw, want) in bench.items():
+        per_mp[name], img = decode_seconds_per_mp(raw, name)
+        ok = (ic.digest(img) == want if isinstance(want, str)
+              else np.array_equal(img, want))
+        if not ok:
+            wrong.append(name)
+    card = card_line()
+    log("images_decode", card=card, seconds_per_mp=per_mp,
+        megapixels={k: n * n / 1e6 if k.startswith("png") else 1.048576
+                    for k in bench},
+        file_bytes={k: len(v[0]) for k, v in bench.items()}, wrong=wrong)
+    print(f"images decode s/MP on {card}: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in per_mp.items()),
+          flush=True)
+    if wrong:
+        raise PhaseError(f"images: wrong decode of {wrong}")
+
+    glb = os.path.join(tmp_dir, "images.glb")
+    ic.write_textured_glb(glb, files)
+    t0 = time.perf_counter()
+    loaded = load_gltf(glb)
+    load_s = time.perf_counter() - t0
+    with ic.decoded_by_pil(files, ref):
+        direct = load_gltf(glb)
+    tables, direct_tables = loaded.finalize_numpy(), direct.finalize_numpy()
+    differ = [k for k, v in tables.items() if not (
+        np.array_equal(v, direct_tables[k]) if isinstance(v, np.ndarray)
+        else v == direct_tables[k])]
+    if differ:
+        raise PhaseError(f"images: the .glb's tables differ from the "
+                         f"scene built from the decoded arrays: {differ}")
+    icfg = dataclasses.replace(cfg, width=IMAGE_RENDER, height=IMAGE_RENDER)
+    runs = []
+    for label, builder in (("images_glb", loaded), ("images_direct",
+                                                    direct)):
+        scene = build_scene_clusters(builder.finalize(device="cpu")).to(
+            DEVICE)
+        res, r = drive(label, scene, icfg, cam, frames, UNPRIMED_KERNELS)
+        runs.append((res, r.film.accum.cpu().numpy()))
+        del r, scene
+    (res_g, film_g), (res_d, film_d) = runs
+    same_film = film_g.tobytes() == film_d.tobytes()
+    log("images", textures=list(ic.IMAGE_TEXTURES), load_s=load_s,
+        spp=icfg.spp,
+        glb_bytes=os.path.getsize(glb), same_film=same_film,
+        rays=res_g["rays_per_step"], direct_rays=res_d["rays_per_step"],
+        launches={k: res_g["launches"][k] for k in UNPRIMED_KERNELS},
+        seconds=time.perf_counter() - t_phase)
+    if not same_film or res_g["rays_per_step"] != res_d["rays_per_step"]:
+        raise PhaseError("images: the .glb's render differs from the scene "
+                         "built from the decoded arrays directly")
+
+
 def phase_viewer(lscene, cfg, glb, tmp_dir):
     """viewer.run_interactive on the .glb headline at 4 spp (auto frame
     batch 8, motion preview 2), stdin piped and stdout captured: three
@@ -2570,6 +2718,7 @@ def main(argv=None):
                                                 args.frames, base, r_b,
                                                 tmp_dir)
             phase_viewer(lscene, cfg, glb, tmp_dir)
+            phase_images(cfg, cam, args.frames, tmp_dir)
             ref_film = r_b.film.accum.cpu().numpy()
             del lscene, r_b
             phase_config4(tmp_dir, args.frames)

@@ -123,13 +123,14 @@ def load_scene(specs) -> SceneBuilder:
 
 
 def load_envmap(path: str) -> np.ndarray:
-    """Equirect radiance f32 [H, W, 3] from a Radiance .hdr, or from an
-    8-bit PNG decoded natively and linearised as (u8 / 255) ** 2.2."""
+    """Equirect radiance f32 [H, W, 3] from a Radiance .hdr, or from a PNG
+    or JPEG decoded natively (PIL's convert("RGB")) and linearised as
+    (u8 / 255) ** 2.2."""
     if os.path.splitext(path)[1].lower() == ".hdr":
         return read_hdr(path)
     with open(path, "rb") as f:
-        arr = native.png_rgba(f.read(), path)
-    return (arr[..., :3].astype(np.float32) / 255.0) ** 2.2
+        arr = native.image_rgb(f.read(), path)
+    return (arr.astype(np.float32) / 255.0) ** 2.2
 
 
 def default_camera(spec: str) -> Camera:
@@ -166,8 +167,8 @@ def main(argv=None):
                     choices=["gradient", "black", "hosek", "envmap"],
                     help="hosek = Hosek-Wilkie sky (turbidity 3, albedo 1)")
     ap.add_argument("--envmap", default=None, metavar="PATH",
-                    help="equirect environment: Radiance .hdr or 8-bit "
-                         "PNG - required with --sky envmap")
+                    help="equirect environment: Radiance .hdr, PNG or "
+                         "JPEG - required with --sky envmap")
     ap.add_argument("--env-nee", action="store_true",
                     help="importance-sample the env map with MIS (one "
                          "extra shadow ray per bounce)")

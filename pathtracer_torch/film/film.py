@@ -88,6 +88,35 @@ def write_png(path: str, image) -> None:
         f.write(data)
 
 
+def read_png(path: str) -> np.ndarray:
+    """Read a PNG as f32 [H, W, C] / 255, as the JAX package's read_png
+    gives it: an 8-bit non-interlaced PNG in the file's own channels (1
+    gray, squeezed to [H, W]; 2 gray + alpha; 3 RGB or palette; 4 RGBA or
+    palette with tRNS), and every other PNG as PIL's array of the opened
+    image, which the JAX package falls back to: palette indices [H, W] of
+    a sub-8-bit or interlaced palette PNG, 0/1 of a 1-bit gray, unclipped
+    16-bit gray, RGBA of 16-bit gray + alpha, and else the pixels PIL's
+    convert gives, in the file's own channels."""
+    from pathtracer_torch.utils import native
+
+    with open(path, "rb") as f:
+        raw = f.read()
+    if raw[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    _, _, ch = native.image_info(raw, path)
+    depth, color, interlace = raw[24], raw[25], raw[28]
+    if (color == 3 and (depth != 8 or interlace)) or (
+            color == 0 and depth in (1, 16)):
+        return native.png_samples(raw, path)[..., 0].astype(
+            np.float32) / 255.0
+    rgba = native.image_rgba(raw, path).astype(np.float32) / 255.0
+    if color == 4 and depth == 16:
+        return rgba
+    if ch == 1:
+        return rgba[..., 0]
+    return rgba[..., [0, 3]] if ch == 2 else rgba[..., :ch]
+
+
 def save_checkpoint(path: str, film: Film) -> None:
     """Write the film as .npz: accum f32[H, W, 3] and frame (a scalar)."""
     np.savez(path, accum=film.accum.detach().cpu().numpy(),

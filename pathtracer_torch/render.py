@@ -1,7 +1,8 @@
 """Top-level render API (counterpart of pathtracer/render.py).
 
 A frame is: primary rays for every (pixel, sample) -> trace_paths with
-the chosen intersector -> scatter-add into pixels -> film.accumulate.
+the chosen intersector -> each pixel's samples summed in a fixed order
+(sample_sum) -> film.accumulate.
 With cfg.spp_batch all spp samples of a frame are one wavefront
 (render_frame_batched), and with cfg.frame_batch = F > 1 the samples of
 F consecutive frames are (frame batching: the same sample set, folded
@@ -30,6 +31,7 @@ import torch
 
 from pathtracer_torch import config as config_mod
 from pathtracer_torch import knobs
+from pathtracer_torch.accel import bruteforce
 from pathtracer_torch.config import RenderConfig
 from pathtracer_torch.film import film as film_mod
 from pathtracer_torch.integrator import camera as cam_mod
@@ -68,14 +70,8 @@ def make_intersectors(scene: Scene, cfg: RenderConfig):
     if use_brute:
         v0, v1, v2 = scene.tri_vertices(
             torch.arange(scene.n_tris, device=scene.device))
-
-        def intersect_fn(o, d, t_min, t_max, primary=False):
-            return isect.intersect_brute(o, d, v0, v1, v2, t_min, t_max)
-
-        def occluded_fn(o, d, t_max, primary=False, want_blocker=False):
-            return isect.occluded_brute(o, d, t_max, v0, v1, v2,
-                                        want_blocker=want_blocker)
-
+        intersect_fn, occluded_fn = bruteforce.make_brute_intersectors(
+            v0, v1, v2)
         return intersect_fn, occluded_fn, isect.hint_test(v0, v1, v2)
 
     if cfg.intersector == "bvh":
@@ -248,15 +244,36 @@ def _trace_pool_part(scene: Scene, cfg: RenderConfig,
                            device=dev)
     inv_part[pix_part.long()] = torch.arange(m, device=dev)
     rows = inv_part[pix_out.long()]
-    part_img = torch.zeros((m, 3), dtype=torch.float32, device=dev)
-    # atomics on CUDA: the per-pixel sum order varies at the ulp level
-    part_img.index_add_(0, rows, radiance)
+    order = None if not cfg.wavefront_sort else torch.argsort(rows,
+                                                              stable=True)
+    part_img = sample_sum(radiance, order, m, n_s)
     if gbuf is not None:
         lum = vmath.luminance(radiance)
-        zero = torch.zeros((m,), dtype=torch.float32, device=dev)
-        gbuf = dict(gbuf, m1=zero.index_add(0, rows, lum),
-                    m2=zero.index_add(0, rows, lum * lum))
+        gbuf = dict(gbuf, m1=sample_sum(lum, order, m, n_s),
+                    m2=sample_sum(lum * lum, order, m, n_s))
     return part_img, rays, prime_out, gbuf
+
+
+def sample_sum(values, order, m: int, n_s: int):
+    """Per-row sums [m, ...] of the n_s samples each of m rows.
+
+    values [n_s * m, ...] holds the lanes sample-major (lane s * m + r is
+    row r's sample s) when order is None; else values[order] holds them
+    row-major, each row's samples in lane order (a stable sort of the
+    lanes' rows). A row's samples are added one after another in lane
+    order, so the sum is the same on every run, on the card as on the
+    CPU, and equal to index_add_'s on the CPU (index_add_'s CUDA atomics
+    add them in no fixed order).
+    """
+    if order is None:
+        per = values.reshape((n_s, m) + values.shape[1:])
+    else:
+        per = values[order].reshape((m, n_s) + values.shape[1:]
+                                    ).transpose(0, 1)
+    out = torch.zeros_like(per[0])
+    for s in range(n_s):
+        out += per[s]
+    return out
 
 
 def render_frame_batched(scene: Scene, cfg: RenderConfig,

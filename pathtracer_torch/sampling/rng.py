@@ -8,10 +8,15 @@ u32 arithmetic is emulated in int64 with `& 0xFFFFFFFF`: CPU torch
 `uint32` has no `+` or `>>`. A product of two words below 2^32 does not
 fit in int64, so `_mul32` splits one operand into 16-bit halves and
 never relies on signed overflow wrapping.
+
+`ref_pcg`, `ref_pcg2d` and `ref_rand` are the Vulkan reference's scalar
+RNG (common.glsl:27-49), used only by tests to pin its observable
+behaviour; the renderer uses the counter-based PCG4D.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 SALT_JITTER = 0
@@ -102,3 +107,40 @@ def uniform2(pixel, sample, depth, salt, seed=0, sampler="pcg"):
 
 def uniform1(pixel, sample, depth, salt, seed=0, sampler="pcg"):
     return uniform4(pixel, sample, depth, salt, seed, sampler)[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# Reference-parity oracles: scalar Python with the JAX package's numpy
+# result types (np.uint32 words, np.float32 draws).
+# ---------------------------------------------------------------------------
+
+def ref_pcg(state):
+    """One step of the reference's pcg stream (common.glsl:27-33).
+
+    Returns (output_word, new_state): the state advances by an LCG and
+    the output mixes the previous state.
+    """
+    prev = (int(state) * 747796405 + 2891336453) & M32
+    word = (((prev >> ((prev >> 28) + 4)) ^ prev) * 277803737) & M32
+    return np.uint32((word >> 22) ^ word), np.uint32(prev)
+
+
+def ref_pcg2d(v):
+    """The reference's pcg2d seed hash (common.glsl:34-44). v: two u32
+    words; returns uint32[2]."""
+    x, y = (int(a) & M32 for a in v)
+    x = (x * 1664525 + 1013904223) & M32
+    y = (y * 1664525 + 1013904223) & M32
+    for _ in range(2):
+        x = (x + y * 1664525) & M32
+        y = (y + x * 1664525) & M32
+        x ^= x >> 16
+        y ^= y >> 16
+    return np.array([x, y], np.uint32)
+
+
+def ref_rand(state):
+    """The reference's rand() (common.glsl:45-49). Returns (float,
+    new_state)."""
+    out, state = ref_pcg(state)
+    return np.float32(out) * np.float32(1.0 / 0xFFFFFFFF), state

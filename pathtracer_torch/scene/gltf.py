@@ -16,9 +16,11 @@ The JAX loader's tables, bit for bit:
   the dielectric at a factor >= 0.5), and textures deduplicated by
   source image, also in first-use order.
 
-Images decode through the native PNG decoder only (utils/native.py): a
-JPEG, 16-bit or interlaced PNG raises ValueError naming the image, where
-the JAX loader falls back to PIL.
+Images (PNG of any kind, baseline or progressive JPEG) decode through
+the port's native decoders (utils/native.image_rgba) to the pixels the
+JAX loader gets from PIL; a format they do not take (CMYK or
+arithmetic-coded JPEG, WebP, KTX2, ...) raises ValueError naming the
+image and its format, where the JAX loader tries PIL.
 """
 
 from __future__ import annotations
@@ -146,8 +148,8 @@ class _Gltf:
         return arr.reshape(count, ncomp) if ncomp > 1 else arr.copy()
 
     def image_rgba(self, image_index: int) -> np.ndarray:
-        """u8 [H, W, 4] of an image, padded to RGBA as the JAX loader
-        pads the native decoder's output."""
+        """u8 [H, W, 4] of a PNG or JPEG image, the pixels the JAX loader
+        gets from its native decoder or from PIL's convert("RGBA")."""
         img = self.doc["images"][image_index]
         if "uri" in img:
             raw = self._read_uri(img["uri"])
@@ -159,7 +161,7 @@ class _Gltf:
             start = bv.get("byteOffset", 0)
             raw = self.buffer(bv["buffer"])[start: start + bv["byteLength"]]
             what = f"{self.path}: image {image_index}"
-        return native.png_rgba(raw, what)
+        return native.image_rgba(raw, what)
 
 
 def _node_matrix(node: dict) -> np.ndarray:

@@ -2,7 +2,10 @@
 
 The JAX package's numpy codec, copied: the port imports nothing of
 `pathtracer`. The writer emits byte for byte the JAX writer's files.
-The reader has no native fast path; it decodes in Python:
+`read_hdr` parses the header here and decodes the scanlines with the
+native decoder (`utils/native.hdr_decode`, csrc/image_decode.cpp), as
+the JAX reader does when its library is built; `decode_scanlines` is
+the plain Python version it is held to bit for bit:
 
 - header: `#?RADIANCE`/`#?RGBE`, `FORMAT=32-bit_rle_rgbe`, blank line,
   then a resolution line (`-Y H +X W` is the standard orientation);
@@ -14,6 +17,8 @@ The reader has no native fast path; it decodes in Python:
 from __future__ import annotations
 
 import numpy as np
+
+from pathtracer_torch.utils import native
 
 
 def _decode_rgbe(rgbe: np.ndarray) -> np.ndarray:
@@ -106,7 +111,15 @@ def read_hdr(path: str) -> np.ndarray:
     if len(res) != 4 or res[0] != b"-Y" or res[2] != b"+X":
         raise ValueError(f"{path}: unsupported orientation {res!r}")
     h, w = int(res[1]), int(res[3])
+    try:
+        return native.hdr_decode(data[pos:], w, h)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
 
+
+def decode_scanlines(data: bytes, pos: int, w: int, h: int) -> np.ndarray:
+    """Plain version of native.hdr_decode: h scanlines of width w from
+    data[pos:] -> linear radiance f32 [H, W, 3]."""
     rows = []
     for _ in range(h):
         if (8 <= w <= 0x7FFF and pos + 4 <= len(data)

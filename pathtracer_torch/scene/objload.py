@@ -5,9 +5,10 @@ v/vn/vt, faces triangulated as fans, negative (relative) indices,
 usemtl/mtllib with Kd, Ke, Ns, Ni, d, Pm, illum 6/7 (the dielectric)
 and map_Kd. Corners are deduplicated over (position, uv, normal) keys,
 and each material's faces become one SceneBuilder mesh, as in the JAX
-loader. map_Kd reads through the native PNG decoder, converted to RGBA
-as PIL's convert("RGBA") does; an image it declines raises ValueError
-naming the file.
+loader. map_Kd reads through the native PNG/JPEG decoders
+(utils/native.image_rgba), to the pixels of PIL's convert("RGBA") the
+JAX loader reads; a format they do not take raises ValueError naming
+the file and its format.
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ def _parse_mtl(path: str, builder: SceneBuilder) -> Dict[str, int]:
                 tex_path = os.path.join(base, tok[-1])
                 if os.path.exists(tex_path):
                     with open(tex_path, "rb") as tf:
-                        img = native.png_rgba(tf.read(), tex_path)
+                        img = native.image_rgba(tf.read(), tex_path)
                     cur.albedo_tex = builder.add_texture(img)
                     cur.albedo = (1.0, 1.0, 1.0)
             elif key == "illum" and len(tok) > 1:

@@ -1,19 +1,29 @@
-"""ctypes binding to the native host runtime (counterpart of pathtracer/utils/native.py).
+"""ctypes binding to the native host code (counterpart of pathtracer/utils/native.py).
 
-Binds the entry points of `native/pathtracer_native.cpp` the port uses:
-`pt_sah_split_build` (the SBVH leaf build behind the cluster accel), the
-PNG codec (`pt_png_encode`; `pt_png_probe` + `pt_png_decode`, which read
-8-bit non-interlaced PNG: gray, gray + alpha, RGB, RGBA and palette)
-and the glTF accessor unpack (`pt_accessor_to_f32` / `_to_i32`). The
-C++ source is the JAX package's own; it is compiled at first use with
+Two libraries, each compiled at first use into `pathtracer_torch/_build/`
+and rebuilt when its source is newer:
 
-    g++ -O3 -std=c++17 -fPIC -shared native/pathtracer_native.cpp -lz
+- the host runtime, `native/pathtracer_native.cpp` (the JAX package's
+  own source): `pt_sah_split_build` (the SBVH leaf build behind the
+  cluster accel), the PNG encoder (`pt_png_encode`) and the glTF
+  accessor unpack (`pt_accessor_to_f32` / `_to_i32`);
 
-into `pathtracer_torch/_build/`. If it cannot be built, the call raises:
-the port has no Python fallback, and no other image decoder. An image the
-decoder declines (JPEG, 16-bit or interlaced PNG, a gray or RGB PNG with
-a tRNS colour key) is an error naming the file and its format
-(`png_rgba`).
+      g++ -O3 -std=c++17 -fPIC -shared native/pathtracer_native.cpp -lz
+
+- the image decoders, `pathtracer_torch/csrc/image_decode.cpp` (the
+  port's own): PNG of every colour type, bit depth and interlace, JPEG
+  (baseline, extended 8-bit and progressive Huffman, gray or three
+  components, any integral sampling factors) and Radiance RGBE
+  scanlines; `utils/image_plain.py` is their plain numpy version.
+
+      g++ -O3 -std=c++17 -fPIC -shared csrc/image_decode.cpp -lz
+
+A failed build raises: the port has no Python fallback and no other
+image decoder (the JAX package falls back to Python and to PIL).
+`image_rgba` / `image_rgb` give the pixels PIL's convert("RGBA") /
+convert("RGB") gives; an image they do not decode (arithmetic-coded,
+12-bit, lossless, hierarchical or CMYK/YCCK JPEG, TGA, BMP, WebP, KTX2,
+...) is a ValueError naming the file and its format.
 """
 
 from __future__ import annotations
@@ -26,67 +36,101 @@ import threading
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(os.path.dirname(_PKG), "native", "pathtracer_native.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
-_SO = os.path.join(BUILD_DIR, "libpathtracer_native.so")
+LIBS = {
+    "runtime": (os.path.join(os.path.dirname(_PKG), "native",
+                             "pathtracer_native.cpp"),
+                os.path.join(BUILD_DIR, "libpathtracer_native.so")),
+    "images": (os.path.join(_PKG, "csrc", "image_decode.cpp"),
+               os.path.join(BUILD_DIR, "libpathtracer_images.so")),
+}
 
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
+_NAME_BYTES = 160   # the decoders' name of a refused or corrupt format
 
 
-def build() -> str:
-    """Compile the native library if missing or stale; returns its path."""
-    if (os.path.exists(_SO)
-            and os.path.getmtime(_SO) >= os.path.getmtime(_SRC)):
-        return _SO
+def build(name: str = "runtime") -> str:
+    """Compile library `name` ("runtime" or "images") if missing or
+    stale; returns its path."""
+    src, so = LIBS[name]
+    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+        return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
+    tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [os.environ.get("CXX", "g++"), "-O3", "-std=c++17", "-fPIC",
-           "-shared", "-o", tmp, _SRC, "-lz"]
+           "-shared", "-o", tmp, src, "-lz"]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
         raise RuntimeError(f"native build failed: {' '.join(cmd)}\n"
                            f"{res.stderr}")
-    os.replace(tmp, _SO)
-    return _SO
+    os.replace(tmp, so)
+    return so
 
 
-def _load():
-    global _lib
+def _bind(name: str, lib):
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    if name == "images":
+        lib.pti_probe.argtypes = [u8p, ctypes.c_int64, i32p, i32p, i32p,
+                                  ctypes.c_char_p, ctypes.c_int32]
+        lib.pti_probe.restype = ctypes.c_int
+        lib.pti_decode.argtypes = [u8p, ctypes.c_int64, ctypes.c_int32,
+                                   ctypes.c_int32, ctypes.c_int32, u8p,
+                                   ctypes.c_char_p, ctypes.c_int32]
+        lib.pti_decode.restype = ctypes.c_int
+        lib.pti_png_samples.argtypes = [
+            u8p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_uint16), ctypes.c_char_p, ctypes.c_int32]
+        lib.pti_png_samples.restype = ctypes.c_int
+        lib.pti_hdr_decode.argtypes = [u8p, ctypes.c_int64, ctypes.c_int32,
+                                       ctypes.c_int32, f32p]
+        lib.pti_hdr_decode.restype = ctypes.c_int
+        return
+    lib.pt_sah_split_build.argtypes = [
+        f32p, f32p, f32p, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_float, i32p, i32p, i32p, f32p,
+        f32p, ctypes.c_int32, ctypes.c_int64]
+    lib.pt_sah_split_build.restype = ctypes.c_int
+    lib.pt_png_encode_bound.argtypes = [
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32]
+    lib.pt_png_encode_bound.restype = ctypes.c_int64
+    lib.pt_png_encode.argtypes = [
+        u8p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, u8p,
+        ctypes.POINTER(ctypes.c_int64)]
+    lib.pt_png_encode.restype = ctypes.c_int
+    lib.pt_accessor_to_f32.argtypes = [
+        u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, f32p]
+    lib.pt_accessor_to_f32.restype = ctypes.c_int
+    lib.pt_accessor_to_i32.argtypes = [
+        u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, i32p]
+    lib.pt_accessor_to_i32.restype = ctypes.c_int
+
+
+def _load(name: str = "runtime"):
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            i32p = ctypes.POINTER(ctypes.c_int32)
-            f32p = ctypes.POINTER(ctypes.c_float)
-            u8p = ctypes.POINTER(ctypes.c_uint8)
-            lib.pt_sah_split_build.argtypes = [
-                f32p, f32p, f32p, ctypes.c_int64, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_float, i32p, i32p, i32p, f32p,
-                f32p, ctypes.c_int32, ctypes.c_int64]
-            lib.pt_sah_split_build.restype = ctypes.c_int
-            lib.pt_png_encode_bound.argtypes = [
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32]
-            lib.pt_png_encode_bound.restype = ctypes.c_int64
-            lib.pt_png_encode.argtypes = [
-                u8p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, u8p,
-                ctypes.POINTER(ctypes.c_int64)]
-            lib.pt_png_encode.restype = ctypes.c_int
-            lib.pt_png_probe.argtypes = [u8p, ctypes.c_int64, i32p, i32p,
-                                         i32p]
-            lib.pt_png_probe.restype = ctypes.c_int
-            lib.pt_png_decode.argtypes = [u8p, ctypes.c_int64, u8p]
-            lib.pt_png_decode.restype = ctypes.c_int
-            lib.pt_accessor_to_f32.argtypes = [
-                u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_int32, f32p]
-            lib.pt_accessor_to_f32.restype = ctypes.c_int
-            lib.pt_accessor_to_i32.argtypes = [
-                u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_int32, i32p]
-            lib.pt_accessor_to_i32.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+        if name not in _libs:
+            lib = ctypes.CDLL(build(name))
+            _bind(name, lib)
+            _libs[name] = lib
+        return _libs[name]
+
+
+def available() -> bool:
+    """True once both native libraries are built and loaded.
+
+    Unlike the JAX package's `available()`, which reports False when its
+    library cannot be built and lets every caller fall back to Python or
+    PIL, the port builds at first use and raises when a build fails:
+    this never returns False.
+    """
+    _load("runtime")
+    _load("images")
+    return True
 
 
 def _ptr(arr, ctype):
@@ -143,58 +187,91 @@ def png_encode(img: np.ndarray) -> bytes:
     return out[:n.value].tobytes()
 
 
-def png_decode(data: bytes):
-    """Decode an 8-bit non-interlaced PNG -> u8 [H, W, C] (C: 1 gray, 2
-    gray + alpha, 3 RGB, 4 RGBA; palettes expand to 3 or, with tRNS, 4).
-    None when the decoder declines the format (see `png_rgba`); a PNG it
-    accepts but cannot inflate raises."""
-    lib = _load()
+def _checked(rc: int, name, what: str):
+    """Raise the ValueError of a decoder's code rc (0: none), naming
+    `what` and the format the decoder read (`name`, its buffer)."""
+    if rc == 0:
+        return
+    fmt = name.value.decode()
+    if rc == 1:
+        article = "an" if fmt[0] in "aeiouAEIOU" else "a"
+        raise ValueError(f"{what}: cannot decode {article} {fmt}: "
+                         "pathtracer_torch decodes PNG and 8-bit baseline "
+                         "or progressive Huffman JPEG (gray, YCbCr or RGB)")
+    raise ValueError(f"{what}: corrupt or truncated {fmt}")
+
+
+def image_info(data: bytes, what: str = "image"):
+    """(width, height, channels) of a PNG or JPEG. channels is the
+    file's own: PNG 1 gray, 2 gray + alpha, 3 RGB or palette, 4 RGBA or
+    palette with tRNS; JPEG 1 or 3. Raises ValueError naming `what` and
+    the format when the decoders do not take the image."""
+    lib = _load("images")
     buf = np.frombuffer(data, np.uint8)
     w, h, ch = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
-    if lib.pt_png_probe(_ptr(buf, ctypes.c_uint8), buf.size,
-                        ctypes.byref(w), ctypes.byref(h),
-                        ctypes.byref(ch)) != 0:
-        return None
-    out = np.empty((h.value, w.value, ch.value), np.uint8)
-    if lib.pt_png_decode(_ptr(buf, ctypes.c_uint8), buf.size,
-                         _ptr(out, ctypes.c_uint8)) != 0:
-        raise ValueError("PNG data is corrupt (pt_png_decode failed)")
+    name = ctypes.create_string_buffer(_NAME_BYTES)
+    rc = lib.pti_probe(_ptr(buf, ctypes.c_uint8), buf.size, ctypes.byref(w),
+                       ctypes.byref(h), ctypes.byref(ch), name, _NAME_BYTES)
+    _checked(rc, name, what)
+    return w.value, h.value, ch.value
+
+
+def image_decode(data: bytes, what: str, channels: int) -> np.ndarray:
+    """PNG or JPEG -> u8 [H, W, channels] (4: PIL's convert("RGBA"), 3:
+    convert("RGB")). Raises ValueError naming `what` and the format when
+    the image is not decoded."""
+    w, h, _ = image_info(data, what)
+    lib = _load("images")
+    buf = np.frombuffer(data, np.uint8)
+    out = np.empty((h, w, channels), np.uint8)
+    name = ctypes.create_string_buffer(_NAME_BYTES)
+    rc = lib.pti_decode(_ptr(buf, ctypes.c_uint8), buf.size, w, h, channels,
+                        _ptr(out, ctypes.c_uint8), name, _NAME_BYTES)
+    _checked(rc, name, what)
     return out
 
 
-def image_format(data: bytes) -> str:
-    """Name an image's format, for the error of an image png_decode
-    declines."""
-    if data[:3] == b"\xff\xd8\xff":
-        return "JPEG"
-    if data[:8] != b"\x89PNG\r\n\x1a\n" or len(data) < 29:
-        return f"not a PNG (starts with {bytes(data[:8])!r})"
-    depth, color, interlace = data[24], data[25], data[28]
-    if depth != 8:
-        return f"{depth}-bit PNG"
-    if interlace:
-        return "interlaced (Adam7) PNG"
-    if color in (0, 2) and b"tRNS" in data:
-        return "gray or RGB PNG with a tRNS colour key"
-    return f"PNG of colour type {color}"
+def png_samples(data: bytes, what: str) -> np.ndarray:
+    """A PNG's own samples, u16 [H, W, C] in the file's channels and bit
+    depth (a palette PNG: its indices, C = 1), as PIL's np.asarray of the
+    image holds them for palette, 1-bit and 16-bit gray PNGs."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{what}: not a PNG")
+    w, h, ch = image_info(data, what)
+    lib = _load("images")
+    buf = np.frombuffer(data, np.uint8)
+    out = np.empty((h, w, 1 if data[25] == 3 else ch), np.uint16)
+    name = ctypes.create_string_buffer(_NAME_BYTES)
+    rc = lib.pti_png_samples(_ptr(buf, ctypes.c_uint8), buf.size, w, h,
+                             _ptr(out, ctypes.c_uint16), name, _NAME_BYTES)
+    _checked(rc, name, what)
+    return out
 
 
-def png_rgba(data: bytes, what: str) -> np.ndarray:
-    """Decode a PNG to u8 [H, W, 4] as PIL's convert("RGBA") gives it:
-    gray to (g, g, g, 255), gray + alpha to (g, g, g, a), RGB to
-    (r, g, b, 255). Raises ValueError naming `what` and the format when
-    the decoder declines the image."""
-    arr = png_decode(data)
-    if arr is None:
-        raise ValueError(f"{what}: cannot decode a {image_format(data)}: "
-                         "pathtracer_torch reads 8-bit non-interlaced PNG "
-                         "only")
-    if arr.shape[2] == 4:
-        return arr
-    rgba = np.empty(arr.shape[:2] + (4,), np.uint8)
-    rgba[..., :3] = arr[..., :1] if arr.shape[2] in (1, 2) else arr
-    rgba[..., 3] = arr[..., 1] if arr.shape[2] == 2 else 255
-    return rgba
+def image_rgba(data: bytes, what: str) -> np.ndarray:
+    """u8 [H, W, 4], as PIL's Image.open(...).convert("RGBA") gives it."""
+    return image_decode(data, what, 4)
+
+
+def image_rgb(data: bytes, what: str) -> np.ndarray:
+    """u8 [H, W, 3], as PIL's Image.open(...).convert("RGB") gives it."""
+    return image_decode(data, what, 3)
+
+
+def hdr_decode(data: bytes, w: int, h: int) -> np.ndarray:
+    """Radiance RGBE scanlines -> linear f32 [H, W, 3] (`data` starts at
+    the first scanline; the caller parses the header). New-RLE and
+    flat/old-style scanlines, as scene/hdr.py's plain version reads
+    them. Raises ValueError on corrupt or truncated data."""
+    lib = _load("images")
+    buf = np.frombuffer(data, np.uint8)
+    out = np.empty((h, w, 3), np.float32)
+    rc = lib.pti_hdr_decode(_ptr(buf, ctypes.c_uint8), buf.size, w, h,
+                            _ptr(out, ctypes.c_float))
+    if rc:
+        raise ValueError(f"corrupt .hdr scanlines ({w}x{h}, "
+                         f"pti_hdr_decode code {rc})")
+    return out
 
 
 def accessor_to_f32(buf: bytes, offset: int, count: int, n_comp: int,

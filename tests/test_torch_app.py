@@ -225,9 +225,12 @@ def test_hdr_envmap_matches_jax(tmp_path):
 
 
 def test_jpeg_envmap_raises(tmp_path):
+    """A CMYK JPEG env map raises naming the file and the format (a YCbCr
+    or gray one loads: tests/test_torch_images.py)."""
     path = str(tmp_path / "sky.jpg")
-    Image.fromarray(np.zeros((8, 16, 3), np.uint8)).save(path)
-    with pytest.raises(ValueError, match=r"sky\.jpg: cannot decode a JPEG"):
+    Image.fromarray(np.zeros((8, 16, 4), np.uint8), "CMYK").save(path)
+    with pytest.raises(ValueError,
+                       match=r"sky\.jpg: cannot decode a CMYK JPEG"):
         tapp.load_envmap(path)
 
 
@@ -331,8 +334,8 @@ def test_interactive_refuses_mesh(tmp_path):
 
 
 def test_png_decode_is_pil_free_and_matches_pil():
-    """The native decode of each 8-bit PNG mode, padded by png_rgba,
-    equals PIL's convert("RGBA")."""
+    """The native decode of each 8-bit PNG mode (image_rgba) equals PIL's
+    convert("RGBA")."""
     from pathtracer_torch.utils import native
 
     rng = np.random.default_rng(6)
@@ -342,5 +345,5 @@ def test_png_decode_is_pil_free_and_matches_pil():
         buf = io.BytesIO()
         im.save(buf, format="PNG")
         np.testing.assert_array_equal(
-            native.png_rgba(buf.getvalue(), "t"),
+            native.image_rgba(buf.getvalue(), "t"),
             np.asarray(im.convert("RGBA")), err_msg=im.mode)

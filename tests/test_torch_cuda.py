@@ -736,6 +736,90 @@ def test_glb_roundtrip_renders_on_cuda_like_the_build(dev, tmp_path):
                ("tile_cull", "sweep_closest", "sweep_occluded"))
 
 
+def test_image_decoders_on_card_machine_match_committed_pil_arrays(dev):
+    """The native PNG/JPEG decoders, built on a machine with a card and
+    without PIL: every committed fixture to RGBA and RGB equal to the
+    committed PIL arrays, the 1024x1024 4:2:0 bench JPEGs to the sha256 of
+    PIL's decode (chip_smoke.py's images phase checks the same)."""
+    import json
+    import os
+
+    import image_codecs as ic
+
+    from pathtracer_torch.utils import native
+
+    files, ref = ic.load_fixtures()
+    for name, raw in files.items():
+        for k, ch in enumerate((4, 3)):
+            np.testing.assert_array_equal(native.image_decode(raw, name, ch),
+                                          ref[name][k], err_msg=name)
+    with open(os.path.join(ic.DATA_DIR, "bench_sha256.json")) as f:
+        digests = json.load(f)
+    for key, want in digests.items():
+        name = key.split(":")[0]
+        with open(os.path.join(ic.DATA_DIR, name), "rb") as f:
+            assert ic.digest(native.image_rgb(f.read(), name)) == want, name
+
+
+def test_jpeg_textured_glb_renders_like_the_decoded_arrays(dev, tmp_path):
+    """A .glb whose textures are JPEG and 16-bit PNG bytes, rendered on
+    the card (64x64, 4 spp, depth 4, cluster route): film and ray counts
+    bit for bit those of the same scene built from the committed PIL
+    arrays directly; K1-K3 launched."""
+    import image_codecs as ic
+
+    from pathtracer_torch.accel.cluster import build_scene_clusters
+    from pathtracer_torch.config import RenderConfig
+    from pathtracer_torch.integrator.camera import Camera
+    from pathtracer_torch.render import Renderer
+    from pathtracer_torch.scene.gltf import load_gltf
+
+    files, ref = ic.load_fixtures()
+    path = str(tmp_path / "images.glb")
+    ic.write_textured_glb(path, files)
+    loaded = load_gltf(path)
+    with ic.decoded_by_pil(files, ref):
+        direct = load_gltf(path)
+    cfg = RenderConfig(width=64, height=64, spp=4, max_depth=4,
+                       spp_batch=True)
+    out = {}
+    for name, builder in (("glb", loaded), ("direct", direct)):
+        scene = build_scene_clusters(builder.finalize(device="cpu"))
+        cam = Camera(position=(3.0, 4.5, 6.0))
+        cam.look_at((14.0, 3.0, 6.0))
+        kernels.reset_launch_counts()
+        r = Renderer(scene, cfg, cam, device=dev)
+        r.step()
+        out[name] = (r.film.accum.cpu().numpy(), int(r.last_rays),
+                     dict(kernels.LAUNCHES))
+    assert out["glb"][0].tobytes() == out["direct"][0].tobytes()
+    assert out["glb"][1] == out["direct"][1]
+    assert all(out["glb"][2][k] > 0 for k in
+               ("tile_cull", "sweep_closest", "sweep_occluded"))
+
+
+@pytest.mark.parametrize("m,n_s", [(4096, 4), (777, 32)])
+def test_film_sample_sum_on_cuda_is_the_cpus(dev, m, n_s):
+    """render.sample_sum on the card, for sample-major lanes and for
+    lanes in a random order (as cfg.wavefront_sort returns them): the
+    same bits on every run, and those of index_add_ on the CPU."""
+    from pathtracer_torch.render import sample_sum
+
+    g = torch.Generator().manual_seed(m)
+    v = torch.randn(n_s * m, 3, generator=g) * 100
+    rows = torch.arange(m).repeat(n_s)
+    perm = torch.randperm(n_s * m, generator=g)
+    for vals, rws in ((v, None), (v[perm], rows[perm])):
+        idx = rows if rws is None else rws
+        want = torch.zeros(m, 3).index_add_(0, idx, vals)
+        order = None if rws is None else torch.argsort(rws.to(dev),
+                                                       stable=True)
+        runs = [sample_sum(vals.to(dev), order, m, n_s).cpu()
+                for _ in range(3)]
+        for got in runs:
+            assert torch.equal(got, want)
+
+
 def test_app_composes_glb_and_obj_on_cuda(dev, tmp_path, capsys):
     """app.main with --scene a.glb@... --scene b.obj (a map_Kd PNG from
     the port's encoder) and an LDR PNG env map on --device cuda."""

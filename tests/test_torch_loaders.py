@@ -5,9 +5,9 @@ loaders; the port's SceneBuilder.finalize_numpy() must equal the JAX
 builder's finalize() field for field, bit for bit: geometry, face
 materials, every mat_* field, the texture stack and tex_wh, the light
 tables and the CDF. PNG textures are made with PIL here, so the port's
-native decoder is held to the image PIL gives the JAX loader. Images
-the native decoder declines raise ValueError naming the file; nothing in
-the port imports PIL.
+native decoders are held to the image PIL gives the JAX loader. Images
+the decoders leave out raise ValueError naming the file and the format;
+nothing in the port imports PIL.
 """
 
 import base64
@@ -370,39 +370,65 @@ def test_textures_match_jax(tmp_path, kind):
 @pytest.mark.parametrize("fmt", ["jpeg", "png16", "png4", "interlaced"])
 def test_undecodable_texture_raises(tmp_path, fmt):
     """A JPEG, a 16-bit PNG, a 4-bit palette PNG and an interlaced PNG
-    texture raise ValueError naming the file, the image and its format
-    (the JAX loader decodes them through PIL)."""
+    texture (which the JAX loader decodes through PIL) now load with the
+    JAX loader's tables; their neighbours the decoders leave out - a CMYK
+    JPEG, a 16-bit palette PNG, a 4-bit RGB PNG and interlace method 2 -
+    raise ValueError naming the file, the image and its format."""
+    from pathtracer.utils import native as jnative
+
     rng = np.random.default_rng(1)
     if fmt == "jpeg":
         buf = io.BytesIO()
         Image.fromarray(_rgb(rng, 8, 8)).save(buf, format="JPEG")
-        raw, name = buf.getvalue(), "JPEG"
+        raw = buf.getvalue()
+        buf = io.BytesIO()
+        Image.fromarray(_rgb(rng, 8, 8, 4), "CMYK").save(buf, format="JPEG")
+        bad, name = buf.getvalue(), "CMYK JPEG"
     elif fmt == "png16":
         raw = png_bytes(rng.integers(0, 65535, (8, 8)).astype(np.uint16))
-        name = "16-bit PNG"
+        bad = _with_ihdr(png_bytes(_rgb(rng, 8, 8)), depth=16, color=3)
+        name = "PNG of bit depth 16 and colour type 3"
     elif fmt == "png4":
         buf = io.BytesIO()
         Image.fromarray(_rgb(rng, 8, 8)).quantize(16).save(buf, format="PNG")
-        raw, name = buf.getvalue(), "4-bit PNG"
+        raw = buf.getvalue()
+        bad = _with_ihdr(raw, depth=4, color=2)
+        name = "PNG of bit depth 4 and colour type 2"
     else:
-        raw, name = _interlaced(png_bytes(_rgb(rng, 8, 8))), "interlaced"
-    assert tnative.png_decode(raw) is None
+        raw = png_bytes(_rgb(rng, 8, 8))
+        bad, name = _with_ihdr(raw, interlace=2), "interlace method 2"
+        raw = _interlaced(raw)
+    assert jnative.png_decode(raw) is None    # JAX's loader takes PIL's path
     with open(tmp_path / "bad.img", "wb") as f:
         f.write(raw)
     path = _textured(tmp_path, "gltf",
                      lambda a: [{"uri": "bad.img"}], [(0, None, None)])
+    assert _load_both(path)["has_textures"]
+    with open(tmp_path / "bad.img", "wb") as f:
+        f.write(bad)
     with pytest.raises(ValueError, match=rf"tex\.gltf: image 0 \(bad\.img\)"
                                          rf".*{name}"):
         tload_gltf(path)
 
 
-def _interlaced(png: bytes) -> bytes:
-    """The PNG with its IHDR interlace byte set (CRC recomputed): the
-    native decoder declines it at the probe."""
+def _with_ihdr(png: bytes, depth=None, color=None, interlace=None) -> bytes:
+    """The PNG with IHDR fields replaced (CRC recomputed)."""
     raw = bytearray(png)
-    raw[28] = 1
+    for at, v in ((24, depth), (25, color), (28, interlace)):
+        if v is not None:
+            raw[at] = v
     raw[29:33] = struct.pack(">I", zlib.crc32(bytes(raw[12:29])))
     return bytes(raw)
+
+
+def _interlaced(png: bytes) -> bytes:
+    """The PNG re-encoded with Adam7 (every pass filtered by
+    image_codecs.png_file): the JAX package's native decoder declines it
+    at the probe."""
+    import image_codecs
+
+    arr = np.asarray(Image.open(io.BytesIO(png)))
+    return image_codecs.png_file(arr, 2, 8, interlace=True)
 
 
 def test_build_glb_asset_matches_jax(tmp_path):
@@ -516,14 +542,17 @@ def test_obj_cases_match_jax(tmp_path, case):
 
 
 def test_obj_undecodable_map_kd_raises(tmp_path):
+    """A CMYK JPEG map_Kd (misnamed .png) raises naming the file and the
+    format; a YCbCr JPEG so misnamed loads (tests/test_torch_images.py)."""
     buf = io.BytesIO()
-    Image.fromarray(_rgb(np.random.default_rng(0), 8, 8)).save(
+    Image.fromarray(_rgb(np.random.default_rng(0), 8, 8, 4), "CMYK").save(
         buf, format="JPEG")
     with open(tmp_path / "wood.png", "wb") as f:       # a JPEG, misnamed
         f.write(buf.getvalue())
     _write(tmp_path / "tex.mtl", MTL_TEXTURED.format(tex="wood.png"))
     p = _write(tmp_path / "m.obj", OBJ_TEXTURED)
-    with pytest.raises(ValueError, match=r"wood\.png: cannot decode a JPEG"):
+    with pytest.raises(ValueError,
+                       match=r"wood\.png: cannot decode a CMYK JPEG"):
         tload_obj(p)
 
 

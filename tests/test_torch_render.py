@@ -145,6 +145,29 @@ def test_pool_part_split_matches_single_pool(monkeypatch):
     torch.testing.assert_close(looped, whole, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("m,n_s", [(7, 1), (5, 3), (64, 8), (300, 32)])
+def test_sample_sum_is_index_adds_sum(m, n_s):
+    """The film's per-pixel sample sum (render.sample_sum, a fixed order
+    on every device) equals index_add_ on the CPU bit for bit, for
+    sample-major lanes and for lanes in a random order given the stable
+    sort of their rows; f32 [n, 3] radiance and f32 [n] moments."""
+    from pathtracer_torch.render import sample_sum
+
+    g = torch.Generator().manual_seed(m * 100 + n_s)
+    v = torch.randn(n_s * m, 3, generator=g) * torch.rand(
+        n_s * m, 1, generator=g) * 1e3
+    rows = torch.arange(m).repeat(n_s)
+    perm = torch.randperm(n_s * m, generator=g)
+    for vals, rws, order in ((v, rows, None),
+                             (v[perm], rows[perm],
+                              torch.argsort(rows[perm], stable=True))):
+        want = torch.zeros(m, 3).index_add_(0, rws, vals)
+        assert torch.equal(sample_sum(vals, order, m, n_s), want)
+        lum = vals[:, 1]
+        assert torch.equal(sample_sum(lum, order, m, n_s),
+                           torch.zeros(m).index_add_(0, rws, lum))
+
+
 def test_port_runs_without_jax():
     code = (
         "import sys\n"

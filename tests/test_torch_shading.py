@@ -193,10 +193,8 @@ def test_film_matches_jax():
 
 
 def test_write_png_roundtrip(tmp_path):
-    from pathtracer.film.film import read_png
-
     img = np.random.default_rng(1).uniform(0, 1, (9, 11, 3))
     p = str(tmp_path / "a.png")
     tfilm.write_png(p, torch.from_numpy(img.astype(np.float32)))
-    back = read_png(p)
+    back = tfilm.read_png(p)
     np.testing.assert_allclose(back, img, atol=1 / 255 + 1e-6)
