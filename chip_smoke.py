@@ -28,14 +28,23 @@ Drives pathtracer_torch's paths on the card and checks them:
    registers and occupancy; K7 (the frustum cull) and K8 (the first
    cluster of the firstcluster key) bit-exact against their plain
    versions on the chunks and calls of a headline frame traced with
-   cull="frustum" and firstcluster keys for both call kinds;
+   cull="frustum" and firstcluster keys for both call kinds; K1-K3 at
+   128 and 256 rays a tile on a chunk a batch of frames traced under
+   PT_TILE_RAYS=128 and 256 (as at 64), K4 at blk 128 and K7 on their K1
+   chunks (bit-exact), with each width's ms a chunk, bound, lane tests
+   and columns walked (`tile_rays` on the kernel_vs_plain and sweep_work
+   lines), and pair_metrics' bounce-1 visited and needed columns at 32,
+   64, 128 and 256 rays a tile (`tile_width_columns`);
    probes: P1-P3 (kernels/probes.py, the JAX package's TPU probes)
    through their drivers (bench/bf16_probe, cond_probe, sweep_attrib at
    cpi 1 and 12) with the launch counts set to 0 just before and read
    just after - P1's f32 and bf16 times and speedup, P2's gated and
-   always-extract times, P3's attribution of a column - then each
-   kernel against its plain version (P1 f32 and bf16 at 2 and 4096
-   steps and P2 gated and ungated bit-exact, P3's full variant hit-exact
+   always-extract times in both designs (a grid step on one CTA, and on
+   a 2-CTA cluster: the kept one), P3's attribution of a column - then
+   each kernel against its plain version (P1 f32 and bf16 at 2 and 4096
+   steps and P2 gated and ungated, both designs, bit-exact, with P2's
+   SASS instruction counts of the walk and the extraction, P3's full
+   variant hit-exact
    with t bit-exact and the others +inf, at cpi 1 and 12); K2 on P3's
    schedule at cpi 1, its t bit for bit P3's, and P3's cost a column
    within P3_OVER_K2 of K2's; P3's bound from the lane-test branches its
@@ -53,8 +62,8 @@ Drives pathtracer_torch's paths on the card and checks them:
    cluster route (VARIANTS: the median/morton accel split, the sah,
    sahleaf and sahdeep builds, the mixed and firstcluster keys (K8),
    cull="frustum" (K7), wavefront_sort, PT_SCHED_PACK=1,
-   PT_FETCH_GROUP=2, PT_SORT_SCOPE=chunk, PT_TILE_RAYS=32 and
-   skip_nee), one warm-up and one timed frame each, against the default
+   PT_FETCH_GROUP=2, PT_SORT_SCOPE=chunk, PT_TILE_RAYS=32, 128 and 256
+   and skip_nee), one warm-up and one timed frame each, against the default
    route's run of the same frames: rays within 1e-5 and the film within
    the gate (skip_nee: fewer rays, a finite display), and config 5's
    64x64 golden under the same knobs (skip_nee: finite); ms/frame,
@@ -86,11 +95,14 @@ Drives pathtracer_torch's paths on the card and checks them:
    display finite and in [0, 1], every ANSI body rows - 1 lines, K1-K3
    launched, ms per step; then app.main --orbit --quiet at 256x256 on
    the .glb: four PNGs and no output;
-   images: the port's PNG/JPEG decoders, no PIL
+   images: the port's PNG/JPEG/TGA/BMP decoders, no PIL
    and no fallback: every committed fixture of tests/data/images held
    bit for bit to its committed PIL arrays; decode seconds per
-   megapixel of 1024x1024 8-bit and 16-bit PNG and 4:2:0 baseline and
-   progressive JPEG beside the card's name and power limit; a .glb of
+   megapixel of 1024x1024 8-bit and 16-bit PNG, 4:2:0 baseline and
+   progressive JPEG, raw 24-bit and RLE 32-bit TGA, and 24-bit and RLE8
+   BMP beside the card's name and power limit; an OBJ/MTL whose map_Kd
+   are an RLE TGA and an RLE4 BMP rendered at 256x256 on K1-K3, film and
+   rays bit for bit those of the scene built from PIL's arrays; a .glb of
    the textured sponza_like (target 20k triangles) whose images are JPEG and
    16-bit PNG bytes: its tables, and its film and rays at 256x256, the
    headline's 4 spp (K1-K3), bit for bit those of the scene built from
@@ -169,6 +181,12 @@ ENV_CAM = ((0.0, 2.5, 5.5), (0.0, 1.2, 0.0))
 BATCH_NAMES = ("primary", "shadow0", "bounce1")   # first traversal calls
 CHUNK_STRIDE = 16   # compare every 16th chunk of a batch ...
 CMP_CHUNKS = 4      # ... and at most 4 chunks per batch
+# the tile widths the sweeps take beside the default 64 (PT_TILE_RAYS):
+# K1-K3 (K4 and K7 on the K1 chunks) replayed from frames traced at each,
+# WIDE_CMP_CHUNKS chunks a batch (a chunk holds 2048 tiles of R rays)
+WIDE_TILES = (128, 256)
+TILE_WIDTHS = (32, 64) + WIDE_TILES
+WIDE_CMP_CHUNKS = 1
 KERNELS = {
     "tile_cull": ("pathtracer_torch/csrc/cull.cu",
                   "pathtracer/kernels/pallas_cull.py:35"),
@@ -531,7 +549,7 @@ def bound_ms(name, args, pair_tests, tile_rays=64):
         return ops / PEAK_FP32_INSTR * 1e3, moved / PEAK_BYTES * 1e3, pairs
     if name in ("tile_cull", "tile_cull_skip"):
         lo, hi, o, inv_d, t_max = args
-        tiles = t_max.numel() // 64
+        tiles = t_max.numel() // tile_rays
         # K1: every unparked ray against every real cluster; K4: the
         # (ray, box) tests of its plain version (NB union boxes plus the
         # real clusters of kept blocks, per tile)
@@ -730,10 +748,10 @@ def phase_kernels(scene, cfg, cam):
         log("k4_adversarial", cases=len(traps.CULL_TRAPS),
             blks=list(SKIP_BLKS), exact=True)
 
-    def compare(name, label, args, kw, record=True):
+    def compare(name, label, args, kw, record=True, into=stats):
         run_kernel(name, args, kw)                            # warm-up
         out, ms = timed(lambda: run_kernel(name, args, kw))
-        if name == "tile_cull":
+        if name == "tile_cull" and into is stats:
             cull_chunks.append((label, args, kw, ms))
         pair_tests = torch.zeros((), dtype=torch.int64, device=DEVICE)
         ref, ms_p = timed(lambda: run_plain(name, args, kw, pair_tests))
@@ -786,12 +804,13 @@ def phase_kernels(scene, cfg, cam):
                 hints_on_edges=edge)
             err = 0.0
         if record:
-            record_stats(stats[name], name, args, ms, ms_p, pair_tests, err,
+            record_stats(into[name], name, args, ms, ms_p, pair_tests, err,
                          kw.get("tile_rays", 64))
             if name.startswith("sweep"):
-                stats[name]["walk"].append(walk_counts(name, args, kw))
-                stats[name]["shape"] = (args[2].shape[2],
-                                        args[4].tris_per_cluster)
+                into[name]["walk"].append(walk_counts(name, args, kw))
+                into[name]["shape"] = (args[2].shape[2],
+                                       args[4].tris_per_cluster)
+        return out
 
     for b in capture_chunks(scene, cfg, cam):
         for args, kw in b["tile_cull"]:
@@ -839,6 +858,9 @@ def phase_kernels(scene, cfg, cam):
                 ms=ms, k1_ms=k1_ms)
     stats["tile_cull_skip"] = skip_stats[SKIP_BLKS[0]]
 
+    wide = {w: phase_wide_tiles(scene, cfg, cam, w, compare, new_stats,
+                                record_stats) for w in WIDE_TILES}
+
     def summarize(name, s, **extra):
         if not s["calls"]:
             raise PhaseError(f"{name}: never compared")
@@ -853,6 +875,9 @@ def phase_kernels(scene, cfg, cam):
 
     for name, s in stats.items():
         summarize(name, s)
+    for w, ws in wide.items():
+        for name, s in ws.items():
+            summarize(name, s, tile_rays=w, rays_per_chunk=s["rays"])
     for blk in SKIP_BLKS[1:]:
         summarize("tile_cull_skip", skip_stats[blk], blk=blk)
     for blk, s in skip_stats.items():
@@ -888,7 +913,95 @@ def phase_kernels(scene, cfg, cam):
             kernel_over_needed=kernel / s["pairs"],
             columns=columns,
             **sweep.kernel_info(name, r, k))
+    for w, ws in wide.items():
+        for name in ("sweep_closest", "sweep_occluded"):
+            s = ws[name]
+            r, k = s["shape"]
+            log("sweep_work", kernel=name, tile_rays=w, chunks=s["calls"],
+                needed_tests=s["pairs"],
+                kernel_tests=sum(x[1] for x in s["walk"]) / s["calls"],
+                columns=sum(x[0] for x in s["walk"]) / s["calls"],
+                **sweep.kernel_info(name, r, k))
+    phase_tile_columns(scene, cfg, cam)
     return stats
+
+
+def phase_wide_tiles(scene, cfg, cam, tile_rays, compare, new_stats,
+                     record_stats):
+    """K1-K3 at tile_rays rays a tile on the chunks of a headline frame
+    traced under PT_TILE_RAYS=tile_rays (WIDE_CMP_CHUNKS a batch), each
+    against its plain version as at 64 rays (K1 bit-exact, K2 hit-exact
+    with t/u/v bit-exact, K3 exact); on each K1 chunk K4 at blk 128 (bit
+    for bit its plain version and K1, its mask sc_mask_plain's) and K7
+    (bit for bit its plain version). Returns {kernel: stats}."""
+    import torch
+
+    from pathtracer_torch.kernels import cull
+
+    ws = {k: dict(new_stats(), rays=0) for k in (
+        "tile_cull", "sweep_closest", "sweep_occluded", "tile_cull_skip",
+        "frustum_cull")}
+    env = {"PT_TILE_RAYS": str(tile_rays)}
+    for b in capture_chunks(scene, cfg, cam, env=env):
+        label = f"r{tile_rays}_{b['label']}"
+        for name in ("tile_cull", "sweep_closest", "sweep_occluded"):
+            for args, kw in b[name][:WIDE_CMP_CHUNKS]:
+                width = (kw["tile_rays"] if name == "tile_cull"
+                         else args[2].shape[2])
+                if width != tile_rays:
+                    raise PhaseError(f"{label}: {name} ran at {width} rays "
+                                     "a tile")
+                compare(name, label, args, kw, into=ws)
+                ws[name]["rays"] = (args[2].shape[0] if name == "tile_cull"
+                                    else args[2].shape[0] * tile_rays)
+        for args, kw in b["tile_cull"][:WIDE_CMP_CHUNKS]:
+            compare("frustum_cull", label, args, kw, into=ws)
+            ws["frustum_cull"]["rays"] = args[2].shape[0]
+            blk = SKIP_BLKS[0]
+            mask = torch.empty((kw["n_tiles"], cull.n_blocks(args[0].shape[0],
+                                                             blk)),
+                               dtype=torch.int32, device=DEVICE)
+
+            def k4():
+                return cull.tile_cull_skip(*args, **kw, blk=blk,
+                                           mask_out=mask)
+
+            k4()
+            got, ms = timed(k4)
+            pair_tests = torch.zeros((), dtype=torch.int64, device=DEVICE)
+            ref, ms_p = timed(lambda: cull.tile_cull_skip_plain(
+                *args, **kw, blk=blk, pair_tests=pair_tests))
+            if not (torch.equal(got, ref) and torch.equal(
+                    got, cull.tile_cull_plain(*args, **kw))
+                    and torch.equal(mask, cull.sc_mask_plain(
+                        *args, **kw, blk=blk))):
+                raise PhaseError(f"K4 {label}: differs from its plain "
+                                 "version, K1 or sc_mask_plain")
+            record_stats(ws["tile_cull_skip"], "tile_cull_skip", args, ms,
+                         ms_p, pair_tests, 0.0, tile_rays)
+            ws["tile_cull_skip"]["rays"] = args[2].shape[0]
+    for name, s in ws.items():
+        if not s["calls"]:
+            raise PhaseError(f"{name} at {tile_rays} rays: never compared")
+    return ws
+
+
+def phase_tile_columns(scene, cfg, cam):
+    """pair_metrics' bounce-1 columns at every tile width: per tile the
+    columns its sweep visits, per ray those it needs, and the waste."""
+    from pathtracer_torch.bench import pair_metrics
+
+    for w in TILE_WIDTHS:
+        with knob_env({"PT_TILE_RAYS": str(w)}):
+            o2, d2 = pair_metrics.bounce1_batch(scene, cfg, cam,
+                                                PAIR_CHECK_RAYS)
+            pm = pair_metrics.pair_metrics(
+                *pair_metrics.schedule_stats(scene.clusters, o2, d2),
+                scene.clusters.tris_per_cluster)
+        log("tile_width_columns", tile_rays=w,
+            visited=pm["tile_visited_cols_mean"],
+            needed=pm["ray_needed_cols_mean"], waste=pm["packet_waste"],
+            rays=pm["rays_probed"])
 
 
 # --- probes and bench -----------------------------------------------------
@@ -992,9 +1105,9 @@ def phase_probes():
     # P2 at the probe's shape, gated and ungated
     x = cond_probe.probe_input(DEVICE)
     for name, gate in (("cond_walk", False), ("cond_walk_gated", True)):
-        got = probes.cond_walk(x, cond_probe.N_ITER, gate, cond_probe.GRID)
         ext = torch.zeros((), dtype=torch.int64, device=DEVICE)
         ref = probes.cond_walk_plain(x, cond_probe.N_ITER, gate, ext)
+        got = probes.cond_walk(x, cond_probe.N_ITER, gate, cond_probe.GRID)
         if not same_bits(got, ref):
             raise PhaseError(f"{name} differs from its plain version")
         torch.cuda.synchronize()
@@ -1052,12 +1165,68 @@ def phase_probes():
                          else "bytes")
         s["launches"] = launches[name]
         log("kernel_vs_plain", kernel=name, **s)
+    walk = stats["cond_walk"]
+    log("probe_p2_bounds", card=card_line(),
+        always_ms=p2["always_ms"], gated_ms=p2["gated_ms"],
+        bound_ms={k: stats[k]["bound_ms"] for k in ("cond_walk",
+                                                    "cond_walk_gated")},
+        # the 64 grid steps on 64 SMs (were a step one CTA) would take
+        # at least 132 / 64 of the whole card's bound
+        bound_64_sms_ms=walk["bound_ms"] * 132 / 64,
+        extractions_gated=stats["cond_walk_gated"]["extractions"],
+        sass=p2_sass())
     log("probes", drive_s=drive_s, seconds=time.perf_counter() - t0,
         bf16_speedup=p1["bf16_speedup"],
         gated_over_always=p2["gated_over_always"],
         us_per_col_cpi1=p3[1]["full"], us_per_col_cpi12=p3[12]["full"],
         p3_over_k2=p3_vs_k2)
     return stats
+
+
+def p2_sass():
+    """Per P2 kernel (csrc/probes.cu cond_walk_*) the count of each SASS
+    instruction the extraction and the walk need - FADD (t = x + i), FMNMX
+    (the row's min), FSETP and SEL (the argmin), ISETP and FSEL (the
+    one-hot select) - from cuobjdump of the built library, so that a run
+    shows the compiler folded neither part away. Raises without
+    cuobjdump, or where a kernel lacks the argmin's or the select's
+    compares."""
+    import re
+
+    from pathtracer_torch.kernels import cuda_build
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        raise PhaseError(f"P2's SASS check needs {tool}")
+    so = cuda_build.build("probes")
+    text = subprocess.run([tool, "-sass", so], capture_output=True,
+                          text=True, timeout=120).stdout
+    counts, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = None
+            for kind in ("cond_walk_kernelILb0", "cond_walk_kernelILb1"):
+                if kind in m.group(1):
+                    cur = kind.replace("_kernelILb0", "_always").replace(
+                        "_kernelILb1", "_gated")
+                    counts[cur] = {}
+            continue
+        m = cur and re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?"
+                              r"([A-Z][A-Z0-9]*)", line)
+        if m and m.group(1) in ("FADD", "FMNMX", "FSETP", "SEL", "ISETP",
+                                "FSEL"):
+            c = counts[cur]
+            c[m.group(1)] = c.get(m.group(1), 0) + 1
+    if len(counts) != 2:
+        raise PhaseError(f"P2's SASS holds {sorted(counts)}, not both legs")
+    for kind, c in counts.items():
+        per = 32   # columns a thread holds
+        if c.get("FSETP", 0) < per or c.get("ISETP", 0) < per:
+            raise PhaseError(f"P2 {kind}: the SASS lacks the argmin's or "
+                             f"the one-hot select's compares ({c})")
+    return counts
 
 
 def p3_against_k2(lm, rays):
@@ -1396,6 +1565,8 @@ VARIANTS = [
     ("fetch_group2", {"PT_FETCH_GROUP": "2"}, {}, "ray"),
     ("sort_scope_chunk", {"PT_SORT_SCOPE": "chunk"}, {}, "ray"),
     ("tile_rays32", {"PT_TILE_RAYS": "32"}, {}, "ray"),
+    ("tile_rays128", {"PT_TILE_RAYS": "128"}, {}, "ray"),
+    ("tile_rays256", {"PT_TILE_RAYS": "256"}, {}, "ray"),
     ("skip_nee", {}, {"skip_nee": True}, "ray"),
 ]
 BUILD_KNOBS = ("PT_FINE_METHOD", "PT_COARSE_METHOD")
@@ -1562,6 +1733,8 @@ def phase_variants(scene, cfg, cam, tmp_dir):
                   build_s=build_s, peak_mem_bytes=res["peak_mem_bytes"],
                   k7_launches=res["launches"]["frustum_cull"],
                   k8_launches=res["launches"]["first_cluster"],
+                  launches={k: res["launches"][k]
+                            for k in UNPRIMED_KERNELS},
                   film_gate=gate, golden_gate=g_gate,
                   clusters=[vscene.clusters.n_clusters,
                             (vscene.clusters_fine or vscene.clusters)
@@ -1800,7 +1973,13 @@ def phase_images(cfg, cam, frames, tmp_dir):
            for k, ch in enumerate((4, 3))
            if not np.array_equal(native.image_decode(raw, name, ch),
                                  ref[name][k])]
-    log("images_fixtures", files=len(files), mismatched=bad)
+    tb_files, tb_ref = ic.load_fixtures("tga_bmp.npz")
+    bad += [f"{name}:{ch}" for name, raw in sorted(tb_files.items())
+            for k, ch in enumerate((4, 3))
+            if not np.array_equal(native.image_decode(raw, name, ch),
+                                  tb_ref[name][k])]
+    log("images_fixtures", files=len(files) + len(tb_files),
+        tga_bmp=len(tb_files), mismatched=bad)
     if bad:
         raise PhaseError(f"images: the native decode differs from PIL's "
                          f"on {bad}")
@@ -1818,6 +1997,7 @@ def phase_images(cfg, cam, frames, tmp_dir):
         digests = json.load(f)
     bench = {"png8_rgb": (native.png_encode(src8), src8),
              "png16_rgb": (ic.png_file(src16, 2, 16), src16 >> 8)}
+    bench.update(tga_bmp_bench(ic, src8, rng))
     for name in sorted(k.split(":")[0] for k in digests):
         with open(os.path.join(ic.DATA_DIR, name), "rb") as f:
             bench[name] = (f.read(), digests[f"{name}:RGB"])
@@ -1830,8 +2010,7 @@ def phase_images(cfg, cam, frames, tmp_dir):
             wrong.append(name)
     card = card_line()
     log("images_decode", card=card, seconds_per_mp=per_mp,
-        megapixels={k: n * n / 1e6 if k.startswith("png") else 1.048576
-                    for k in bench},
+        megapixels={k: n * n / 1e6 for k in bench},
         file_bytes={k: len(v[0]) for k, v in bench.items()}, wrong=wrong)
     print(f"images decode s/MP on {card}: "
           + ", ".join(f"{k} {v:.6f}" for k, v in per_mp.items()),
@@ -1873,6 +2052,130 @@ def phase_images(cfg, cam, frames, tmp_dir):
     if not same_film or res_g["rays_per_step"] != res_d["rays_per_step"]:
         raise PhaseError("images: the .glb's render differs from the scene "
                          "built from the decoded arrays directly")
+    obj_tga_bmp(ic, tb_files, tb_ref, cfg, frames, tmp_dir)
+
+
+def tga_bmp_bench(ic, src8, rng):
+    """name -> (bytes, the RGB decode it must give) of 1024x1024 TGA and
+    BMP made by tests/image_codecs.py's writers (no PIL on the card): raw
+    24-bit and RLE 32-bit TGA, 24-bit and RLE8 BMP, top-down rows."""
+    import numpy as np
+
+    n = src8.shape[0]
+    blocky = np.repeat(src8[::4, ::4], 4, 0)[:n].repeat(4, 1)[:, :n]
+    alpha = np.full((n, n, 1), 200, np.uint8)
+    pal = rng.integers(0, 256, (256, 3)).astype(np.uint8)
+    idx = np.repeat(np.arange(n) // 4 % 256, n).reshape(n, n).T.astype(
+        np.uint8)
+    return {
+        "tga24_rgb": (ic.tga_file(src8[..., ::-1].reshape(n, -1), 2, 24,
+                                  flags=0x20), src8),
+        "tga32rle_rgb": (ic.tga_file(np.concatenate(
+            [blocky[..., ::-1], alpha], -1).reshape(n, -1), 10, 32,
+            flags=0x20), blocky),
+        "bmp24_rgb": (ic.bmp_file(src8[..., ::-1].reshape(n, -1), n, n, 24,
+                                  top_down=True), src8),
+        "bmp_rle8_rgb": (ic.bmp_file(idx, n, n, 8, comp=1, palette=pal,
+                                     top_down=True, deltas=False),
+                         pal[idx]),
+    }
+
+
+# an OBJ/MTL scene with TGA and BMP textures: a floor (RLE TGA with a
+# 16-bit colour map) and a back wall (RLE4 BMP), each a grid of quads so
+# that the scene takes the cluster route (more than 256 triangles), and a
+# lamp
+def tga_bmp_obj(cells=12):
+    """The OBJ text of the floor, wall and lamp grids."""
+    lines = ["mtllib tb.mtl"]
+    n = cells + 1
+
+    def grid(corner, du, dv, mtl, base):
+        for j in range(n):
+            for i in range(n):
+                p = [corner[k] + du[k] * i / cells + dv[k] * j / cells
+                     for k in range(3)]
+                lines.append("v %.6f %.6f %.6f" % tuple(p))
+                lines.append(f"vt {i / cells:.6f} {j / cells:.6f}")
+        lines.append(f"usemtl {mtl}")
+        for j in range(cells):
+            for i in range(cells):
+                a = base + j * n + i + 1
+                q = (a, a + 1, a + n + 1, a + n)
+                lines.append("f " + " ".join(f"{x}/{x}" for x in q))
+        return base + n * n
+
+    base = grid((-2, 0, 0), (4, 0, 0), (0, 0, -4), "floor", 0)
+    base = grid((-2, 0, -4.01), (4, 0, 0), (0, 3, 0), "wall", base)
+    lines += ["v -0.5 2.9 -2.5", "v 0.5 2.9 -2.5", "v 0.5 2.9 -1.5",
+              "v -0.5 2.9 -1.5", "vt 0 0", "usemtl lamp",
+              "f " + " ".join(f"{base + k}/1" for k in (1, 2, 3, 4))]
+    return "\n".join(lines) + "\n"
+
+
+TGA_BMP_MTL = """newmtl floor
+Kd 1 1 1
+map_Kd {tga}
+newmtl wall
+Kd 1 1 1
+Ns 10
+map_Kd {bmp}
+newmtl lamp
+Kd 1 1 1
+Ke 6 6 5
+"""
+TGA_BMP_TEXTURES = ("p_cmap16_rle.tga", "rle4.bmp")
+TGA_BMP_CAM = ((0.0, 1.4, 2.5), (0.0, 1.0, -3.0))
+
+
+def obj_tga_bmp(ic, files, ref, cfg, frames, tmp_dir):
+    """The OBJ/MTL of TGA_BMP_TEXTURES loaded by the port (its tables
+    equal to the same scene built from the committed PIL arrays) and
+    rendered at IMAGE_RENDER^2 on the cluster route (K1-K3): film and ray
+    counts bit for bit the direct scene's."""
+    import numpy as np
+
+    from pathtracer_torch.accel.cluster import build_scene_clusters
+    from pathtracer_torch.scene.objload import load_obj
+
+    tga, bmp = TGA_BMP_TEXTURES
+    for name in TGA_BMP_TEXTURES:
+        with open(os.path.join(tmp_dir, name), "wb") as f:
+            f.write(files[name])
+    with open(os.path.join(tmp_dir, "tb.mtl"), "w") as f:
+        f.write(TGA_BMP_MTL.format(tga=tga, bmp=bmp))
+    path = os.path.join(tmp_dir, "tb.obj")
+    with open(path, "w") as f:
+        f.write(tga_bmp_obj())
+    loaded = load_obj(path)
+    with ic.decoded_by_pil(files, ref):
+        direct = load_obj(path)
+    tables, direct_tables = loaded.finalize_numpy(), direct.finalize_numpy()
+    differ = [k for k, v in tables.items() if not (
+        np.array_equal(v, direct_tables[k]) if isinstance(v, np.ndarray)
+        else v == direct_tables[k])]
+    if differ or not tables["has_textures"] or len(tables["indices"]) <= 256:
+        raise PhaseError(f"images: the TGA/BMP OBJ's tables differ from "
+                         f"the scene built from PIL's arrays: {differ}")
+    icfg = dataclasses.replace(cfg, width=IMAGE_RENDER, height=IMAGE_RENDER)
+    runs = []
+    for label, builder in (("images_obj", loaded), ("images_obj_direct",
+                                                    direct)):
+        scene = build_scene_clusters(builder.finalize(device="cpu")).to(
+            DEVICE)
+        res, r = drive(label, scene, icfg, camera(TGA_BMP_CAM), frames,
+                       UNPRIMED_KERNELS)
+        runs.append((res, r.film.accum.cpu().numpy()))
+        del r, scene
+    (res_o, film_o), (res_d, film_d) = runs
+    same = (film_o.tobytes() == film_d.tobytes()
+            and res_o["rays_per_step"] == res_d["rays_per_step"])
+    log("images_obj", textures=list(TGA_BMP_TEXTURES), same_film=same,
+        film_mean=float(film_o.mean()), finite=bool(
+            np.isfinite(film_o).all()), rays=res_o["rays_per_step"])
+    if not same or not np.isfinite(film_o).all() or film_o.mean() <= 0:
+        raise PhaseError("images: the TGA/BMP OBJ renders otherwise than "
+                         "the scene built from PIL's arrays")
 
 
 def phase_viewer(lscene, cfg, glb, tmp_dir):

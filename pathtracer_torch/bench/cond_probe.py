@@ -1,9 +1,12 @@
-"""What does a block-uniform skip of the argmin extraction save? (counterpart of benchmarks/cond_probe.py)
+"""P2: the argmin extraction always run against gated by a branch (counterpart of benchmarks/cond_probe.py)
 
 Times P2 (kernels/probes.cond_walk: 256 fake columns over a [64, 512]
-tile, a grid of 64 blocks) with the extraction always run and gated
-behind a branch on whether any row may improve - the shape of a
-warp-uniform skip at K2's column entry - with CUDA events.
+tile, a grid of 64 steps) with the extraction always run and gated
+behind a branch on whether any row may improve, with CUDA events. On
+the card a grid step is a 2-CTA cluster whose gate waits on a cluster
+barrier every step, a cost that K2 (one CTA a tile) would not pay, so
+the ratio weighs this kernel's gate against the extractions it skips;
+it is not what a skip in K2 would save.
 
     python -m pathtracer_torch.bench.cond_probe
 

@@ -12,7 +12,7 @@ from true primary hits), from exact schedule and stop data:
 and the cost model they imply at the card's own rate:
 
   sweep_pairs_g           (ray, triangle) pairs the visited columns hold
-                          (cols x TILE_RAYS x K)
+                          (cols x PT_TILE_RAYS x K)
   sweep_us_per_iter       K2's cost of one column a tile on this card,
                           measured live by P3 (bench/sweep_attrib.py,
                           full variant at cpi 1) when the scene is on a
@@ -49,7 +49,8 @@ def bounce1_batch(scene, cfg, camera, max_rays: int = 1 << 21):
     accel = scene.clusters
     dev = scene.device
     w, h = cfg.width, cfg.height
-    n = min(w * h, max_rays) // packet.TILE_RAYS * packet.TILE_RAYS
+    tile_rays = packet.tile_rays_knob()
+    n = min(w * h, max_rays) // tile_rays * tile_rays
     cs = camera.state(device=dev) if hasattr(camera, "state") else camera
     pix = torch.arange(n, dtype=torch.int64, device=dev)
     samp = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -80,11 +81,11 @@ def bounce1_batch(scene, cfg, camera, max_rays: int = 1 << 21):
 
 
 def schedule_and_stops(accel, o2, d2):
-    """The batch (o2, d2) [n, 3] (n a multiple of TILE_RAYS) as the closest
+    """The batch (o2, d2) [n, 3] (n a multiple of PT_TILE_RAYS) as the closest
     call orders it: coherence sort (2 direction bits), K1 cull, per-tile
     schedule -> (st f32[tiles, C], best f32[tiles, R]: each ray's stop,
     its hit or the scene exit, live bool[tiles, R]: rays not parked)."""
-    tile_rays = packet.TILE_RAYS
+    tile_rays = packet.tile_rays_knob()
     n = o2.shape[0]
     n_tiles = n // tile_rays
     t_max = torch.full((n,), 1e20, dtype=torch.float32, device=o2.device)
@@ -131,7 +132,7 @@ def pair_metrics(vis, need, tile_live, live, k, us_per_col=None):
     need = need[live]
     if vis.size == 0 or need.size == 0:
         return {"error": "no live rays in bounce-1 batch"}
-    tile_rays = packet.TILE_RAYS
+    tile_rays = packet.tile_rays_knob()
     visited_mean = float(vis.mean())
     needed_mean = float(need.mean())
     # per-ray columns the packet actually pays, amortized over live rays

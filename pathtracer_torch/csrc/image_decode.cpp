@@ -1,15 +1,19 @@
 // Host image decoders of pathtracer_torch: PNG (every colour type and bit
 // depth, Adam7, PLTE/tRNS), JPEG (baseline, extended 8-bit and progressive
 // Huffman, 1 or 3 components, any integral sampling factors, restart
-// intervals) and Radiance RGBE scanlines.
+// intervals), TGA (image types 1-3 and 9-11, 1- to 32-bit pixels, 16- and
+// 24-bit colour maps, both origins), BMP (core, info and V2-V5 headers,
+// 1- to 32-bit pixels, RLE8, RLE4 and BITFIELDS, both row orders) and
+// Radiance RGBE scanlines.
 //
 // The pixels are those of PIL's Image.open(...).convert("RGBA") /
 // convert("RGB"): PIL's own conversions for PNG (1/2/4-bit gray scaled,
 // 16-bit gray clipped at 255, other 16-bit samples cut to the high byte,
-// tRNS keys compared on their low byte), and libjpeg's defaults for JPEG
+// tRNS keys compared on their low byte), libjpeg's defaults for JPEG
 // (JDCT_ISLOW integer IDCT, "fancy" triangle upsampling, fixed-point
-// YCbCr -> RGB). utils/image_plain.py is the plain numpy version, step for
-// step; the two agree bit for bit.
+// YCbCr -> RGB), and PIL's TgaImagePlugin and BmpImagePlugin for TGA and
+// BMP (see the TGA/BMP section). utils/image_plain.py is the plain numpy
+// version, step for step; the two agree bit for bit.
 //
 // Built at first use by utils/native.py:
 //   g++ -O3 -std=c++17 -fPIC -shared image_decode.cpp -lz
@@ -19,7 +23,9 @@
 // format as far as it was read, e.g. "progressive JPEG of 3 components"):
 //   pti_probe(data, n, &w, &h, &channels, name, cap)
 //       PNG: the file's own channels (1 gray, 2 gray+alpha, 3 RGB or
-//       palette, 4 RGBA or palette with tRNS); JPEG: 1 or 3
+//       palette, 4 RGBA or palette with tRNS); JPEG: 1 or 3; TGA/BMP: 1
+//       gray, 2 gray+alpha, 3 RGB or palette, 4 RGBA or alpha through a
+//       palette
 //   pti_decode(data, n, w, h, out_channels, out, name, cap)
 //       u8 [h, w, out_channels], 3 or 4; w and h are the probe's, and a
 //       file whose frame says otherwise is corrupt
@@ -975,6 +981,513 @@ void jpeg_decode(const uint8_t* d, int64_t n, int w, int h, int out_ch,
   }
 }
 
+// ---------------------------------------------------------------------------
+// TGA and BMP, as PIL's TgaImagePlugin and BmpImagePlugin read them
+// ---------------------------------------------------------------------------
+//
+// Both read into PIL's image modes (Pil: "1" as 0/255, L, LA, P with a
+// palette, L/LA read through a TGA colour map, RGB, RGBA), which
+// pil_convert turns into convert("RGBA") / convert("RGB"). The rules are
+// PIL's (utils/image_plain.py lists them): 5- and 6-bit channels scale by
+// v * 255 / 31 and v * 255 / 63, a palette index past the palette is
+// black and opaque, a 16-bit TGA pixel is opaque where its top bit is
+// clear, a BMP palette of gray ramp entries makes an L or "1" image read
+// with the file's bytes as 8- or 1-bit pixels, a BMP RLE stream is walked
+// as BmpRleDecoder walks it and a TGA one as PIL's tga_rle decoder does.
+
+constexpr int64_t kMaxPixels = 2 * int64_t(89478485);   // PIL's bomb limit
+
+// PIL raw modes of the two formats
+enum Raw {
+  kRawP, kRawL, kRawLA, kRaw1, kRawP1, kRawP4, kRawBGRA15Z, kRawBGR15,
+  kRawBGR16, kRawBytes
+};
+
+struct RawMode {
+  Raw kind = kRawP;
+  int n = 1;                       // bytes a pixel (kRawBytes: 3 or 4)
+  int r = 2, g = 1, b = 0, a = -1;  // kRawBytes: byte of each channel
+};
+
+RawMode bytes_mode(const char* order) {   // e.g. "BGRX": B, G, R, pad
+  RawMode m;
+  m.kind = kRawBytes;
+  m.n = int(std::strlen(order));
+  for (int i = 0; i < m.n; ++i) {
+    if (order[i] == 'R') m.r = i;
+    if (order[i] == 'G') m.g = i;
+    if (order[i] == 'B') m.b = i;
+    if (order[i] == 'A') m.a = i;
+  }
+  return m;
+}
+
+RawMode simple_mode(Raw kind) {
+  RawMode m;
+  m.kind = kind;
+  m.n = (kind == kRawLA || kind == kRawBGRA15Z || kind == kRawBGR15 ||
+         kind == kRawBGR16) ? 2 : 1;
+  return m;
+}
+
+// bytes of a row of w pixels in raw mode m
+int64_t row_bytes(const RawMode& m, int64_t w) {
+  if (m.kind == kRaw1 || m.kind == kRawP1) return (w + 7) / 8;
+  if (m.kind == kRawP4) return (w * 4 + 7) / 8;
+  return w * m.n;
+}
+
+// channels a pixel holds once unpacked (the mode's bands)
+int mode_channels(const RawMode& m) {
+  switch (m.kind) {
+    case kRawLA: return 2;
+    case kRawBGRA15Z: return 4;
+    case kRawBGR15: case kRawBGR16: return 3;
+    case kRawBytes: return m.a >= 0 ? 4 : 3;
+    default: return 1;
+  }
+}
+
+inline int scale5(int v) { return v * 255 / 31; }
+
+// one row of w pixels from src (raw mode m) into dst (mode_channels a px)
+void unpack_row(const RawMode& m, const uint8_t* src, int64_t w,
+                uint8_t* dst) {
+  const int ch = mode_channels(m);
+  for (int64_t x = 0; x < w; ++x) {
+    uint8_t* o = dst + x * ch;
+    switch (m.kind) {
+      case kRaw1: o[0] = (src[x >> 3] >> (7 - (x & 7))) & 1 ? 255 : 0; break;
+      case kRawP1: o[0] = (src[x >> 3] >> (7 - (x & 7))) & 1; break;
+      case kRawP4: o[0] = (src[x >> 1] >> ((x & 1) ? 0 : 4)) & 15; break;
+      case kRawLA: o[0] = src[2 * x]; o[1] = src[2 * x + 1]; break;
+      case kRawBGRA15Z: case kRawBGR15: case kRawBGR16: {
+        const int v = src[2 * x] | (src[2 * x + 1] << 8);
+        o[2] = uint8_t(scale5(v & 31));
+        if (m.kind == kRawBGR16) {
+          o[1] = uint8_t(((v >> 5) & 63) * 255 / 63);
+          o[0] = uint8_t(scale5((v >> 11) & 31));
+        } else {
+          o[1] = uint8_t(scale5((v >> 5) & 31));
+          o[0] = uint8_t(scale5((v >> 10) & 31));
+        }
+        if (m.kind == kRawBGRA15Z) o[3] = (v & 0x8000) ? 0 : 255;
+        break;
+      }
+      case kRawBytes: {
+        const uint8_t* p = src + x * m.n;
+        o[0] = p[m.r];
+        o[1] = p[m.g];
+        o[2] = p[m.b];
+        if (m.a >= 0) o[3] = p[m.a];
+        break;
+      }
+      default: o[0] = src[x];   // P, L
+    }
+  }
+}
+
+// A file read in PIL's terms: w x h pixels of ch bands; with a palette
+// (P, or L/LA through a TGA colour map) band 0 indexes it and an LA
+// image keeps band 1 as its alpha.
+struct Pil {
+  int64_t w = 0, h = 0;
+  int ch = 1;
+  bool has_pal = false;
+  uint8_t pal[256][4];
+  std::vector<uint8_t> px;
+
+  void reset_palette() {
+    for (auto& e : pal) e[0] = e[1] = e[2] = 0, e[3] = 255;
+  }
+};
+
+// PIL's convert("RGBA") (out_ch 4) / convert("RGB") (out_ch 3)
+void pil_convert(const Pil& im, int out_ch, uint8_t* out) {
+  const int64_t npx = im.w * im.h;
+  for (int64_t i = 0; i < npx; ++i) {
+    const uint8_t* p = im.px.data() + i * im.ch;
+    uint8_t* o = out + i * out_ch;
+    uint8_t a = 255;
+    if (im.has_pal) {
+      const uint8_t* e = im.pal[p[0]];
+      o[0] = e[0]; o[1] = e[1]; o[2] = e[2];
+      a = im.ch == 2 ? p[1] : e[3];
+    } else if (im.ch <= 2) {
+      o[0] = o[1] = o[2] = p[0];
+      if (im.ch == 2) a = p[1];
+    } else {
+      o[0] = p[0]; o[1] = p[1]; o[2] = p[2];
+      if (im.ch == 4) a = p[3];
+    }
+    if (out_ch == 4) o[3] = a;
+  }
+}
+
+// h rows of raw mode m from d[pos..], stride bytes apart, into im.px;
+// bottom_up: the file's first row is the image's last. Every row must be
+// there (PIL's raw decoder).
+void read_rows(const uint8_t* d, int64_t n, int64_t pos, int64_t stride,
+               const RawMode& m, bool bottom_up, Pil& im) {
+  const int64_t rb = row_bytes(m, im.w);
+  if (pos < 0 || pos + (im.h - 1) * stride + rb > n) throw Corrupt();
+  im.px.assign(size_t(im.w * im.h * im.ch), 0);
+  for (int64_t y = 0; y < im.h; ++y) {
+    const int64_t dy = bottom_up ? im.h - 1 - y : y;
+    unpack_row(m, d + pos + y * stride, im.w,
+               im.px.data() + dy * im.w * im.ch);
+  }
+}
+
+bool tga_accept(const uint8_t* d, int64_t n) {
+  if (n < 18) return false;
+  const int w = d[12] | (d[13] << 8), h = d[14] | (d[15] << 8);
+  const int depth = d[16], type = d[2];
+  return d[1] <= 1 && w > 0 && h > 0 &&
+         (depth == 1 || depth == 8 || depth == 16 || depth == 24 ||
+          depth == 32) &&
+         (type == 1 || type == 2 || type == 3 || type == 9 || type == 10 ||
+          type == 11);
+}
+
+// PIL's tga_rle decoder: packets of (count & 0x7f) + 1 pixels of `size`
+// bytes, a run (high bit) of one pixel or a literal; a run past a row's
+// end is an overrun, a literal goes on over the next rows. Rows in file
+// order into rows [h][w * size].
+void tga_rle(const uint8_t* d, int64_t n, int64_t pos, int64_t w, int64_t h,
+             int size, std::vector<uint8_t>& rows) {
+  if (size == 0) throw Corrupt();   // PIL's decoder never fills a 1-bit row
+  const int64_t rb = w * size;
+  rows.assign(size_t(rb * h), 0);
+  int64_t y = 0, x = 0;
+  while (y < h) {
+    if (pos >= n) throw Corrupt();
+    const int head = d[pos];
+    int64_t len = int64_t(size) * ((head & 0x7F) + 1);
+    if (head & 0x80) {
+      if (pos + 1 + size > n || x + len > rb) throw Corrupt();
+      uint8_t* o = rows.data() + y * rb + x;
+      for (int64_t i = 0; i < len; i += size)
+        std::memcpy(o + i, d + pos + 1, size_t(size));
+      pos += 1 + size;
+      x += len;
+      if (x == rb) x = 0, ++y;
+    } else {
+      if (pos + 1 + len > n) throw Corrupt();
+      int64_t src = pos + 1;
+      pos += 1 + len;
+      while (len > 0 && y < h) {
+        const int64_t m = std::min(len, rb - x);
+        std::memcpy(rows.data() + y * rb + x, d + src, size_t(m));
+        src += m;
+        len -= m;
+        x += m;
+        if (x == rb) x = 0, ++y;
+      }
+    }
+  }
+}
+
+// A TGA's header, colour map and mode (PIL's TgaImageFile), and with
+// `with_data` its pixels.
+void tga_read(const uint8_t* d, int64_t n, bool with_data, Pil& im,
+              std::string& name) {
+  const int id_len = d[0], cmap_type = d[1], type = d[2];
+  const int cstart = d[3] | (d[4] << 8), clen = d[5] | (d[6] << 8);
+  const int cdepth = d[7], depth = d[16], flags = d[17];
+  im.w = d[12] | (d[13] << 8);
+  im.h = d[14] | (d[15] << 8);
+  static const char* kKinds[] = {"", "colour-mapped", "true-colour", "gray"};
+  name = std::to_string(depth) + "-bit " + kKinds[type & 7] +
+         ((type & 8) ? " RLE" : "") + " TGA";
+  if (im.w * im.h > kMaxPixels) throw Corrupt();
+  int64_t pos = 18 + id_len;
+  im.reset_palette();
+  if (cmap_type) {
+    if (cdepth != 16 && cdepth != 24) {
+      name += " with a " + std::to_string(cdepth) + "-bit colour map";
+      throw Unsupported();
+    }
+    const RawMode pm = cdepth == 16 ? simple_mode(kRawBGRA15Z)
+                                    : bytes_mode("BGR");
+    const int64_t eb = pm.n;
+    if (pos + eb * clen > n) throw Corrupt();
+    if (cstart + clen > 256) {
+      name += " with a colour map of " + std::to_string(cstart + clen) +
+              " entries";
+      throw Unsupported();
+    }
+    uint8_t px[4] = {0, 0, 0, 255};
+    for (int i = 0; i < clen; ++i) {
+      unpack_row(pm, d + pos + eb * i, 1, px);
+      uint8_t* e = im.pal[cstart + i];
+      e[0] = px[0]; e[1] = px[1]; e[2] = px[2];
+      e[3] = cdepth == 16 ? px[3] : 255;
+    }
+    pos += eb * clen;
+    im.has_pal = true;
+  }
+  RawMode m;
+  const int key = ((type & 7) << 8) | depth;
+  switch (key) {
+    case (1 << 8) | 8: m = simple_mode(kRawP); break;
+    case (3 << 8) | 1: m = simple_mode(kRaw1); break;
+    case (3 << 8) | 8: m = simple_mode(kRawL); break;
+    case (3 << 8) | 16: m = simple_mode(kRawLA); break;
+    case (2 << 8) | 16: m = simple_mode(kRawBGRA15Z); break;
+    case (2 << 8) | 24: m = bytes_mode("BGR"); break;
+    case (2 << 8) | 32: m = bytes_mode("BGRA"); break;
+    default: throw Unsupported();
+  }
+  if (m.kind == kRawP && !cmap_type) {
+    name += " without a colour map";
+    throw Unsupported();
+  }
+  if (cmap_type && m.kind != kRawP && m.kind != kRawL && m.kind != kRawLA) {
+    name += " with a colour map";
+    throw Unsupported();
+  }
+  im.ch = mode_channels(m);
+  if (!with_data) return;
+  const bool bottom_up = !(flags & 0x20);
+  if (type & 8) {
+    std::vector<uint8_t> rows;
+    tga_rle(d, n, pos, im.w, im.h, depth / 8, rows);
+    read_rows(rows.data(), int64_t(rows.size()), 0, im.w * (depth / 8), m,
+              bottom_up, im);
+  } else {
+    read_rows(d, n, pos, row_bytes(m, im.w), m, bottom_up, im);
+  }
+  if (flags & 0x10)   // PIL's FLIP_LEFT_RIGHT after the load
+    for (int64_t y = 0; y < im.h; ++y) {
+      uint8_t* row = im.px.data() + y * im.w * im.ch;
+      for (int64_t a = 0, b = im.w - 1; a < b; ++a, --b)
+        for (int c = 0; c < im.ch; ++c)
+          std::swap(row[a * im.ch + c], row[b * im.ch + c]);
+    }
+}
+
+inline uint32_t le32(const uint8_t* p) {
+  return uint32_t(p[0]) | (uint32_t(p[1]) << 8) | (uint32_t(p[2]) << 16) |
+         (uint32_t(p[3]) << 24);
+}
+inline uint32_t le16(const uint8_t* p) { return p[0] | (uint32_t(p[1]) << 8); }
+
+// PIL's BmpRleDecoder from d[pos..]: indices [h][w] in file row order
+void bmp_rle(const uint8_t* d, int64_t n, int64_t pos, int64_t w, int64_t h,
+             bool rle4, std::vector<uint8_t>& out) {
+  const int64_t total = w * h;
+  out.clear();
+  out.reserve(size_t(total));
+  int64_t x = 0;
+  while (int64_t(out.size()) < total) {
+    if (pos + 2 > n) break;
+    int count = d[pos];
+    const int byte = d[pos + 1];
+    pos += 2;
+    if (count) {                                    // encoded run
+      if (x + count > w) count = int(std::max<int64_t>(0, w - x));
+      for (int i = 0; i < count; ++i)
+        out.push_back(uint8_t(rle4 ? (i % 2 ? byte & 15 : byte >> 4)
+                                   : byte));
+      x += count;
+    } else if (byte == 0) {                         // end of line
+      while (int64_t(out.size()) % w) out.push_back(0);
+      x = 0;
+    } else if (byte == 1) {                         // end of bitmap
+      break;
+    } else if (byte == 2) {                         // delta: four bytes
+      if (pos + 2 > n) break;
+      pos += 2;
+      if (pos + 2 > n) throw Corrupt();
+      const int64_t right = d[pos], up = d[pos + 1];
+      pos += 2;
+      // only the first w * h indices are read: a delta grows no further
+      out.resize(size_t(std::min(int64_t(out.size()) + right + up * w, total)),
+                 0);
+      x = int64_t(out.size()) % w;
+    } else {                                        // absolute run
+      const int64_t nb = rle4 ? byte / 2 : byte;
+      const int64_t got = std::min(nb, n - pos);
+      for (int64_t i = 0; i < got; ++i) {
+        const int v = d[pos + i];
+        if (rle4) {
+          out.push_back(uint8_t(v >> 4));
+          out.push_back(uint8_t(v & 15));
+        } else {
+          out.push_back(uint8_t(v));
+        }
+      }
+      pos += got;
+      if (got < nb) break;
+      x += byte;
+      if (pos % 2) ++pos;
+    }
+  }
+  if (int64_t(out.size()) < total) throw Corrupt();
+}
+
+// A BMP's headers, palette and mode (PIL's BmpImageFile), and with
+// `with_data` its pixels.
+void bmp_read(const uint8_t* d, int64_t n, bool with_data, Pil& im,
+              std::string& name) {
+  name = "BMP";
+  if (n < 18) throw Corrupt();
+  int64_t offset = le32(d + 10);
+  const uint32_t hsize = le32(d + 14);
+  if (hsize != 12 && hsize != 40 && hsize != 52 && hsize != 56 &&
+      hsize != 64 && hsize != 108 && hsize != 124) {
+    name = "BMP with a " + std::to_string(hsize) + "-byte header";
+    throw Unsupported();
+  }
+  if (n < 14 + int64_t(hsize)) throw Corrupt();
+  const uint8_t* hd = d + 18;
+  int64_t pos = 14 + hsize;
+  uint32_t comp = 0, colors = 0, bits, masks[4] = {0, 0, 0, 0};
+  int pad = 4;
+  bool top_down = false;
+  if (hsize == 12) {
+    im.w = le16(hd);
+    im.h = le16(hd + 2);
+    bits = le16(hd + 6);
+    pad = 3;
+  } else {
+    im.w = le32(hd);
+    const uint32_t h_raw = le32(hd + 4);
+    bits = le16(hd + 10);
+    comp = le32(hd + 12);
+    colors = le32(hd + 28);
+    top_down = hd[7] == 0xFF;
+    im.h = top_down ? int64_t(4294967296LL - h_raw) : int64_t(h_raw);
+    if (comp == 3) {
+      if (hsize >= 52) {
+        const int nm = hsize >= 56 ? 4 : 3;
+        for (int i = 0; i < nm; ++i) masks[i] = le32(hd + 36 + 4 * i);
+      } else {
+        if (pos + 12 > n) throw Corrupt();
+        for (int i = 0; i < 3; ++i) masks[i] = le32(d + pos + 4 * i);
+        pos += 12;
+      }
+    }
+  }
+  static const char* kComp[] = {"", "RLE8 ", "RLE4 ", "BITFIELDS "};
+  name = std::to_string(bits) + "-bit " + (comp < 4 ? kComp[comp] : "") +
+         "BMP";
+  if (im.w == 0 || im.h == 0 || im.w * im.h > kMaxPixels) throw Corrupt();
+  if (colors == 0 && bits < 32) colors = 1u << bits;
+  if (offset == 14 + int64_t(hsize) && bits <= 8) offset += 4 * int64_t(colors);
+  RawMode m;
+  bool pal_mode = false;
+  switch (bits) {
+    case 1: m = simple_mode(kRawP1); pal_mode = true; break;
+    case 4: m = simple_mode(kRawP4); pal_mode = true; break;
+    case 8: m = simple_mode(kRawP); pal_mode = true; break;
+    case 16: m = simple_mode(kRawBGR15); break;
+    case 24: m = bytes_mode("BGR"); break;
+    case 32: m = bytes_mode("BGRX"); break;
+    default: throw Unsupported();
+  }
+  bool rle = false;
+  if (comp == 3) {
+    struct Masks {
+      uint32_t bits, r, g, b, a;
+      const char* raw;
+    };
+    static const Masks kMasks[] = {
+        {32, 0xFF0000, 0xFF00, 0xFF, 0x0, "BGRX"},
+        {32, 0xFF000000, 0xFF0000, 0xFF00, 0x0, "XBGR"},
+        {32, 0xFF000000, 0xFF00, 0xFF, 0x0, "BGXR"},
+        {32, 0xFF000000, 0xFF0000, 0xFF00, 0xFF, "ABGR"},
+        {32, 0xFF, 0xFF00, 0xFF0000, 0xFF000000, "RGBA"},
+        {32, 0xFF0000, 0xFF00, 0xFF, 0xFF000000, "BGRA"},
+        {32, 0xFF000000, 0xFF00, 0xFF, 0xFF0000, "BGAR"},
+        {32, 0x0, 0x0, 0x0, 0x0, "BGRA"},
+        {24, 0xFF0000, 0xFF00, 0xFF, 0, "BGR"},
+        {16, 0xF800, 0x7E0, 0x1F, 0, "BGR;16"},
+        {16, 0x7C00, 0x3E0, 0x1F, 0, "BGR;15"}};
+    const Masks* hit = nullptr;
+    for (const Masks& k : kMasks)
+      if (k.bits == bits && k.r == masks[0] && k.g == masks[1] &&
+          k.b == masks[2] && (bits != 32 || k.a == masks[3])) {
+        hit = &k;
+        break;
+      }
+    if (hit == nullptr) {
+      char buf[80];
+      std::snprintf(buf, sizeof(buf), " with masks %x %x %x %x", masks[0],
+                    masks[1], masks[2], masks[3]);
+      name += buf;
+      throw Unsupported();
+    }
+    if (std::strcmp(hit->raw, "BGR;16") == 0)
+      m = simple_mode(kRawBGR16);
+    else if (std::strcmp(hit->raw, "BGR;15") == 0)
+      m = simple_mode(kRawBGR15);
+    else
+      m = bytes_mode(hit->raw);
+  } else if (comp == 1 || comp == 2) {
+    rle = true;
+  } else if (comp != 0) {
+    name = "BMP with compression " + std::to_string(comp);
+    throw Unsupported();
+  }
+  im.reset_palette();
+  if (pal_mode) {
+    if (colors == 0 || colors > 65536) {
+      name += " with " + std::to_string(colors) + " palette entries";
+      throw Unsupported();
+    }
+    // as many entries as the file holds (PIL reads what is there)
+    const int64_t n_ent = std::max<int64_t>(
+        0, std::min<int64_t>(colors, (n - pos) / pad));
+    bool gray = n_ent == colors;
+    for (int64_t i = 0; gray && i < n_ent; ++i) {
+      const int64_t v = colors == 2 ? (i == 0 ? 0 : 255) : i;
+      const uint8_t* e = d + pos + i * pad;
+      gray = v < 256 && e[0] == v && e[1] == v && e[2] == v;
+    }
+    if (gray) {
+      m = simple_mode(colors == 2 ? kRaw1 : kRawL);
+    } else if (n_ent > 256) {
+      name += " with " + std::to_string(n_ent) + " palette entries";
+      throw Unsupported();
+    } else {
+      for (int64_t i = 0; i < n_ent; ++i) {
+        const uint8_t* e = d + pos + i * pad;
+        im.pal[i][0] = e[2]; im.pal[i][1] = e[1]; im.pal[i][2] = e[0];
+      }
+      im.has_pal = true;
+    }
+  }
+  if (rle && !im.has_pal && m.kind != kRawL) {   // "1" or true colour
+    throw Unsupported();
+  }
+  im.ch = rle ? 1 : mode_channels(m);
+  const int64_t stride = ((im.w * bits + 31) >> 3) & ~int64_t(3);
+  if (!rle && row_bytes(m, im.w) > stride) throw Corrupt();
+  if (!with_data) return;
+  if (rle) {
+    std::vector<uint8_t> idx;
+    bmp_rle(d, n, offset, im.w, im.h, comp == 2, idx);
+    im.px.assign(idx.size(), 0);
+    for (int64_t y = 0; y < im.h; ++y)
+      std::memcpy(im.px.data() + (top_down ? y : im.h - 1 - y) * im.w,
+                  idx.data() + y * im.w, size_t(im.w));
+    return;
+  }
+  read_rows(d, n, offset, stride, m, !top_down, im);
+}
+
+// PIL's mode of a TGA or BMP as "the file's own channels": 1 gray, 2
+// gray + alpha, 3 RGB or palette, 4 RGBA or palette with alpha
+int pil_channels(const Pil& im) {
+  if (!im.has_pal) return im.ch;
+  if (im.ch == 2) return 4;
+  for (const auto& e : im.pal)
+    if (e[3] != 255) return 4;
+  return 3;
+}
+
 // Runs f(name) and maps its exceptions to the C interface's codes; name
 // (the format, as far as f read it) goes to out_name.
 template <class F>
@@ -1003,7 +1516,14 @@ bool is_jpeg(const uint8_t* d, int64_t n) {
   return n >= 2 && d[0] == 0xFF && d[1] == 0xD8;
 }
 
-// Neither PNG nor JPEG: name what it is, for the caller's refusal.
+bool is_bmp(const uint8_t* d, int64_t n) {
+  return n >= 2 && d[0] == 'B' && d[1] == 'M';
+}
+
+// None of the formats decoded: name what it is, for the caller's
+// refusal. Runs after the PNG, JPEG and BMP tests and before the TGA one
+// (which has no magic bytes), so a file with one of these signatures is
+// never read as TGA.
 [[noreturn]] void refuse_other(const uint8_t* d, int64_t n,
                                std::string& name) {
   struct Magic {
@@ -1012,8 +1532,8 @@ bool is_jpeg(const uint8_t* d, int64_t n) {
     const char* name;
   };
   static const Magic kMagics[] = {
-      {"BM", 2, "BMP"}, {"GIF8", 4, "GIF"}, {"II*\0", 4, "TIFF"},
-      {"MM\0*", 4, "TIFF"}, {"\xabKTX 20\xbb", 8, "KTX2"}};
+      {"GIF8", 4, "GIF"}, {"II*\0", 4, "TIFF"}, {"MM\0*", 4, "TIFF"},
+      {"\xabKTX 20\xbb", 8, "KTX2"}, {"DDS ", 4, "DDS"}};
   if (n >= 12 && std::memcmp(d, "RIFF", 4) == 0 &&
       std::memcmp(d + 8, "WEBP", 4) == 0) {
     name = "WebP";
@@ -1024,7 +1544,7 @@ bool is_jpeg(const uint8_t* d, int64_t n) {
       name = mg.name;
       throw Unsupported();
     }
-  name = "not a PNG or JPEG (starts with";
+  name = "not a PNG, JPEG, BMP or TGA (starts with";
   char hex[4];
   for (int64_t i = 0; i < std::min<int64_t>(n, 8); ++i) {
     std::snprintf(hex, sizeof(hex), " %02x", d[i]);
@@ -1041,7 +1561,17 @@ extern "C" {
 int pti_probe(const uint8_t* data, int64_t n, int32_t* w, int32_t* h,
               int32_t* channels, char* name, int32_t cap) {
   return guarded(name, cap, [&](std::string& nm) {
-    if (is_png(data, n)) {
+    if (is_bmp(data, n) || (!is_png(data, n) && !is_jpeg(data, n) &&
+                            tga_accept(data, n))) {
+      Pil im;
+      if (is_bmp(data, n))
+        bmp_read(data, n, false, im, nm);
+      else
+        tga_read(data, n, false, im, nm);
+      *w = int32_t(im.w);
+      *h = int32_t(im.h);
+      *channels = pil_channels(im);
+    } else if (is_png(data, n)) {
       Png p;
       png_parse(data, n, p, false, nm);
       *w = p.w;
@@ -1063,12 +1593,21 @@ int pti_decode(const uint8_t* data, int64_t n, int32_t w, int32_t h,
                int32_t out_channels, uint8_t* out, char* name, int32_t cap) {
   if (out_channels != 3 && out_channels != 4) return 1;
   return guarded(name, cap, [&](std::string& nm) {
-    if (is_png(data, n))
+    if (is_png(data, n)) {
       png_decode(data, n, w, h, out_channels, out, nullptr, nm);
-    else if (is_jpeg(data, n))
+    } else if (is_jpeg(data, n)) {
       jpeg_decode(data, n, w, h, out_channels, out, nm);
-    else
+    } else if (is_bmp(data, n) || tga_accept(data, n)) {
+      Pil im;
+      if (is_bmp(data, n))
+        bmp_read(data, n, true, im, nm);
+      else
+        tga_read(data, n, true, im, nm);
+      if (im.w != w || im.h != h) throw Corrupt();
+      pil_convert(im, out_channels, out);
+    } else {
       refuse_other(data, n, nm);
+    }
   });
 }
 

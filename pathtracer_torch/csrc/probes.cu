@@ -14,20 +14,32 @@
 //   10 instructions a step (with -fmad=false a*0.25+0.5 is a multiply
 //   and an add), for one element in f32 and two in bf16x2; 8 MB of data.
 //
-// P2 cond_walk_kernel<kGate> replaces benchmarks/cond_probe.py:_kernel: a
-//   walk of n_iter fake columns t = x + i over a [64, 512] tile; each
+// P2 cond_walk_kernel<kGate> replaces benchmarks/cond_probe.py:_kernel:
+//   a walk of n_iter fake columns t = x + i over a [64, 512] tile; each
 //   step takes every row's min tj; the extraction - each row's argmin j
-//   (first lane on a tie), uj = t[j] picked by a one-hot select, and
-//   (best, aux) updated where tj < best - runs always, or with kGate only
-//   when min(tj) < min(best) + 100 over the tile (a block-uniform branch:
-//   every thread computes the same flag from the same shared values).
-//   One block a grid step, 16 warps of 4 rows; the tile stays in shared
-//   memory (128 KB) and every step reads it, as the Pallas kernel reads
-//   its VMEM block (held in registers, 4 or 2 rows a warp spilled at 128
-//   or 64 registers a thread); a lane takes every 32nd column of a row. Every block writes the same
-//   output, as every grid step of the Pallas call does. Bound by
-//   operations (the add and the min of every element each step, plus the
-//   extraction's compare and select where it runs); 128 KB of data.
+//   (first column on a tie), uj = t[j] picked by a one-hot select over
+//   the row's columns, and (best, aux) updated where tj < best - runs
+//   always, or with kGate only when min(tj) < min(best) + 100 over the
+//   tile (a grid-step-uniform branch). As in the Pallas kernel every step
+//   computes tj and only the extraction computes the argmin, the select
+//   and the update. Every grid step writes the same output, as every grid
+//   step of the Pallas call does.
+//   t = x + i needs a thread's own x values only, so each thread holds
+//   its share of the tile in registers, read once: a grid step is a
+//   thread-block cluster of two CTAs of 512 threads and 32 rows each (64
+//   steps: 128 CTAs on 128 of the card's 132 SMs); a row is 16
+//   consecutive threads of 32 contiguous columns each, and its min and
+//   argmin finish with xor shuffles inside them. The gate's two minima
+//   (min tj and min best over the tile) are taken per warp by shuffles,
+//   written by lane 0 into a slot of both CTAs (the partner's through
+//   distributed shared memory), and read back after one cluster barrier
+//   a step: slots alternate by step parity, so a step needs no second
+//   barrier, and the next step's tj is computed between the barrier's
+//   arrive and wait. That barrier spans both CTAs, which K2 (one CTA a
+//   tile) would not need, so gated / always here is the cost of this
+//   gate, not what a skip in K2 would save. Bound by operations: the add
+//   and the min of every element each step, plus the extraction's
+//   compare and select where it runs.
 //
 // P3 attrib_kernel<V> replaces benchmarks/sweep_attrib.py:_kernel: K2's
 //   structure (csrc/sweep.cu: one block of 256 threads a 64-ray tile,
@@ -64,6 +76,7 @@
 // Built with -fmad=false: every expression rounds as in the plain
 // versions, so kernel and plain version agree bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -116,86 +129,121 @@ __global__ void chain_kernel(const T* __restrict__ x, const T* __restrict__ y,
 
 // ---- P2 -----------------------------------------------------------------
 
-constexpr int kRows = 64, kCols = 512;          // cond_probe's [R, L]
-constexpr int kWalkWarps = 16, kWalkThreads = kWalkWarps * 32;
-constexpr int kRowsAWarp = kRows / kWalkWarps;  // 4
-constexpr int kPerLane = kCols / 32;            // 16
-constexpr size_t kWalkShmem = (size_t)kRows * kCols * sizeof(float);
+namespace cg = cooperative_groups;
 
-template <bool kGate>
-__global__ void __launch_bounds__(kWalkThreads)
-    cond_walk_kernel(const float* __restrict__ x, int n_iter,
-                     float* __restrict__ out) {
-  extern __shared__ float xs[];               // the tile, [R][L]
-  __shared__ float red[2][kWalkWarps][2];   // per step parity: min tj, min best
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < kRows * kCols; i += blockDim.x) xs[i] = x[i];
-  __syncthreads();
-  const float* row0 = xs + warp * kRowsAWarp * kCols + lane;
-  float best[kRowsAWarp], aux[kRowsAWarp];
+constexpr int kRows = 64, kCols = 512;          // cond_probe's [R, L]
+constexpr int kWalkCtas = 2;                    // CTAs a grid step
+constexpr int kWalkThreads = 512;               // threads a CTA
+constexpr int kWalkWarps = kWalkThreads / 32;
+constexpr int kWalkRows = kRows / kWalkCtas;    // rows a CTA: 32
+constexpr int kTpr = kWalkThreads / kWalkRows;  // threads a row: 16
+constexpr int kPer = kCols / kTpr;              // columns a thread: 32
+constexpr int kSlots = kWalkCtas * kWalkWarps;  // the gate's slots: 32
+static_assert(kTpr <= 32 && kPer % 4 == 0 && kSlots == 32,
+              "a row within a warp, a slot a lane");
+
+// min of v over the lanes l ^ off for off = from, from * 2, ... < to
+__device__ __forceinline__ float xor_min(float v, int from, int to) {
+  for (int off = from; off < to; off <<= 1)
+    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// tj of step fi: the row's min of x + i over the row's threads (four
+// chains; min is exact in any order)
+__device__ __forceinline__ float row_min(const float* xv, float fi) {
+  float m[4];
 #pragma unroll
-  for (int r = 0; r < kRowsAWarp; ++r) {
-    best[r] = 1e30f;
-    aux[r] = 0.0f;
+  for (int k = 0; k < 4; ++k) m[k] = xv[k] + fi;
+#pragma unroll
+  for (int k = 4; k < kPer; ++k) m[k & 3] = fminf(m[k & 3], xv[k] + fi);
+  return xor_min(fminf(fminf(m[0], m[1]), fminf(m[2], m[3])), 1, kTpr);
+}
+
+// The gated walk computes step i + 1's tj between its cluster barrier's
+// arrive (which releases the slots written before it) and its wait (which
+// acquires the partner's); step i's slots of one parity are rewritten at
+// step i + 2 only, after every thread of both CTAs has passed step
+// i + 1's barrier and so has read them. The last remote write into a CTA
+// precedes the last barrier, so a CTA may exit after it.
+template <bool kGate>
+__global__ void __cluster_dims__(kWalkCtas, 1, 1)
+    __launch_bounds__(kWalkThreads, 1)
+        cond_walk_kernel(const float* __restrict__ x, int n_iter,
+                         float* __restrict__ out) {
+  __shared__ float red[2 * kSlots * 2];   // [parity][slot][min tj, min best]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = rank * kWalkRows + threadIdx.x / kTpr;
+  const int c0 = (threadIdx.x % kTpr) * kPer;   // the thread's columns
+  float xv[kPer];
+  const float4* src = reinterpret_cast<const float4*>(x + row * kCols + c0);
+#pragma unroll
+  for (int k = 0; k < kPer / 4; ++k) {
+    const float4 v = src[k];
+    xv[4 * k] = v.x;
+    xv[4 * k + 1] = v.y;
+    xv[4 * k + 2] = v.z;
+    xv[4 * k + 3] = v.w;
   }
+  float* peer = red;   // the partner CTA's slots
+  if constexpr (kGate) {
+    peer = cluster.map_shared_rank(red, rank ^ 1);
+    cluster.sync();   // the partner runs before its slots are written
+  }
+  float best = 1e30f, aux = 0.0f;
+  float tj = n_iter > 0 ? row_min(xv, 0.0f) : 0.0f;
   for (int i = 0; i < n_iter; ++i) {
     const float fi = (float)i;
-    float tj[kRowsAWarp];
-    float wmin_t = INFINITY, wmin_b = INFINITY;
-#pragma unroll
-    for (int r = 0; r < kRowsAWarp; ++r) {
-      const float* row = row0 + r * kCols;
-      float m = row[0] + fi;
-#pragma unroll
-      for (int k = 1; k < kPerLane; ++k) m = fminf(m, row[k * 32] + fi);
-      for (int off = 16; off > 0; off >>= 1)
-        m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      tj[r] = m;
-      wmin_t = fminf(wmin_t, m);
-      wmin_b = fminf(wmin_b, best[r]);
-    }
     bool extract = true;
-    if (kGate) {
+    float tj_next = 0.0f;
+    if constexpr (kGate) {
+      // the warp's rows, then every warp's slot of this step's parity
+      const float wt = xor_min(tj, kTpr, 32);
+      const float wb = xor_min(best, kTpr, 32);
+      const int slot = 2 * ((i & 1) * kSlots + rank * kWalkWarps + warp);
       if (lane == 0) {
-        red[i & 1][warp][0] = wmin_t;
-        red[i & 1][warp][1] = wmin_b;
+        red[slot] = wt;
+        red[slot + 1] = wb;
+        peer[slot] = wt;
+        peer[slot + 1] = wb;
       }
-      __syncthreads();
-      float mt = red[i & 1][0][0], mb = red[i & 1][0][1];
-      for (int w = 1; w < kWalkWarps; ++w) {
-        mt = fminf(mt, red[i & 1][w][0]);
-        mb = fminf(mb, red[i & 1][w][1]);
-      }
+      asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+      if (i + 1 < n_iter) tj_next = row_min(xv, (float)(i + 1));
+      asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+      const float* got = red + 2 * (i & 1) * kSlots;
+      const float mt = xor_min(got[2 * lane], 1, 32);
+      const float mb = xor_min(got[2 * lane + 1], 1, 32);
       extract = mt < mb + 100.0f;   // the same in every thread
     }
     if (extract) {
+      // argmin: the lowest column whose t equals the row's min
+      int j = kCols;
 #pragma unroll
-      for (int r = 0; r < kRowsAWarp; ++r) {
-        const float* row = row0 + r * kCols;
-        // argmin: the lowest column whose t equals the row's min
-        int j = kCols;
+      for (int k = kPer - 1; k >= 0; --k)
+        if (xv[k] + fi == tj) j = c0 + k;
+      for (int off = 1; off < kTpr; off <<= 1)
+        j = min(j, __shfl_xor_sync(0xffffffffu, j, off));
+      // uj: t at column j, by a one-hot select over the thread's columns,
+      // from the row's thread that holds column j
+      float v = 0.0f;
 #pragma unroll
-        for (int m = kPerLane - 1; m >= 0; --m)
-          if (row[m * 32] + fi == tj[r]) j = m * 32 + lane;
-        for (int off = 16; off > 0; off >>= 1)
-          j = min(j, __shfl_xor_sync(0xffffffffu, j, off));
-        // uj: t at column j, picked by a one-hot select on its lane
-        float v = 0.0f;
-#pragma unroll
-        for (int m = 0; m < kPerLane; ++m)
-          if (m * 32 + lane == j) v = row[m * 32] + fi;
-        const float uj = __shfl_sync(0xffffffffu, v, j & 31);
-        if (tj[r] < best[r]) {
-          best[r] = tj[r];
-          aux[r] = uj;
-        }
+      for (int k = 0; k < kPer; ++k)
+        if (c0 + k == j) v = xv[k] + fi;
+      const float uj =
+          __shfl_sync(0xffffffffu, v, (lane & ~(kTpr - 1)) + j / kPer);
+      if (tj < best) {
+        best = tj;
+        aux = uj;
       }
     }
+    if constexpr (kGate)
+      tj = tj_next;
+    else if (i + 1 < n_iter)
+      tj = row_min(xv, (float)(i + 1));
   }
-  if (lane == 0)
-#pragma unroll
-    for (int r = 0; r < kRowsAWarp; ++r)
-      out[warp * kRowsAWarp + r] = best[r] + aux[r];
+  if (threadIdx.x % kTpr == 0) out[row] = best + aux;
 }
 
 // ---- P3 -----------------------------------------------------------------
@@ -242,7 +290,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int lane = threadIdx.x & 31;
   const int me = p * nr + r;
   const int col_lanes = cpi * k;
-  const Cands c(sh + 8 * col_lanes, nr);   // after the ring's two slots
+  const Cands<kParts> c(sh + 8 * col_lanes, nr);   // after the ring's slots
   int* ids = reinterpret_cast<int*>(c.end());                 // [2][cpi]
   const size_t tile = blockIdx.x;
   const float* srow = st + tile * cs;
@@ -293,8 +341,9 @@ __global__ void __launch_bounds__(kMaxThreads)
         next_id = irow[(j + 2) * cpi + threadIdx.x];
     const float4* rows = sh + (kDma ? (j & 1) * 4 * col_lanes : 0);
     if (kAlu) {
-      test_closest<false>(rows, col_lanes, p, ox, oy, oz, dx, dy, dz, t_min,
-                          best_t, c, (j & 1) * c.slab + me);
+      test_closest<false, kParts>(rows, col_lanes, p, ox, oy, oz, dx, dy,
+                                  dz, t_min, best_t, c,
+                                  (j & 1) * c.slab + me);
     } else if (kDma) {   // touch row 0 (dma1: of the first cluster)
       const int n = V == kDma1 ? k : col_lanes;
       for (int l = threadIdx.x; l < n; l += blockDim.x) touch += rows[4 * l].x;
@@ -343,23 +392,16 @@ extern "C" int pt_chain_bf16(const void* x, const void* y, void* out, int n,
   return (int)cudaGetLastError();
 }
 
+// grid steps of one 2-CTA cluster each
 extern "C" int pt_cond_walk(const float* x, int n_iter, int grid, int gate,
                             float* out, void* stream) {
-  static bool shmem_set[2] = {false, false};
-  const void* fn = gate ? (const void*)cond_walk_kernel<true>
-                        : (const void*)cond_walk_kernel<false>;
-  if (!shmem_set[gate ? 1 : 0]) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWalkShmem);
-    if (e != cudaSuccess) return (int)e;
-    shmem_set[gate ? 1 : 0] = true;
-  }
+  cudaStream_t s = (cudaStream_t)stream;
   if (gate)
-    cond_walk_kernel<true><<<grid, kWalkThreads, kWalkShmem,
-                             (cudaStream_t)stream>>>(x, n_iter, out);
+    cond_walk_kernel<true><<<kWalkCtas * grid, kWalkThreads, 0, s>>>(
+        x, n_iter, out);
   else
-    cond_walk_kernel<false><<<grid, kWalkThreads, kWalkShmem,
-                              (cudaStream_t)stream>>>(x, n_iter, out);
+    cond_walk_kernel<false><<<kWalkCtas * grid, kWalkThreads, 0, s>>>(
+        x, n_iter, out);
   return (int)cudaGetLastError();
 }
 

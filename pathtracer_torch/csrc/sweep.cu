@@ -5,13 +5,14 @@
 // sweep_closest) and :_occl_kernel (through sweep_occluded, K3 without and
 // K3b with want_blocker), with the Baldwin-Weber lane test of _bw_lane.
 //
-// Layout: one block per tile, four threads per ray (R = 64 rays, 256
-// threads; R = 32 also runs): the ray's four threads test interleaved
-// quarters of each
-// column's lanes. The block walks its tile's near-to-far schedule st/si
-// [tiles, Cs] with a two-slot ring of staged clusters in shared memory:
-// while the rays test column j's cluster, column j+1's is in flight
-// (16-byte cp.async).
+// Layout: one block per tile, P = parts(R) threads per ray (R = 64 rays,
+// four a ray, 256 threads by default; R = 32 with four a ray in 128
+// threads; R = 128 and 256 with two and one a ray, 256 threads, one
+// instantiation of each kernel per P): the ray's P threads test
+// interleaved parts of each column's lanes. The block walks its tile's
+// near-to-far schedule st/si [tiles, Cs] with a two-slot ring of staged
+// clusters in shared memory: while the rays test column j's cluster,
+// column j+1's is in flight (16-byte cp.async).
 //
 // Why four threads a ray: a tile's walk is sequential (whether column
 // j+1 is visited depends on column j's hits), and the longest walks set
@@ -21,7 +22,10 @@
 // thread a ray such a tile ran on 2 warps; four parts give it 8 warps of
 // one SM. More parts, two lanes interleaved per iteration, or a
 // branch-free lane body were not faster on the card: the long walk is
-// then bound by its lane tests at one SM's issue rate.
+// then bound by its lane tests at one SM's issue rate. Wide tiles keep
+// the 256-thread block (and with it the registers and blocks an SM of
+// the 64-ray kernels) and give each ray fewer threads; the merge rule
+// below does not depend on P, so a ray's hit does not either.
 //
 // Tables (accel/cluster.py, derived once from blocks_t [C, 16, K]):
 //   blocks_lm f32[C, K, 16]: each lane's 16 Baldwin-Weber rows contiguous
@@ -148,6 +152,7 @@ struct Walk {
 
 // Thread layout and candidates: see sweep_column.cuh.
 
+template <int P>
 __global__ void __launch_bounds__(kMaxThreads)
     sweep_closest_kernel(const float* __restrict__ st,
                          const int* __restrict__ si, int cs,
@@ -159,11 +164,11 @@ __global__ void __launch_bounds__(kMaxThreads)
                          float* __restrict__ out_u,
                          float* __restrict__ out_v) {
   extern __shared__ float4 sh[];
-  const int nr = blockDim.x / kParts;
+  const int nr = blockDim.x / P;
   const int r = threadIdx.x % nr, p = threadIdx.x / nr;
   const int lane = threadIdx.x & 31;
   const int me = p * nr + r;
-  const Cands c(sh + 8 * k, nr);   // after the ring's two slots
+  const Cands<P> c(sh + 8 * k, nr);   // after the ring's two slots
   const size_t tile = blockIdx.x;
   const float* ray = rays + tile * 6 * nr;
   const float ox = ray[r], oy = ray[nr + r], oz = ray[2 * nr + r];
@@ -184,7 +189,7 @@ __global__ void __launch_bounds__(kMaxThreads)
                       best_tri, best_u, best_v);
     if (j == cs || !(w.st_cur < tile_max)) break;
     w.next(j);
-    test_closest<true>(w.rows(j), w.n_cur, p, ox, oy, oz, dx, dy, dz, t_min,
+    test_closest<true, P>(w.rows(j), w.n_cur, p, ox, oy, oz, dx, dy, dz, t_min,
                        best_t, c, (j & 1) * c.slab + me);
     w.shift();
   }
@@ -201,7 +206,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 // this column, bit 1 = the ray is still open after it (not blocked,
 // t_max > 0, no blocking lane in the part); K3b also the part's blocking
 // lane with the smallest t (lowest lane on a tie) and its triangle.
-template <bool kBlocker>
+template <bool kBlocker, int P>
 __global__ void __launch_bounds__(kMaxThreads)
     sweep_occluded_kernel(const float* __restrict__ st,
                           const int* __restrict__ si, int cs,
@@ -212,11 +217,11 @@ __global__ void __launch_bounds__(kMaxThreads)
                           int* __restrict__ out_blocked,
                           int* __restrict__ out_btri) {
   extern __shared__ float4 sh[];
-  const int nr = blockDim.x / kParts;
+  const int nr = blockDim.x / P;
   const int r = threadIdx.x % nr, p = threadIdx.x / nr;
   const int lane = threadIdx.x & 31;
-  const int slab = kParts * nr, me = p * nr + r;
-  int* flag = reinterpret_cast<int*>(sh + 8 * k);   // [2][kParts][R]
+  const int slab = P * nr, me = p * nr + r;
+  int* flag = reinterpret_cast<int*>(sh + 8 * k);   // [2][P][R]
   float* ct = reinterpret_cast<float*>(flag + 2 * slab);
   int* cl = reinterpret_cast<int*>(ct + 2 * slab);
   int* ctri = cl + 2 * slab;
@@ -241,14 +246,14 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int prev = ((j + 1) & 1) * slab;
     int hit = 0;
 #pragma unroll
-    for (int q = 0; q < kParts; ++q) hit |= flag[prev + q * nr + r] & 1;
+    for (int q = 0; q < P; ++q) hit |= flag[prev + q * nr + r] & 1;
     if (hit && !blocked) {
       blocked = 1;
       if (kBlocker) {
         float wt = ct[prev + r];
         int wl = cl[prev + r], wq = 0;
 #pragma unroll
-        for (int q = 1; q < kParts; ++q) {
+        for (int q = 1; q < P; ++q) {
           const float t = ct[prev + q * nr + r];
           const int l = cl[prev + q * nr + r];
           if (t < wt || (t == wt && l < wl)) {
@@ -263,7 +268,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     int any_open = 0;
     for (int rr = lane; rr < nr; rr += 32) {
       int open = 2;
-      for (int q = 0; q < kParts; ++q) open &= flag[prev + q * nr + rr];
+      for (int q = 0; q < P; ++q) open &= flag[prev + q * nr + rr];
       any_open |= open;
     }
     any_open = __any_sync(0xffffffffu, any_open);   // the same in every warp
@@ -274,7 +279,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     int c_hit = 0, c_l = kNone, c_tri = 0;
     float c_t = INFINITY;
     if (open) {
-      for (int l = p; l < w.n_cur; l += kParts) {
+      for (int l = p; l < w.n_cur; l += P) {
         const float4 a = rows[4 * l];
         const float denom = dot_n(dx, dy, dz, a);
         if (!(denom < -kDetEps)) continue;   // front-facing only
@@ -309,37 +314,73 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// ring (2 slots of K lane rows) + candidate slabs (2 x kParts x R words)
+// ring (2 slots of K lane rows) + candidate slabs (2 x P x R words)
 size_t shmem_bytes(int kind, int tile_rays, int k) {
   return 2 * (size_t)k * 16 * sizeof(float) +
          (kind == 0 ? cands_bytes(tile_rays)
-                    : 2 * (size_t)kParts * tile_rays * 4 * sizeof(float));
+                    : 2 * (size_t)parts(tile_rays) * tile_rays * 4 *
+                          sizeof(float));
 }
 
-const void* kernel_of(int kind) {
-  if (kind == 0) return (const void*)sweep_closest_kernel;
-  if (kind == 1) return (const void*)sweep_occluded_kernel<false>;
-  return (const void*)sweep_occluded_kernel<true>;
+// The instantiation of kernel `kind` (0 K2, 1 K3, 2 K3b) for R rays a
+// tile: P = parts(R); nullptr for a width the kernels do not take.
+template <int P>
+const void* kernel_for(int kind) {
+  if (kind == 0) return (const void*)sweep_closest_kernel<P>;
+  if (kind == 1) return (const void*)sweep_occluded_kernel<false, P>;
+  return (const void*)sweep_occluded_kernel<true, P>;
 }
 
-// Once per kernel: prefer the largest shared-memory carveout (shared
-// memory limits how many blocks share an SM) and allow the dynamic
-// shared memory of the largest block (R = 64, K lanes) beyond the 48 KB
-// default, so a launch makes no attribute call.
-int max_k_set[3] = {0, 0, 0};
+int slot_of(int tile_rays) {   // 0 for P = 4, 1 for P = 2, 2 for P = 1
+  switch (tile_rays) {
+    case 32: case 64: return 0;
+    case 128: return 1;
+    case 256: return 2;
+    default: return -1;
+  }
+}
 
-cudaError_t prepare(int kind, int k) {
-  if (k <= max_k_set[kind]) return cudaSuccess;
-  const void* fn = kernel_of(kind);
-  const size_t shmem = shmem_bytes(kind, kMaxThreads / kParts, k);
+const void* kernel_of(int kind, int tile_rays) {
+  switch (slot_of(tile_rays)) {
+    case 0: return kernel_for<4>(kind);
+    case 1: return kernel_for<2>(kind);
+    case 2: return kernel_for<1>(kind);
+    default: return nullptr;
+  }
+}
+
+// Once per kernel instantiation: prefer the largest shared-memory
+// carveout (shared memory limits how many blocks share an SM) and allow
+// the dynamic shared memory of its largest block (kMaxThreads threads,
+// K lanes) beyond the 48 KB default, so a launch makes no attribute call.
+int max_k_set[3][3] = {};
+
+cudaError_t prepare(int kind, int tile_rays, int k) {
+  const int slot = slot_of(tile_rays);
+  const void* fn = kernel_of(kind, tile_rays);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  if (k <= max_k_set[kind][slot]) return cudaSuccess;
+  const int widest = kMaxThreads / parts(tile_rays);
+  const size_t shmem = shmem_bytes(kind, widest, k);
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributePreferredSharedMemoryCarveout,
       cudaSharedmemCarveoutMaxShared);
   if (e == cudaSuccess && shmem > 48 * 1024)
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)shmem);
-  if (e == cudaSuccess) max_k_set[kind] = k;
+  if (e == cudaSuccess) max_k_set[kind][slot] = k;
   return e;
+}
+
+// One block a tile, R * parts(R) threads; args as the kernel's parameters.
+cudaError_t launch(int kind, int tiles, int tile_rays, int k, void** args,
+                   void* stream) {
+  cudaError_t e = prepare(kind, tile_rays, k);
+  if (e != cudaSuccess) return e;
+  e = cudaLaunchKernel(kernel_of(kind, tile_rays), dim3(tiles),
+                       dim3(tile_rays * parts(tile_rays)), args,
+                       shmem_bytes(kind, tile_rays, k), (cudaStream_t)stream);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 }  // namespace
@@ -350,14 +391,10 @@ extern "C" int pt_sweep_closest(const float* st, const int* si, int tiles,
                                 int k, int tile_rays, float t_min,
                                 float* out_t, int* out_tri, float* out_u,
                                 float* out_v, void* stream) {
-  const size_t shmem = shmem_bytes(0, tile_rays, k);
-  cudaError_t e = prepare(0, k);
-  if (e != cudaSuccess) return (int)e;
-  sweep_closest_kernel<<<tiles, tile_rays * kParts, shmem,
-                         (cudaStream_t)stream>>>(
-      st, si, cs, rays, t_cap, (const float4*)blocks_lm, n_lanes, k, t_min,
-      out_t, out_tri, out_u, out_v);
-  return (int)cudaGetLastError();
+  const float4* lm = (const float4*)blocks_lm;
+  void* args[] = {&st, &si, &cs, &rays, &t_cap, &lm, &n_lanes, &k,
+                  &t_min, &out_t, &out_tri, &out_u, &out_v};
+  return (int)launch(0, tiles, tile_rays, k, args, stream);
 }
 
 extern "C" int pt_sweep_occluded(const float* st, const int* si, int tiles,
@@ -365,28 +402,21 @@ extern "C" int pt_sweep_occluded(const float* st, const int* si, int tiles,
                                  const float* t_max, const float* blocks_lm,
                                  const int* n_lanes, int k, int tile_rays,
                                  int* out_blocked, void* stream) {
-  const size_t shmem = shmem_bytes(1, tile_rays, k);
-  cudaError_t e = prepare(1, k);
-  if (e != cudaSuccess) return (int)e;
-  sweep_occluded_kernel<false>
-      <<<tiles, tile_rays * kParts, shmem, (cudaStream_t)stream>>>(
-          st, si, cs, rays, t_max, (const float4*)blocks_lm, n_lanes, k,
-          out_blocked, nullptr);
-  return (int)cudaGetLastError();
+  const float4* lm = (const float4*)blocks_lm;
+  int* out_btri = nullptr;
+  void* args[] = {&st, &si, &cs, &rays, &t_max, &lm, &n_lanes, &k,
+                  &out_blocked, &out_btri};
+  return (int)launch(1, tiles, tile_rays, k, args, stream);
 }
 
 extern "C" int pt_sweep_occluded_blocker(
     const float* st, const int* si, int tiles, int cs, const float* rays,
     const float* t_max, const float* blocks_lm, const int* n_lanes, int k,
     int tile_rays, int* out_blocked, int* out_btri, void* stream) {
-  const size_t shmem = shmem_bytes(2, tile_rays, k);
-  cudaError_t e = prepare(2, k);
-  if (e != cudaSuccess) return (int)e;
-  sweep_occluded_kernel<true>
-      <<<tiles, tile_rays * kParts, shmem, (cudaStream_t)stream>>>(
-          st, si, cs, rays, t_max, (const float4*)blocks_lm, n_lanes, k,
-          out_blocked, out_btri);
-  return (int)cudaGetLastError();
+  const float4* lm = (const float4*)blocks_lm;
+  void* args[] = {&st, &si, &cs, &rays, &t_max, &lm, &n_lanes, &k,
+                  &out_blocked, &out_btri};
+  return (int)launch(2, tiles, tile_rays, k, args, stream);
 }
 
 // Registers a thread, local (spill) bytes a thread and resident blocks an
@@ -395,15 +425,15 @@ extern "C" int pt_sweep_occluded_blocker(
 extern "C" int pt_sweep_info(int kind, int tile_rays, int k, int* regs,
                              int* local_bytes, int* blocks_per_sm,
                              int* threads) {
-  const void* fn = kernel_of(kind);
+  const void* fn = kernel_of(kind, tile_rays);
   const size_t shmem = shmem_bytes(kind, tile_rays, k);
-  cudaError_t e = prepare(kind, k);
+  cudaError_t e = prepare(kind, tile_rays, k);
   cudaFuncAttributes a;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, fn);
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
-  *threads = tile_rays * kParts;
+  *threads = tile_rays * parts(tile_rays);
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, fn, tile_rays * kParts, shmem);
+      blocks_per_sm, fn, *threads, shmem);
 }

@@ -5,17 +5,19 @@
 // measuring K2's cost a column when K2 changes. Every function inlines;
 // the definitions have internal linkage in each source that includes them.
 //
-// Thread layout: blockDim = R * kParts; thread i tests ray r = i % R with
-// part p = i / R, i.e. lanes p, p + kParts, ... of each column. R is a
-// multiple of 32, so a warp holds one part of 32 rays and every lane row
-// it reads is a broadcast.
+// Thread layout: blockDim = R * P with P = parts(R) threads a ray (4 for
+// R = 32 and 64; 2 for R = 128 and 1 for R = 256, so a block never holds
+// more than kMaxThreads); thread i tests ray r = i % R with part p = i / R,
+// i.e. lanes p, p + P, ... of each column. R is a multiple of 32, so a
+// warp holds one part of 32 rays and every lane row it reads is a
+// broadcast.
 //
 // Candidates of a column (shared, two slabs by column parity, each
-// [kParts][R]): a part's first minimum among its lanes that hit with
-// t < the ray's best t, seeded with the best t and lane kNone. After the
-// barrier every thread of a ray merges the kParts candidates in the same
-// order - smaller t wins, the lower lane on a tie - which is the first
-// minimum over the column in lane order.
+// [P][R]): a part's first minimum among its lanes that hit with t < the
+// ray's best t, seeded with the best t and lane kNone. After the barrier
+// every thread of a ray merges the P candidates in the same order -
+// smaller t wins, the lower lane on a tie - which is the first minimum
+// over the column in lane order, whatever P is.
 //
 // Exact rejects before the reciprocal: a hit needs t > t_min >= 0, and
 // t = (d - n.o) * (1/denom) rounded is > 0 only if d - n.o and denom have
@@ -32,9 +34,14 @@
 namespace {
 
 constexpr float kDetEps = 1e-12f;
-constexpr int kParts = 4;              // threads a ray (lane parts)
-constexpr int kMaxThreads = 256;       // R * kParts, so R <= 64
+constexpr int kParts = 4;              // threads a ray at R <= 64
+constexpr int kMaxThreads = 256;       // threads a block: R * parts(R)
 constexpr int kNone = 0x7fffffff;      // candidate lane of "no hit"
+
+// Threads a ray (lane parts) for R rays a tile (32, 64, 128 or 256).
+constexpr int parts(int tile_rays) {
+  return tile_rays <= kMaxThreads / kParts ? kParts : kMaxThreads / tile_rays;
+}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int off = 16; off > 0; off >>= 1)
@@ -84,35 +91,37 @@ __device__ __forceinline__ bool inside(const float4 b, const float4 c,
   return u >= 0.0f && v >= 0.0f && u + v <= 1.0f;
 }
 
-// The closest sweep's candidate slabs, [2][kParts][R] words of t, lane,
+// The closest sweep's candidate slabs, [2][P][R] words of t, lane,
 // triangle, u and v, laid out from `base` in shared memory.
+template <int P>
 struct Cands {
   float* t;
   int* lane;
   int* tri;
   float* u;
   float* v;
-  int slab;   // kParts * R
+  int slab;   // P * R
 
   __device__ __forceinline__ Cands(float4* base, int nr)
       : t(reinterpret_cast<float*>(base)),
-        lane(reinterpret_cast<int*>(t + 2 * kParts * nr)),
-        tri(lane + 2 * kParts * nr),
-        u(reinterpret_cast<float*>(tri + 2 * kParts * nr)),
-        v(u + 2 * kParts * nr),
-        slab(kParts * nr) {}
+        lane(reinterpret_cast<int*>(t + 2 * P * nr)),
+        tri(lane + 2 * P * nr),
+        u(reinterpret_cast<float*>(tri + 2 * P * nr)),
+        v(u + 2 * P * nr),
+        slab(P * nr) {}
   // first word past the slabs
   __device__ __forceinline__ void* end() const { return v + 2 * slab; }
 };
 
 // Shared bytes of the candidate slabs for R rays a tile
 constexpr size_t cands_bytes(int tile_rays) {
-  return 2 * (size_t)kParts * tile_rays * 5 * sizeof(float);
+  return 2 * (size_t)parts(tile_rays) * tile_rays * 5 * sizeof(float);
 }
 
 // Column -1: no candidate, the ray's best t seeded into slot `me` of the
 // odd slab.
-__device__ __forceinline__ void seed_closest(const Cands& c, int me,
+template <int P>
+__device__ __forceinline__ void seed_closest(const Cands<P>& c, int me,
                                              float best_t) {
   c.t[c.slab + me] = best_t;
   c.lane[c.slab + me] = kNone;
@@ -122,21 +131,22 @@ __device__ __forceinline__ void seed_closest(const Cands& c, int me,
 // r's best hit; returns the largest candidate t over the tile's R rays,
 // the same in every warp, so each computes the stop rule without a
 // second barrier.
-__device__ __forceinline__ float merge_closest(const Cands& c, int prev,
+template <int P>
+__device__ __forceinline__ float merge_closest(const Cands<P>& c, int prev,
                                                int nr, int r, int lane,
                                                float& best_t, int& best_tri,
                                                float& best_u, float& best_v) {
-  float tq[kParts];
-  int lq[kParts];
+  float tq[P];
+  int lq[P];
 #pragma unroll
-  for (int q = 0; q < kParts; ++q) {
+  for (int q = 0; q < P; ++q) {
     tq[q] = c.t[prev + q * nr + r];
     lq[q] = c.lane[prev + q * nr + r];
   }
   float wt = tq[0];
   int wl = lq[0], wq = 0;
 #pragma unroll
-  for (int q = 1; q < kParts; ++q)
+  for (int q = 1; q < P; ++q)
     if (tq[q] < wt || (tq[q] == wt && lq[q] < wl)) {
       wt = tq[q];
       wl = lq[q];
@@ -152,28 +162,28 @@ __device__ __forceinline__ float merge_closest(const Cands& c, int prev,
   float m = -INFINITY;
   for (int rr = lane; rr < nr; rr += 32) {
     float t = c.t[prev + rr];
-    for (int q = 1; q < kParts; ++q) t = fminf(t, c.t[prev + q * nr + rr]);
+    for (int q = 1; q < P; ++q) t = fminf(t, c.t[prev + q * nr + rr]);
     m = fmaxf(m, t);
   }
   return warp_max(m);
 }
 
-// Part p's lane tests of one column for ray (o, d): lanes p, p + kParts,
-// ... below n of `rows` (lane-major, four float4 a lane: n, d | r1, c1 |
+// Part p's lane tests of one column for ray (o, d): lanes p, p + P, ...
+// below n of `rows` (lane-major, four float4 a lane: n, d | r1, c1 |
 // r2, c2 | id + 1), the first minimum with t_min < t < best_t, written as
 // the ray's candidate at slab slot cur. kIdFilter skips lanes whose id
 // row marks a pad (id < 0), as K2 does; P3, like the JAX probe, keeps
 // every lane.
-template <bool kIdFilter>
+template <bool kIdFilter, int P>
 __device__ __forceinline__ void test_closest(const float4* rows, int n, int p,
                                              float ox, float oy, float oz,
                                              float dx, float dy, float dz,
                                              float t_min, float best_t,
-                                             const Cands& c, int cur) {
+                                             const Cands<P>& c, int cur) {
   float c_t = best_t, c_u = 0.0f, c_v = 0.0f;
   int c_l = kNone, c_tri = 0;
   if (best_t > t_min) {   // else no t with t_min < t < best_t
-    for (int l = p; l < n; l += kParts) {
+    for (int l = p; l < n; l += P) {
       const float4 a = rows[4 * l];
       const float denom = dot_n(dx, dy, dz, a);
       const float num = a.w - dot_n(ox, oy, oz, a);

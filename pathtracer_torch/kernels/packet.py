@@ -8,7 +8,8 @@ Per traversal call:
    dirmajor (direction bins major, origin Morton minor), mixed (the two
    bit streams interleaved) or firstcluster (the ray's nearest cluster
    major: K8, cull.first_cluster); parked lanes last;
-2. pad to whole tiles of PT_TILE_RAYS rays (32 or 64) with parked rays,
+2. pad to whole tiles of PT_TILE_RAYS rays (32, 64, 128 or 256) with
+   parked rays,
    then chunks of PT_CHUNK_TILES tiles; chunks whose lanes are all
    parked are skipped (one host sync per call reads every chunk's flag);
 3. per live chunk: the tile cull (cull="ray": K1, or K4 under
@@ -46,7 +47,7 @@ SCHED_PACK_MAX = 1 << 12  # clusters the packed schedule's 12 id bits hold
 
 def tile_rays_knob() -> int:
     """PT_TILE_RAYS (default 64): the widths the sweep kernels take."""
-    return knobs.integer("PT_TILE_RAYS", TILE_RAYS, (32, 64))
+    return knobs.integer("PT_TILE_RAYS", TILE_RAYS, sweep.TILE_WIDTHS)
 
 
 def chunk_tiles_knob() -> int:
@@ -384,6 +385,10 @@ def _call_shape(tile_rays, chunk_rays, cull_kind):
                          f"{', '.join(CULLS)}")
     knob_rays = tile_rays_knob()
     tile_rays = tile_rays or knob_rays
+    if tile_rays not in sweep.TILE_WIDTHS:
+        raise ValueError(f"tile_rays {tile_rays}: expected one of "
+                         f"{', '.join(map(str, sweep.TILE_WIDTHS))}, the "
+                         "widths the sweep kernels take")
     return tile_rays, chunk_rays or chunk_tiles_knob() * knob_rays
 
 

@@ -7,7 +7,8 @@
   cond_walk(x, n_iter, gate, grid)        P2, benchmarks/cond_probe.py:24
       x f32[1, 64, 512] -> best + aux f32[1, 64, 1]: n_iter fake columns
       x + i, each row's min, its argmin extraction always or (gate) only
-      when some row may improve.
+      when some row may improve; on the card a grid step is a 2-CTA
+      cluster.
   sweep_attrib(st, si, rays, blocks_lm, cpi, variant, t_min)
                                           P3, benchmarks/sweep_attrib.py:56
       K2's column walk on a synthetic schedule, one of VARIANTS ->
@@ -144,7 +145,8 @@ def cond_walk_plain(x, n_iter, gate, extractions=None):
 
 
 def cond_walk(x, n_iter=256, gate=False, grid=64):
-    """P2 on x f32[1, 64, 512]; the card runs `grid` identical blocks."""
+    """P2 on x f32[1, 64, 512]; the card runs `grid` identical grid
+    steps of a 2-CTA cluster each."""
     if not _route("cond_walk", x):
         return cond_walk_plain(x, n_iter, gate)
     _check("cond_walk x", x, torch.float32, x.device,

@@ -41,7 +41,14 @@ from pathtracer_torch.kernels.intersect import DET_EPS
 _PAIR_BUDGET = 1 << 22      # tiles x rays x lanes per plain-sweep block
 _STOP_CHECK = 8             # columns between host checks of "any tile live"
 _WARP = 32                  # rays a warp of the kernels tests together
-_PARTS = 4                  # threads a ray, over interleaved lanes (kParts)
+TILE_WIDTHS = (32, 64, 128, 256)   # rays a tile the kernels take
+_BLOCK_THREADS = 256        # threads a block at R >= 64 (kMaxThreads)
+
+
+def parts(tile_rays: int) -> int:
+    """Threads a ray, over interleaved lanes (sweep_column.cuh parts()):
+    4 at 32 and 64 rays a tile, 2 at 128, 1 at 256."""
+    return min(4, _BLOCK_THREADS // tile_rays)
 
 
 def _bw_lane(blk, o, d, t_min, best_t):
@@ -105,18 +112,19 @@ def _count_column(live, can_hit, blk, kernel_tests, tile_columns, a, b,
     k = blk.shape[2]
     lane = torch.arange(1, k + 1, device=blk.device)
     n_lanes = torch.where(blk[:, 12, :] > 0, lane, 0).amax(dim=1)   # [tb]
-    q = torch.arange(_PARTS, device=blk.device)
-    # thread (ray, part q) tests lanes q, q + _PARTS, ... < n_lanes
-    its = ((n_lanes[:, None] - q + _PARTS - 1) // _PARTS).clamp(min=0)
-    its = its[:, None, :].expand(tb, r, _PARTS)                # [tb, R, P]
+    p = parts(r)
+    q = torch.arange(p, device=blk.device)
+    # thread (ray, part q) tests lanes q, q + p, ... < n_lanes
+    its = ((n_lanes[:, None] - q + p - 1) // p).clamp(min=0)
+    its = its[:, None, :].expand(tb, r, p)                     # [tb, R, p]
     if hit is not None:                 # up to and with its first hit
-        hq = torch.nn.functional.pad(hit, (0, -k % _PARTS))
-        hq = hq.reshape(tb, r, -1, _PARTS)                      # lane i*P+q
+        hq = torch.nn.functional.pad(hit, (0, -k % p))
+        hq = hq.reshape(tb, r, -1, p)                           # lane i*p+q
         first = torch.argmax(hq.to(torch.uint8), dim=2) + 1
         its = torch.where(hq.any(dim=2), first, its)
     its = its * (live[:, None] & can_hit)[..., None]
     # a warp holds one part of _WARP rays and runs as long as its longest
-    warp = its.reshape(tb, r // _WARP, _WARP, _PARTS).amax(dim=2)
+    warp = its.reshape(tb, r // _WARP, _WARP, p).amax(dim=2)
     kernel_tests += warp.sum() * _WARP
 
 
@@ -131,8 +139,8 @@ def sweep_closest_plain(st, si, rays, t_cap, blocks_t, t_min,
     still lies beyond the column's entry, against each real triangle of
     the cluster (pad lanes excluded).
     kernel_tests: optional int64 0-d tensor, incremented by the lane
-    tests the kernel runs: a warp holds one of a ray's _PARTS threads
-    for _WARP rays, each thread tests every _PARTS-th lane below the
+    tests the kernel runs: a warp holds one of a ray's parts(R) threads
+    for _WARP rays, each thread tests every parts(R)-th lane below the
     cluster's n_lanes if its ray has best t > t_min, and the warp
     iterates as long as its longest thread (x _WARP lane slots).
     tile_columns: optional int64 [tiles] tensor, incremented by the
@@ -283,10 +291,11 @@ def _check_inputs(st, si, rays, per_ray, accel):
             raise ValueError(
                 f"sweep {name}: want contiguous {dtype} {shape} on {dev}, "
                 f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if r not in (32, 64):
-        raise ValueError(f"sweep: tile_rays {r} must be 32 or 64 (the "
-                         "kernels' blocks hold at most 256 threads, four "
-                         "a ray)")
+    if r not in TILE_WIDTHS:
+        raise ValueError(f"sweep: tile_rays {r} must be one of "
+                         f"{', '.join(map(str, TILE_WIDTHS))} (blocks of at "
+                         "most 256 threads: four a ray up to 64 rays, two "
+                         "at 128, one at 256)")
     return tiles, cs, r, k
 
 

@@ -47,8 +47,8 @@ KNOBS = {
     "PT_SORT_SCOPE": (HONOURED, "kernels/packet.intersect_clusters / "
                       "occluded_clusters"),
     "PT_CHUNK_TILES": (HONOURED, "kernels/packet (tiles per chunk)"),
-    "PT_TILE_RAYS": (HONOURED, "kernels/packet (rays per tile: 32 or 64, "
-                     "the widths the sweep kernels take)"),
+    "PT_TILE_RAYS": (HONOURED, "kernels/packet (rays per tile: 32, 64, "
+                     "128 or 256, the widths the sweep kernels take)"),
     "PT_CULL_SKIP": (HONOURED, "kernels/cull.tile_cull (K4)"),
     "PT_CULL_BLK": (HONOURED, "kernels/cull.tile_cull (K4's block width)"),
     "PT_MAX_WAVEFRONT": (HONOURED, "render._part_bounds"),

@@ -653,12 +653,430 @@ def _finish(frame, coefs, latched, jfif, adobe) -> np.ndarray:
     return ycc_to_rgb(*planes)
 
 
+# ---------------------------------------------------------------------------
+# TGA and BMP, as PIL's TgaImagePlugin and BmpImagePlugin read them
+# ---------------------------------------------------------------------------
+#
+# Both decode to PIL's image modes ("1" as 0/255, "L", "LA", "P", "PA",
+# "RGB", "RGBA"; a palette as u8 [n, 4] RGBA), then pil_convert gives
+# convert("RGBA") / convert("RGB"). PIL's rules, not the formats':
+# 5-bit channels scale by v * 255 // 31 and 6-bit by v * 255 // 63; a
+# palette index past the palette is black and opaque; a 16-bit TGA pixel
+# or palette entry is opaque where its top bit is clear; a TGA colour map
+# of any image but a 24- or 16-bit map on an 8-bit colour-mapped, gray or
+# gray + alpha image is refused, and a gray image with a map is read
+# through it (gray + alpha keeps its alpha); a BMP palette of gray ramp
+# entries makes an "L" or "1" image read with the file's bytes as 8- or
+# 1-bit pixels (whatever the bit depth); a BMP RLE stream as PIL's
+# BmpRleDecoder walks it (runs clipped at the row end, absolute runs not,
+# a delta escape reading four bytes).
+
+MAX_PIXELS = 2 * 89_478_485   # PIL's decompression-bomb error limit
+TGA_DEPTHS = (1, 8, 16, 24, 32)
+TGA_TYPES = (1, 2, 3, 9, 10, 11)
+# (image type & 7, depth) -> PIL's raw mode (TgaImagePlugin.MODES)
+TGA_RAW = {(1, 8): "P", (3, 1): "1", (3, 8): "L", (3, 16): "LA",
+           (2, 16): "BGRA;15Z", (2, 24): "BGR", (2, 32): "BGRA"}
+_RAW_BYTES = {"P": 1, "L": 1, "LA": 2, "BGRA;15Z": 2, "BGR;15": 2,
+              "BGR;16": 2, "BGR": 3, "BGRA": 4, "BGRX": 4, "XBGR": 4,
+              "BGXR": 4, "ABGR": 4, "RGBA": 4, "BGAR": 4}
+
+
+class Refused(ValueError):
+    """An image PIL refuses (or cannot load): `kind` is "format" where
+    PIL does not take the file's variant, "corrupt" where its data is
+    short or broken."""
+
+    def __init__(self, what: str, kind: str = "format"):
+        super().__init__(what)
+        self.kind = kind
+
+
+def _scale5(v):
+    return (v * 255) // 31
+
+
+def _unpack_raw(rows: np.ndarray, w: int, raw: str) -> tuple:
+    """Rows u8 [h, >= row bytes] of PIL raw mode `raw` -> (mode, u8
+    [h, w, c])."""
+    h = rows.shape[0]
+    if raw == "1":
+        bits = np.unpackbits(rows, axis=1)[:, :w]
+        return "1", (bits * 255).astype(np.uint8)[..., None]
+    n = _RAW_BYTES[raw]
+    px = rows[:, :w * n].reshape(h, w, n).astype(np.int32)
+    if raw in ("P", "L"):
+        return raw, px.astype(np.uint8)
+    if raw == "LA":
+        return "LA", px.astype(np.uint8)
+    if n == 2:
+        v = px[..., 0] | (px[..., 1] << 8)
+        b = _scale5(v & 31)
+        if raw == "BGR;16":
+            g = ((v >> 5) & 63) * 255 // 63
+            r = _scale5((v >> 11) & 31)
+        else:
+            g = _scale5((v >> 5) & 31)
+            r = _scale5((v >> 10) & 31)
+        out = [r, g, b]
+        if raw == "BGRA;15Z":
+            out.append(np.where(v & 0x8000, 0, 255))
+            return "RGBA", np.stack(out, -1).astype(np.uint8)
+        return "RGB", np.stack(out, -1).astype(np.uint8)
+    order = {c: i for i, c in enumerate(raw)}
+    rgb = [px[..., order[c]] for c in "RGB"]
+    if "A" in raw:
+        return "RGBA", np.stack(rgb + [px[..., order["A"]]],
+                                -1).astype(np.uint8)
+    return "RGB", np.stack(rgb, -1).astype(np.uint8)
+
+
+def _raw_rows(data: bytes, pos: int, h: int, row_bytes: int,
+              stride: int, what: str) -> np.ndarray:
+    """h rows of row_bytes from data[pos:], stride bytes apart (PIL's
+    raw decoder: every row must be there)."""
+    need = pos + (h - 1) * stride + row_bytes
+    if need > len(data):
+        raise Refused(f"truncated {what}", "corrupt")
+    buf = np.frombuffer(data, np.uint8)
+    return np.stack([buf[pos + y * stride:pos + y * stride + row_bytes]
+                     for y in range(h)])
+
+
+def pil_convert(mode: str, px: np.ndarray, pal, out: str) -> np.ndarray:
+    """A PIL image (mode, pixels u8 [h, w, c], palette u8 [n, 4] or None)
+    -> u8 [h, w, 4] (out "RGBA") or [h, w, 3] ("RGB"), as convert(out)."""
+    h, w = px.shape[:2]
+    alpha = np.full((h, w), 255, np.uint8)
+    if pal is not None:                        # "P", or "PA" (L/LA + map)
+        table = np.zeros((256, 4), np.uint8)
+        table[:, 3] = 255
+        table[:len(pal)] = pal[:256]
+        ent = table[px[..., 0]]
+        rgb = ent[..., :3]
+        alpha = px[..., 1] if mode in ("LA", "PA") else ent[..., 3]
+    elif mode in ("1", "L", "LA"):
+        rgb = np.repeat(px[..., :1], 3, -1)
+        if mode == "LA":
+            alpha = px[..., 1]
+    else:
+        rgb = px[..., :3]
+        if mode == "RGBA":
+            alpha = px[..., 3]
+    if out == "RGB":
+        return np.ascontiguousarray(rgb, np.uint8)
+    return np.concatenate([rgb, alpha[..., None]], -1).astype(np.uint8)
+
+
+def tga_accept(data: bytes) -> bool:
+    """PIL's test of a TGA header (TgaImageFile._open): 18 bytes, a
+    colour map type of 0 or 1, a positive size, a bit depth of 1, 8,
+    16, 24 or 32 and an image type of 1-3 or 9-11."""
+    if len(data) < 18:
+        return False
+    w, h = struct.unpack("<HH", data[12:16])
+    return (data[1] in (0, 1) and w > 0 and h > 0
+            and data[16] in TGA_DEPTHS and data[2] in TGA_TYPES)
+
+
+def tga_name(data: bytes) -> str:
+    kind = {1: "colour-mapped", 2: "true-colour", 3: "gray"}[data[2] & 7]
+    rle = " RLE" if data[2] & 8 else ""
+    return f"{data[16]}-bit {kind}{rle} TGA"
+
+
+def tga_decode(data: bytes):
+    """TGA -> (mode, pixels u8 [h, w, c], palette or None), as PIL's
+    TgaImageFile loads it; Refused where PIL refuses."""
+    if not tga_accept(data):
+        raise Refused("not a TGA")
+    what = tga_name(data)
+    id_len, cmap_type, img_type = data[0], data[1], data[2]
+    cstart, clen, cdepth = struct.unpack("<HHB", data[3:8])
+    w, h = struct.unpack("<HH", data[12:16])
+    if w * h > MAX_PIXELS:
+        raise Refused(f"{what} of {w}x{h} pixels", "corrupt")
+    depth, flags = data[16], data[17]
+    pos = 18 + id_len
+    pal = None
+    if cmap_type:
+        raw_pal = {16: "BGRA;15Z", 24: "BGR"}.get(cdepth)
+        if raw_pal is None:
+            raise Refused(f"{what} with a {cdepth}-bit colour map")
+        n = _RAW_BYTES[raw_pal]
+        body = data[pos:pos + n * clen]
+        pos += n * clen
+        if len(body) < n * clen:
+            raise Refused(f"truncated {what}", "corrupt")
+        if cstart + clen > 256:
+            raise Refused(f"{what} with a colour map of {cstart + clen} "
+                          "entries")
+        ent = np.frombuffer(bytes(n * cstart) + body, np.uint8)
+        _, pal = _unpack_raw(ent.reshape(1, -1), cstart + clen, raw_pal)
+        pal = pal[0]
+        if pal.shape[1] == 3:
+            pal = np.concatenate([pal, np.full((len(pal), 1), 255,
+                                               np.uint8)], 1)
+    raw = TGA_RAW.get((img_type & 7, depth))
+    if raw is None:
+        raise Refused(what)
+    mode = {"P": "P" if cmap_type else "L"}.get(raw, raw)
+    if raw == "P" and not cmap_type:
+        raise Refused(f"{what} without a colour map")
+    if cmap_type and raw not in ("P", "L", "LA"):
+        raise Refused(f"{what} with a colour map")
+    bottom_up = not flags & 0x20
+    if img_type & 8:
+        rows = _tga_rle_rows(data, pos, w, h, depth, what)
+    else:
+        row_bytes = (w * depth + 7) // 8
+        rows = _raw_rows(data, pos, h, row_bytes, row_bytes, what)
+    if bottom_up:
+        rows = rows[::-1]
+    got_mode, px = _unpack_raw(rows, w, raw)
+    if raw not in ("P", "L", "LA", "1"):
+        mode = got_mode
+    if flags & 0x10:
+        px = px[:, ::-1]
+    return mode, np.ascontiguousarray(px), pal
+
+
+def _tga_rle_rows(data: bytes, pos: int, w: int, h: int, depth: int,
+                  what: str) -> np.ndarray:
+    """PIL's tga_rle decoder: packets of (count & 0x7f) + 1 pixels, a run
+    (high bit) of one pixel or a literal; a run past a row's end is an
+    overrun, a literal continues on the next rows. Rows in file order."""
+    size = depth // 8
+    if size == 0:          # PIL's decoder makes no progress on 1-bit RLE
+        raise Refused(f"truncated {what}", "corrupt")
+    row_bytes = w * size
+    rows = np.zeros((h, row_bytes), np.uint8)
+    y = x = 0
+    n_data = len(data)
+    while y < h:
+        if pos >= n_data:
+            raise Refused(f"truncated {what}", "corrupt")
+        head = data[pos]
+        n = size * ((head & 0x7F) + 1)
+        if head & 0x80:
+            if pos + 1 + size > n_data:
+                raise Refused(f"truncated {what}", "corrupt")
+            if x + n > row_bytes:
+                raise Refused(f"corrupt {what} (a run past a row's end)",
+                              "corrupt")
+            rows[y, x:x + n] = np.tile(np.frombuffer(
+                data[pos + 1:pos + 1 + size], np.uint8), n // size)
+            pos += 1 + size
+            x += n
+        else:
+            if pos + 1 + n > n_data:
+                raise Refused(f"truncated {what}", "corrupt")
+            src = pos + 1
+            pos += 1 + n
+            while n and y < h:
+                m = min(n, row_bytes - x)
+                rows[y, x:x + m] = np.frombuffer(data[src:src + m],
+                                                 np.uint8)
+                src += m
+                n -= m
+                x += m
+                if x == row_bytes:
+                    x, y = 0, y + 1
+            continue
+        if x == row_bytes:
+            x, y = 0, y + 1
+    return rows
+
+
+BMP_HEADERS = (12, 40, 52, 56, 64, 108, 124)
+# bits -> (mode, raw mode) of an uncompressed BMP (BmpImagePlugin.BIT2MODE)
+BMP_BITS = {1: ("P", "P;1"), 4: ("P", "P;4"), 8: ("P", "P"),
+            16: ("RGB", "BGR;15"), 24: ("RGB", "BGR"), 32: ("RGB", "BGRX")}
+# (bits, masks) -> raw mode of a BITFIELDS BMP (BmpImagePlugin.MASK_MODES)
+BMP_MASKS = {
+    (32, (0xFF0000, 0xFF00, 0xFF, 0x0)): "BGRX",
+    (32, (0xFF000000, 0xFF0000, 0xFF00, 0x0)): "XBGR",
+    (32, (0xFF000000, 0xFF00, 0xFF, 0x0)): "BGXR",
+    (32, (0xFF000000, 0xFF0000, 0xFF00, 0xFF)): "ABGR",
+    (32, (0xFF, 0xFF00, 0xFF0000, 0xFF000000)): "RGBA",
+    (32, (0xFF0000, 0xFF00, 0xFF, 0xFF000000)): "BGRA",
+    (32, (0xFF000000, 0xFF00, 0xFF, 0xFF0000)): "BGAR",
+    (32, (0x0, 0x0, 0x0, 0x0)): "BGRA",
+    (24, (0xFF0000, 0xFF00, 0xFF)): "BGR",
+    (16, (0xF800, 0x7E0, 0x1F)): "BGR;16",
+    (16, (0x7C00, 0x3E0, 0x1F)): "BGR;15",
+}
+BMP_COMPRESSION = {0: "", 1: "RLE8 ", 2: "RLE4 ", 3: "BITFIELDS "}
+
+
+def bmp_decode(data: bytes):
+    """BMP -> (mode, pixels u8 [h, w, c], palette or None), as PIL's
+    BmpImageFile loads it; Refused where PIL refuses."""
+    if data[:2] != b"BM" or len(data) < 18:
+        raise Refused("truncated BMP", "corrupt")
+    offset = struct.unpack("<I", data[10:14])[0]
+    hsize = struct.unpack("<I", data[14:18])[0]
+    if hsize not in BMP_HEADERS:
+        raise Refused(f"BMP with a {hsize}-byte header")
+    if len(data) < 14 + hsize:
+        raise Refused("truncated BMP", "corrupt")
+    hd = data[18:14 + hsize]
+    pos = 14 + hsize
+    comp, colors, masks = 0, 0, None
+    if hsize == 12:
+        w, h, _, bits = struct.unpack("<HHHH", hd[:8])
+        pad, top_down = 3, False
+    else:
+        w, h_raw, _, bits, comp = struct.unpack("<IIHHI", hd[:16])
+        colors = struct.unpack("<I", hd[28:32])[0]
+        top_down = hd[7] == 0xFF
+        h = 2 ** 32 - h_raw if top_down else h_raw
+        pad = 4
+        if comp == 3:
+            if len(hd) >= 48:
+                n_masks = 4 if len(hd) >= 52 else 3
+                masks = struct.unpack(f"<{n_masks}I", hd[36:36 + 4 * n_masks])
+                if n_masks == 3:
+                    masks += (0,)
+            else:
+                if len(data) < pos + 12:
+                    raise Refused("truncated BMP", "corrupt")
+                masks = struct.unpack("<3I", data[pos:pos + 12]) + (0,)
+                pos += 12
+    what = f"{bits}-bit {BMP_COMPRESSION.get(comp, '')}BMP"
+    if w == 0 or h == 0 or w * h > MAX_PIXELS:
+        raise Refused(f"{what} of {w}x{h} pixels", "corrupt")
+    colors = colors or (1 << bits if bits < 32 else 0)
+    if offset == 14 + hsize and bits <= 8:
+        offset += 4 * colors
+    if bits not in BMP_BITS:
+        raise Refused(f"{bits}-bit BMP")
+    mode, raw = BMP_BITS[bits]
+    rle = False
+    if comp == 3:
+        if bits == 32 and masks in [m for b, m in BMP_MASKS if b == 32]:
+            raw = BMP_MASKS[(32, masks)]
+            mode = "RGBA" if "A" in raw else mode
+        elif bits in (24, 16) and (bits, masks[:3]) in BMP_MASKS:
+            raw = BMP_MASKS[(bits, masks[:3])]
+        else:
+            raise Refused(f"{what} with masks {masks}")
+    elif comp in (1, 2):
+        rle = True
+    elif comp != 0:
+        raise Refused(f"BMP with compression {comp}")
+    pal = None
+    if mode == "P":
+        if not 0 < colors <= 65536:
+            raise Refused(f"{what} with {colors} palette entries")
+        # as many entries as the file holds (PIL reads what is there)
+        body = data[pos:pos + pad * colors]
+        n_ent = len(body) // pad
+        ent = np.frombuffer(body[:n_ent * pad], np.uint8).reshape(n_ent, pad)
+        ramp = (0, 255) if colors == 2 else range(colors)
+        gray = n_ent == colors and all(
+            v < 256 and tuple(ent[i, :3]) == (v, v, v)
+            for i, v in enumerate(ramp))
+        if gray:
+            mode = raw = "1" if colors == 2 else "L"
+        elif n_ent > 256:
+            raise Refused(f"{what} with {n_ent} palette entries")
+        else:
+            pal = np.concatenate([ent[:, 2::-1], np.full((n_ent, 1), 255,
+                                                         np.uint8)], 1)
+    if rle:
+        if mode not in ("P", "L"):
+            raise Refused(f"{what} of mode {mode}")
+        px = _bmp_rle(data, offset, w, h, comp == 2, what)
+        if not top_down:
+            px = px[::-1]
+        return mode, px[..., None], pal
+    stride = ((w * bits + 31) >> 3) & ~3
+    row_bytes = (w * {"1": 1, "P;1": 1, "P;4": 4}.get(raw, 8 * _RAW_BYTES.get(
+        raw, 1)) + 7) // 8
+    if row_bytes > stride:
+        raise Refused(f"corrupt {what}", "corrupt")
+    rows = _raw_rows(data, offset, h, row_bytes, stride, what)
+    if not top_down:
+        rows = rows[::-1]
+    if raw in ("P;1", "P;4"):
+        b = 1 if raw == "P;1" else 4
+        bits_ = np.unpackbits(rows, axis=1)[:, :w * b].reshape(h, w, b)
+        px = (bits_ * (1 << np.arange(b - 1, -1, -1))).sum(-1)
+        return "P", px.astype(np.uint8)[..., None], pal
+    got, px = _unpack_raw(rows, w, raw)
+    return (got if raw not in ("P", "L", "1") else mode), px, pal
+
+
+def _bmp_rle(data: bytes, pos: int, w: int, h: int, rle4: bool,
+             what: str) -> np.ndarray:
+    """PIL's BmpRleDecoder over data[pos:] -> indices u8 [h, w] in file
+    row order (bottom-up unless the header says otherwise)."""
+    out = bytearray()
+    x = 0
+    n = len(data)
+    total = w * h
+    while len(out) < total:
+        if pos + 2 > n:
+            break
+        count, byte = data[pos], data[pos + 1]
+        pos += 2
+        if count:                                     # encoded run
+            if x + count > w:
+                count = max(0, w - x)
+            if rle4:
+                hi, lo = byte >> 4, byte & 0x0F
+                out += bytes(hi if i % 2 == 0 else lo for i in range(count))
+            else:
+                out += bytes([byte]) * count
+            x += count
+        elif byte == 0:                               # end of line
+            out += bytes(-len(out) % w)
+            x = 0
+        elif byte == 1:                               # end of bitmap
+            break
+        elif byte == 2:                               # delta (four bytes)
+            if pos + 2 > n:
+                break
+            pos += 2
+            if pos + 2 > n:
+                raise Refused(f"truncated {what}", "corrupt")
+            right, up = data[pos], data[pos + 1]
+            pos += 2
+            # only the first w * h indices are read: grow no further
+            out += bytes(min(right + up * w, total - len(out)))
+            x = len(out) % w
+        else:                                         # absolute run
+            nb = byte // 2 if rle4 else byte
+            got = data[pos:pos + nb]
+            pos += len(got)
+            if rle4:
+                for v in got:
+                    out += bytes([v >> 4, v & 0x0F])
+            else:
+                out += got
+            if len(got) < nb:
+                break
+            x += byte
+            if pos % 2:
+                pos += 1
+    if len(out) < total:
+        raise Refused(f"truncated {what}", "corrupt")
+    return np.frombuffer(bytes(out[:total]), np.uint8).reshape(h, w)
+
+
 def decode(data: bytes, mode: str) -> np.ndarray:
-    """PNG or JPEG bytes -> u8 [H, W, 4] (mode "RGBA") or [H, W, 3]
-    ("RGB"), as PIL's convert(mode) gives it."""
+    """PNG, JPEG, BMP or TGA bytes -> u8 [H, W, 4] (mode "RGBA") or
+    [H, W, 3] ("RGB"), as PIL's convert(mode) gives it. TGA has no magic
+    bytes: a file that is none of the others is read as TGA when its
+    header passes PIL's TGA test (tga_accept)."""
     if data[:8] == PNG_SIG:
         samples, meta = png_decode(data)
         return png_convert(samples, meta, mode)
+    if data[:2] == b"BM":
+        return pil_convert(*bmp_decode(data), mode)
+    if data[:2] != b"\xff\xd8" and tga_accept(data):
+        return pil_convert(*tga_decode(data), mode)
     img = jpeg_decode(data)
     if img.shape[2] == 1:
         img = np.repeat(img, 3, -1)

@@ -13,8 +13,13 @@ and rebuilt when its source is newer:
 - the image decoders, `pathtracer_torch/csrc/image_decode.cpp` (the
   port's own): PNG of every colour type, bit depth and interlace, JPEG
   (baseline, extended 8-bit and progressive Huffman, gray or three
-  components, any integral sampling factors) and Radiance RGBE
-  scanlines; `utils/image_plain.py` is their plain numpy version.
+  components, any integral sampling factors), TGA (image types 1-3 and
+  9-11, 1-32-bit pixels, colour maps, both origins), BMP (core, info,
+  V2-V5 headers, 1-32-bit pixels, RLE8, RLE4, BITFIELDS, both row
+  orders) and Radiance RGBE scanlines; `utils/image_plain.py` is their
+  plain numpy version. TGA has no magic bytes: a file that is no PNG,
+  JPEG, BMP or other named format is read as TGA when its header passes
+  PIL's TGA test.
 
       g++ -O3 -std=c++17 -fPIC -shared csrc/image_decode.cpp -lz
 
@@ -22,8 +27,9 @@ A failed build raises: the port has no Python fallback and no other
 image decoder (the JAX package falls back to Python and to PIL).
 `image_rgba` / `image_rgb` give the pixels PIL's convert("RGBA") /
 convert("RGB") gives; an image they do not decode (arithmetic-coded,
-12-bit, lossless, hierarchical or CMYK/YCCK JPEG, TGA, BMP, WebP, KTX2,
-...) is a ValueError naming the file and its format.
+12-bit, lossless, hierarchical or CMYK/YCCK JPEG, GIF, TIFF, WebP, DDS,
+KTX2, and the TGA and BMP variants PIL refuses) is a ValueError naming
+the file and its format.
 """
 
 from __future__ import annotations
@@ -194,18 +200,21 @@ def _checked(rc: int, name, what: str):
         return
     fmt = name.value.decode()
     if rc == 1:
-        article = "an" if fmt[0] in "aeiouAEIOU" else "a"
+        article = "an" if fmt[0] in "aeiouAEIOU8" else "a"
         raise ValueError(f"{what}: cannot decode {article} {fmt}: "
-                         "pathtracer_torch decodes PNG and 8-bit baseline "
-                         "or progressive Huffman JPEG (gray, YCbCr or RGB)")
+                         "pathtracer_torch decodes PNG, 8-bit baseline "
+                         "or progressive Huffman JPEG (gray, YCbCr or "
+                         "RGB), and TGA and BMP as PIL reads them")
     raise ValueError(f"{what}: corrupt or truncated {fmt}")
 
 
 def image_info(data: bytes, what: str = "image"):
-    """(width, height, channels) of a PNG or JPEG. channels is the
-    file's own: PNG 1 gray, 2 gray + alpha, 3 RGB or palette, 4 RGBA or
-    palette with tRNS; JPEG 1 or 3. Raises ValueError naming `what` and
-    the format when the decoders do not take the image."""
+    """(width, height, channels) of a PNG, JPEG, BMP or TGA. channels is
+    the file's own: PNG 1 gray, 2 gray + alpha, 3 RGB or palette, 4 RGBA
+    or palette with tRNS; JPEG 1 or 3; BMP and TGA 1 gray, 2 gray +
+    alpha, 3 RGB or palette, 4 RGBA, a palette with alpha or gray + alpha
+    through a colour map. Raises ValueError naming `what` and the format
+    when the decoders do not take the image."""
     lib = _load("images")
     buf = np.frombuffer(data, np.uint8)
     w, h, ch = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
@@ -217,8 +226,8 @@ def image_info(data: bytes, what: str = "image"):
 
 
 def image_decode(data: bytes, what: str, channels: int) -> np.ndarray:
-    """PNG or JPEG -> u8 [H, W, channels] (4: PIL's convert("RGBA"), 3:
-    convert("RGB")). Raises ValueError naming `what` and the format when
+    """PNG, JPEG, BMP or TGA -> u8 [H, W, channels] (4: PIL's
+    convert("RGBA"), 3: convert("RGB")). Raises ValueError naming `what` and the format when
     the image is not decoded."""
     w, h, _ = image_info(data, what)
     lib = _load("images")

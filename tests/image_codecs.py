@@ -8,10 +8,18 @@ blocks with any sampling factors and restart interval (PIL writes no
 4:4:0). PIL decodes both kinds of file, and its decode is the reference
 the port's decoders are held to.
 
-`fixture_set()` names the committed fixtures of tests/data/images/: the
-files and, in `pil.npz`, PIL's convert("RGBA") and convert("RGB") of
-each; `bench_jpegs()` the two 1024x1024 JPEGs whose decode chip_smoke.py
-times, with the sha256 of PIL's convert("RGB") in `bench_sha256.json`.
+`tga_file` and `bmp_file` write TGA and BMP files of any image type,
+bit depth, colour map or palette, header, compression (TGA RLE, BMP
+RLE8/RLE4 with absolute runs and deltas, BITFIELDS masks) and row
+order, which PIL does not write (15/16-bit, colour-mapped TGA beyond
+its own, RLE BMP, bitfields).
+
+`fixture_set()` names the committed PNG/JPEG fixtures of
+tests/data/images/: the files and, in `pil.npz`, PIL's convert("RGBA")
+and convert("RGB") of each; `tga_bmp_set()` the TGA/BMP fixtures, with
+PIL's arrays in `tga_bmp.npz`; `bench_jpegs()` the two 1024x1024 JPEGs
+whose decode chip_smoke.py times, with the sha256 of PIL's
+convert("RGB") in `bench_sha256.json`.
 The card has no PIL, so chip_smoke.py and the cuda tests compare
 against the committed arrays. Regenerate them (needs PIL) with
 
@@ -368,6 +376,261 @@ def fixture_set(seed: int = 11) -> dict:
     return files
 
 
+# --- TGA and BMP -------------------------------------------------------------
+
+def _tga_rle(rows: np.ndarray, size: int, rng) -> bytes:
+    """TGA RLE packets of the file-order rows u8 [h, w * size]: a run of
+    repeated pixels within a row where one starts (a run may not cross a
+    row, as PIL's decoder requires), else a literal of 1-128 pixels drawn
+    from rng, which may go on over the next rows."""
+    px = rows.reshape(-1, size)
+    w = rows.shape[1] // size
+    # same[j]: pixel j + 1 repeats pixel j within its row
+    same = np.zeros(len(px), bool)
+    same[:-1] = (px[1:] == px[:-1]).all(1)
+    same[w - 1::w] = False
+    out = bytearray()
+    i = 0
+    while i < len(px):
+        j = i
+        while same[j] and j + 1 - i < 128:
+            j += 1
+        if j > i:
+            out += bytes([0x80 | (j - i)]) + px[i].tobytes()
+            i = j + 1
+            continue
+        k = int(min(len(px) - i, rng.integers(1, 129)))
+        out += bytes([k - 1]) + px[i:i + k].tobytes()
+        i += k
+    return bytes(out)
+
+
+def tga_file(rows, img_type: int, depth: int, *, cmap=None,
+             cmap_depth: int = 24, cmap_start: int = 0, flags: int = 0,
+             id_bytes: bytes = b"", seed: int = 0) -> bytes:
+    """TGA bytes of file-order rows u8 [h, w * bytes a pixel] (depth 1:
+    packed bits), image type 1-3 or 9-11 (RLE packets from `seed`), a
+    colour map of entry bytes u8 [n, cmap_depth // 8] from cmap_start,
+    and flags (0x20 top-down, 0x10 right-to-left)."""
+    rows = np.asarray(rows, np.uint8)
+    h = rows.shape[0]
+    w = rows.shape[1] * 8 if depth == 1 else rows.shape[1] // (depth // 8)
+    cm = b"" if cmap is None else np.asarray(cmap, np.uint8).tobytes()
+    n_cmap = 0 if cmap is None else len(cmap)
+    head = struct.pack("<BBBHHBHHHHBB", len(id_bytes), int(cmap is not None),
+                       img_type, cmap_start, n_cmap,
+                       cmap_depth if cmap is not None else 0, 0, 0, w, h,
+                       depth, flags)
+    body = (_tga_rle(rows, depth // 8, np.random.default_rng(seed))
+            if img_type & 8 else rows.tobytes())
+    return head + id_bytes + cm + body
+
+
+def _bmp_rle(idx: np.ndarray, rle4: bool, rng, deltas=True) -> bytes:
+    """RLE8/RLE4 stream of file-order indices [h, w]: encoded runs where
+    pixels repeat, absolute runs (3-40 pixels, word-aligned) otherwise, a
+    delta escape now and then (with `deltas`: it leaves a row of index
+    0), end of line and end of bitmap."""
+    h, w = idx.shape
+    out = bytearray()
+    y = 0
+    while y < h:
+        x = 0
+        row = idx[y]
+        while x < w:
+            k = 1
+            while x + k < w and k < 255 and row[x + k] == row[x]:
+                k += 1
+            if k >= 2 or w - x < 3:
+                k = max(1, min(k, w - x))
+                v = (int(row[x]) << 4 | int(row[x + 1 if k > 1 else x])
+                     if rle4 else int(row[x]))
+                out += bytes([k, v])
+                x += k
+                continue
+            k = int(min(w - x, rng.integers(3, 41)))
+            if rle4:
+                k -= k % 2            # PIL reads count // 2 bytes of pairs
+                vals = row[x:x + k].astype(np.uint8)
+                body = bytes((vals[0::2] << 4) | vals[1::2])
+            else:
+                body = row[x:x + k].astype(np.uint8).tobytes()
+            out += bytes([0, k]) + body + b"\0" * (len(body) % 2)
+            x += k
+        if deltas and y + 2 < h and rng.random() < 0.25:
+            # delta: 0, 2, then PIL reads two bytes it drops and then
+            # (right, up); skip one row of zeros
+            out += bytes([0, 2, 0, 0, 0, 1]) + bytes([0, 0])
+            y += 2
+            continue
+        out += bytes([0, 0])
+        y += 1
+    return bytes(out) + bytes([0, 1])
+
+
+def bmp_file(data, w: int, h: int, bits: int, *, header: int = 40,
+             comp: int = 0, palette=None, masks=None, top_down=False,
+             colors: int = 0, seed: int = 0, deltas: bool = True) -> bytes:
+    """BMP bytes. data: file-order rows u8 [h, row bytes] (padded to 4
+    bytes here) or, for RLE8/RLE4 (comp 1/2), the indices [h, w] in file
+    order; palette u8 [n, 3] RGB (written BGR, padded to 4 bytes past the
+    core header); masks (r, g, b[, a]) for BITFIELDS (comp 3: in the
+    header from 52 bytes, else after it); header 12, 40, 52, 56, 64, 108
+    or 124 bytes."""
+    data = np.asarray(data, np.uint8)
+    if comp in (1, 2):
+        pix = _bmp_rle(data, comp == 2, np.random.default_rng(seed),
+                       deltas)
+    else:
+        stride = ((w * bits + 31) >> 3) & ~3
+        rows = np.zeros((h, stride), np.uint8)
+        rows[:, :data.shape[1]] = data
+        pix = rows.tobytes()
+    extra, after = b"", b""
+    if masks is not None:
+        m = tuple(masks) + (0,) * (4 - len(masks))
+        if header >= 52:
+            extra = struct.pack("<4I", *m)[:16 if header >= 56 else 12]
+        else:
+            after = struct.pack("<3I", *m[:3])
+    pad = 3 if header == 12 else 4
+    pal = b""
+    if palette is not None:
+        p = np.asarray(palette, np.uint8)[:, ::-1]
+        if pad == 4:
+            p = np.concatenate([p, np.zeros((len(p), 1), np.uint8)], 1)
+        pal = p.tobytes()
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h,
+                           1, bits, comp, len(pix), 2835, 2835, colors, 0)
+        info = (info + extra).ljust(header, b"\0")
+    off = 14 + len(info) + len(after) + len(pal)
+    return (b"BM" + struct.pack("<IHHI", off + len(pix), 0, 0, off) + info
+            + after + pal + pix)
+
+
+def _blocky(rng, h, w, c, levels=256, block=3):
+    """u8 [h, w, c] of constant blocks (runs for the RLE writers)."""
+    small = rng.integers(0, levels, (-(-h // block), -(-w // block), c))
+    return np.repeat(np.repeat(small, block, 0), block, 1)[:h, :w].astype(
+        np.uint8)
+
+
+def _rgb555(img, alpha=None):
+    """u8 RGB [h, w, 3] -> little-endian 5-5-5 bytes [h, w * 2] (top bit:
+    alpha < 128, PIL's transparent)."""
+    v = ((img[..., 0].astype(np.uint16) >> 3) << 10
+         | (img[..., 1].astype(np.uint16) >> 3) << 5
+         | img[..., 2].astype(np.uint16) >> 3)
+    if alpha is not None:
+        v |= (alpha < 128).astype(np.uint16) << 15
+    return v.astype("<u2").view(np.uint8).reshape(img.shape[0], -1)
+
+
+def tga_bmp_set(seed: int = 13) -> dict:
+    """name -> file bytes of every committed TGA/BMP fixture (needs PIL)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    h, w = 9, 13
+    files = {}
+
+    def pil_save(img, name, fmt, **kw):
+        buf = io.BytesIO()
+        img.save(buf, format=fmt, **kw)
+        files[name] = buf.getvalue()
+
+    rgb = _blocky(rng, h, w, 3)
+    rgba = np.concatenate([rgb, _blocky(rng, h, w, 1)], -1)
+    gray = _blocky(rng, h, w, 1)[..., 0]
+    pal = rng.integers(0, 256, (16, 3)).astype(np.uint8)
+    idx = _blocky(rng, h, w, 1, 16)[..., 0]
+    p_img = Image.fromarray(idx, "P")
+    p_img.putpalette(pal.tobytes())
+    # written by PIL: every mode it saves, raw and RLE, both row orders
+    for rle in (False, True):
+        sfx = "_rle" if rle else ""
+        for mode, img in (("rgb", Image.fromarray(rgb)),
+                          ("rgba", Image.fromarray(rgba)),
+                          ("l", Image.fromarray(gray)),
+                          ("la", Image.fromarray(rgba[..., [0, 3]], "LA")),
+                          ("p", p_img),
+                          ("1", Image.fromarray(gray > 127))):
+            if not (rle and mode == "1"):   # PIL cannot read its 1-bit RLE
+                pil_save(img, f"{mode}{sfx}.tga", "TGA", rle=rle)
+        pil_save(Image.fromarray(rgb), f"rgb{sfx}_topdown.tga", "TGA",
+                 rle=rle, orientation=1)
+    # written here: 15/16-bit, 16-bit colour maps, maps on gray images,
+    # a map from an offset, right-to-left rows, an ID field
+    a16 = _rgb555(rgb, rgba[..., 3])
+    files["bgra16.tga"] = tga_file(a16[::-1], 2, 16)
+    files["bgra16_rle_flipx.tga"] = tga_file(a16, 10, 16, flags=0x30, seed=1)
+    cm16 = _rgb555(pal[None], rng.integers(0, 256, (1, 16)))[0].reshape(16, 2)
+    files["p_cmap16.tga"] = tga_file(idx[::-1], 1, 8, cmap=cm16,
+                                     cmap_depth=16)
+    files["p_cmap16_rle.tga"] = tga_file(idx, 9, 8, cmap=cm16, cmap_depth=16,
+                                         flags=0x20, seed=2)
+    files["p_cmap_start.tga"] = tga_file(idx + 3, 1, 8, cmap=pal[:, ::-1],
+                                         cmap_start=5, flags=0x10,
+                                         id_bytes=b"fixture")
+    files["l_cmap.tga"] = tga_file((idx * 13)[::-1], 3, 8,
+                                   cmap=rng.integers(0, 256, (256, 3)))
+    la = np.stack([idx, rgba[..., 3]], -1).reshape(h, -1)
+    files["la_cmap16_rle.tga"] = tga_file(la, 11, 16, cmap=cm16,
+                                          cmap_depth=16, flags=0x20, seed=3)
+    # BMP written by PIL: 1-bit, 8-bit gray, palette and RGB
+    pil_save(Image.fromarray(gray > 127), "1.bmp", "BMP")
+    pil_save(Image.fromarray(gray), "l.bmp", "BMP")
+    pil_save(p_img, "p8.bmp", "BMP")
+    pil_save(Image.fromarray(rgb), "rgb24.bmp", "BMP")
+    # BMP written here: core header, 1/4-bit colour palettes, RLE8/RLE4,
+    # 16-bit 5-5-5 and 5-6-5, 32-bit bitfields, V2-V5 headers, top-down
+    bgr = rgb[..., ::-1].reshape(h, -1)
+    files["core24.bmp"] = bmp_file(bgr[::-1], w, h, 24, header=12)
+    files["core8.bmp"] = bmp_file(idx[::-1], w, h, 8, header=12,
+                                  palette=np.concatenate(
+                                      [pal, np.zeros((240, 3), np.uint8)]))
+    bits1 = np.packbits(idx[::-1] & 1, axis=1)
+    files["p1.bmp"] = bmp_file(bits1, w, h, 1, palette=pal[:2], colors=2)
+    nib = np.zeros((h, (w + 1) // 2), np.uint8)
+    i4 = idx[::-1].astype(np.uint8)
+    nib[:, :] = (np.pad(i4, ((0, 0), (0, w % 2)))[:, 0::2] << 4) | np.pad(
+        i4, ((0, 0), (0, w % 2)))[:, 1::2]
+    files["p4.bmp"] = bmp_file(nib, w, h, 4, palette=pal)
+    files["p4_topdown_v5.bmp"] = bmp_file(nib[::-1], w, h, 4, palette=pal,
+                                          header=124, top_down=True)
+    files["rle8.bmp"] = bmp_file(idx[::-1], w, h, 8, comp=1, palette=pal,
+                                 colors=16, seed=4)
+    files["rle8_topdown.bmp"] = bmp_file(idx, w, h, 8, comp=1, palette=pal,
+                                         colors=16, top_down=True, seed=5)
+    files["rle4.bmp"] = bmp_file(idx[::-1], w, h, 4, comp=2, palette=pal,
+                                 seed=6)
+    files["rgb555.bmp"] = bmp_file(_rgb555(rgb)[::-1], w, h, 16)
+    v565 = ((rgb[..., 0].astype(np.uint16) >> 3) << 11
+            | (rgb[..., 1].astype(np.uint16) >> 2) << 5
+            | rgb[..., 2].astype(np.uint16) >> 3)
+    files["rgb565_bitfields.bmp"] = bmp_file(
+        v565.astype("<u2").view(np.uint8).reshape(h, -1)[::-1], w, h, 16,
+        comp=3, masks=(0xF800, 0x7E0, 0x1F))
+    bgra = rgba[..., [2, 1, 0, 3]].reshape(h, -1)
+    files["bgra32_v4.bmp"] = bmp_file(
+        bgra[::-1], w, h, 32, header=108, comp=3,
+        masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000))
+    files["rgba32_v5_topdown.bmp"] = bmp_file(
+        rgba.reshape(h, -1), w, h, 32, header=124, comp=3, top_down=True,
+        masks=(0xFF, 0xFF00, 0xFF0000, 0xFF000000))
+    files["xbgr32_v3.bmp"] = bmp_file(
+        np.concatenate([np.zeros((h, w, 1), np.uint8), rgb[..., ::-1]],
+                       -1).reshape(h, -1)[::-1], w, h, 32, header=56,
+        comp=3, masks=(0xFF000000, 0xFF0000, 0xFF00, 0))
+    files["bgrx32_v2.bmp"] = bmp_file(bgra[::-1], w, h, 32, header=52,
+                                      comp=3, masks=(0xFF0000, 0xFF00, 0xFF))
+    files["bgrx32.bmp"] = bmp_file(bgra[::-1], w, h, 32)
+    return files
+
+
 def bench_jpegs(seed: int = 12) -> dict:
     """name -> bytes of the two 1024x1024 4:2:0 JPEGs (baseline and
     progressive) whose decode chip_smoke.py times (needs PIL)."""
@@ -468,9 +731,10 @@ def pil_arrays(files: dict) -> dict:
     return out
 
 
-def load_fixtures():
-    """(name -> bytes, name -> (PIL RGBA, PIL RGB)) of the committed set."""
-    ref = np.load(os.path.join(DATA_DIR, "pil.npz"))
+def load_fixtures(arrays: str = "pil.npz"):
+    """(name -> bytes, name -> (PIL RGBA, PIL RGB)) of a committed set:
+    PNG/JPEG (pil.npz) or TGA/BMP (tga_bmp.npz)."""
+    ref = np.load(os.path.join(DATA_DIR, arrays))
     names = sorted({k.split(":")[0] for k in ref.files})
     files = {}
     for n in names:
@@ -479,16 +743,22 @@ def load_fixtures():
     return files, {n: (ref[f"{n}:RGBA"], ref[f"{n}:RGB"]) for n in names}
 
 
-def main():
-    import json
-
-    files = fixture_set()
+def write_set(files: dict, arrays: str):
+    """Write a fixture set and PIL's arrays of it into DATA_DIR."""
     os.makedirs(DATA_DIR, exist_ok=True)
     for name, raw in files.items():
         with open(os.path.join(DATA_DIR, name), "wb") as f:
             f.write(raw)
-    np.savez_compressed(os.path.join(DATA_DIR, "pil.npz"),
-                        **pil_arrays(files))
+    np.savez_compressed(os.path.join(DATA_DIR, arrays), **pil_arrays(files))
+
+
+def main():
+    import json
+
+    files = fixture_set()
+    write_set(files, "pil.npz")
+    tga_bmp = tga_bmp_set()
+    write_set(tga_bmp, "tga_bmp.npz")
     bench = bench_jpegs()
     for name, raw in bench.items():
         with open(os.path.join(DATA_DIR, name), "wb") as f:
@@ -498,8 +768,8 @@ def main():
     with open(os.path.join(DATA_DIR, "bench_sha256.json"), "w") as f:
         json.dump(digests, f, indent=1, sort_keys=True)
         f.write("\n")
-    print(f"{len(files)} fixtures and {len(bench)} bench JPEGs in "
-          f"{DATA_DIR}")
+    print(f"{len(files)} PNG/JPEG and {len(tga_bmp)} TGA/BMP fixtures and "
+          f"{len(bench)} bench JPEGs in {DATA_DIR}")
 
 
 if __name__ == "__main__":

@@ -966,15 +966,17 @@ def test_probe_wrappers_check_their_inputs(dev):
 
 # --- K7 frustum cull, K8 first cluster, grouped sweeps --------------------
 
-@pytest.mark.parametrize("tile_rays", [32, 64])
+@pytest.mark.parametrize("tile_rays", [32, 64, 128, 256])
 @pytest.mark.parametrize("trap", CULL_TRAPS)
 def test_frustum_cull_kernel_on_adversarial_chunk(dev, trap, tile_rays):
     """K7 on cull_trap_case's chunk (parked rays, pad boxes, equal
-    negative 1/d) as 7 tiles of 64 or 14 of 32: bit for bit its plain
-    version, one launch."""
+    negative 1/d) as 7 tiles of 64 or 14 of 32 (its first 3 tiles of 128
+    or 1 of 256): bit for bit its plain version, one launch."""
     pads, t_min, t_max = trap
     lo, hi, o, inv, tm = cull_trap_case(pads, t_max, dev)
-    kw = dict(t_min=t_min, n_tiles=448 // tile_rays, tile_rays=tile_rays)
+    n = 448 // tile_rays * tile_rays
+    o, inv, tm = o[:n], inv[:n], tm[:n]
+    kw = dict(t_min=t_min, n_tiles=n // tile_rays, tile_rays=tile_rays)
     before = kernels.LAUNCHES["frustum_cull"]
     got = cull.frustum_cull(lo, hi, o, inv, tm, **kw)
     assert kernels.LAUNCHES["frustum_cull"] == before + 1
@@ -1008,7 +1010,7 @@ def test_first_cluster_kernel_matches_plain(dev, method, min_k):
 
 
 @pytest.mark.parametrize("g", [2, 4])
-@pytest.mark.parametrize("tile_rays", [32, 64])
+@pytest.mark.parametrize("tile_rays", [32, 64, 128, 256])
 def test_grouped_sweeps_match_plain(dev, g, tile_rays):
     """K2, K3 and K3b on fetch-group accels of K = 128 g lanes (ring
     slots of 32 KB and 64 KB at g = 2 and 4): bit for bit their plain
@@ -1045,6 +1047,8 @@ def test_grouped_sweeps_match_plain(dev, g, tile_rays):
     {"PT_KEY_SCHEME": "firstcluster", "PT_KEY_SCHEME_OCCL": "firstcluster"},
     {"PT_KEY_SCHEME": "mixed", "PT_FETCH_GROUP": "2", "PT_SCHED_PACK": "1"},
     {"PT_TILE_RAYS": "32", "PT_SORT_SCOPE": "chunk", "PT_CHUNK_TILES": "4"},
+    {"PT_TILE_RAYS": "128", "PT_SCHED_PACK": "1", "PT_FETCH_GROUP": "2"},
+    {"PT_TILE_RAYS": "256", "PT_SORT_SCOPE": "chunk", "PT_CHUNK_TILES": "2"},
 ])
 @pytest.mark.parametrize("cull_kind", ["ray", "frustum"])
 def test_packet_knobs_card_equals_cpu(dev, env, cull_kind, monkeypatch):
@@ -1066,3 +1070,121 @@ def test_packet_knobs_card_equals_cpu(dev, env, cull_kind, monkeypatch):
                                              blocked)]
     for x, y in zip(out["cpu"], out[str(dev)]):
         assert torch.equal(x, y)
+
+
+# --- 128- and 256-ray tiles -----------------------------------------------
+
+@pytest.mark.parametrize("tile_rays", [128, 256])
+@pytest.mark.parametrize("n_tris,n_tiles,t_max", [(3000, 12, 3.0),
+                                                  (300, 2, 1e20)])
+def test_wide_tile_kernels_match_plain(dev, tile_rays, n_tris, n_tiles,
+                                       t_max):
+    """K1, K2, K3 and K3b at 128 and 256 rays a tile (two threads a ray
+    and one): bit for bit their plain versions, one launch each, and
+    the same hits as the 64-ray kernels give the same rays."""
+    accel = build_clusters(*_soup(n_tris, n_tris),
+                           method="sahsplit").to(dev)
+    n = tile_rays * n_tiles
+    o, d = _rays(n, n_tiles, dev, park_tail=70)
+    tm = torch.full((n,), t_max, device=dev)
+    inv = packet._safe_inv(d)
+    kw = dict(t_min=1e-3, n_tiles=n_tiles, tile_rays=tile_rays)
+    before = dict(kernels.LAUNCHES)
+    tn = cull.tile_cull(accel.aabb_lo, accel.aabb_hi, o, inv, tm, **kw)
+    assert torch.equal(tn, cull.tile_cull_plain(accel.aabb_lo,
+                                                accel.aabb_hi, o, inv, tm,
+                                                **kw))
+    st, si = packet._sorted_schedule(tn)
+    rays6 = packet._tile_rays6(o, d, n_tiles, tile_rays)
+    cap = packet._scene_exit(accel, o, d, tm).reshape(
+        n_tiles, tile_rays).contiguous()
+    got = sweep.sweep_closest(st, si, rays6, cap, accel, 1e-3)
+    ref = sweep.sweep_closest_plain(st, si, rays6, cap, accel.blocks_t,
+                                    1e-3)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert bool((got[1] >= 0).any())
+    tm2 = tm.reshape(n_tiles, tile_rays).contiguous()
+    occ = sweep.sweep_occluded(st, si, rays6, tm2, accel)
+    assert torch.equal(occ, sweep.sweep_occluded_plain(st, si, rays6, tm2,
+                                                       accel.blocks_t))
+    blk = sweep.sweep_occluded(st, si, rays6, tm2, accel, want_blocker=True)
+    ref_b = sweep.sweep_occluded_plain(st, si, rays6, tm2, accel.blocks_t,
+                                       want_blocker=True)
+    for a, b in zip(blk, ref_b):
+        assert torch.equal(a, b)
+    assert torch.equal(blk[0], occ)
+    assert all(kernels.LAUNCHES[k] == before[k] + 1
+               for k in ("tile_cull", "sweep_closest", "sweep_occluded",
+                         "sweep_occluded_blocker"))
+    # the 64-ray kernels on the same rays find the same hits at the same t
+    m = n // 64
+    tn64 = cull.tile_cull(accel.aabb_lo, accel.aabb_hi, o, inv, tm,
+                          t_min=1e-3, n_tiles=m, tile_rays=64)
+    st64, si64 = packet._sorted_schedule(tn64)
+    t64, tri64, _, _ = sweep.sweep_closest(
+        st64, si64, packet._tile_rays6(o, d, m, 64),
+        cap.reshape(m, 64).contiguous(), accel, 1e-3)
+    same = (tri64.reshape(-1) >= 0) == (got[1].reshape(-1) >= 0)
+    assert bool(same.all())
+    hit = got[1].reshape(-1) >= 0
+    assert torch.equal(t64.reshape(-1)[hit], got[0].reshape(-1)[hit])
+
+
+@pytest.mark.parametrize("tile_rays", [128, 256])
+def test_wide_tile_kernel_info(dev, tile_rays):
+    """The wide-tile sweeps keep 256-thread blocks and spill nothing."""
+    for name in ("sweep_closest", "sweep_occluded", "sweep_occluded_blocker"):
+        info = sweep.kernel_info(name, tile_rays)
+        assert info["threads"] == 256 and info["local_bytes"] == 0
+        assert info["registers"] > 0 and info["blocks_per_sm"] > 0
+
+
+@pytest.mark.parametrize("tile_rays", [128, 256])
+@pytest.mark.parametrize("blk", [128, 256])
+def test_skip_cull_kernel_on_wide_tiles(dev, tile_rays, blk):
+    """K4 on cull_trap_case's first 384 rays as 3 tiles of 128, or its
+    first 256 as one tile: bit for bit its plain version and K1."""
+    lo, hi, o, inv, tm = cull_trap_case("accel", 40.0, dev)
+    n_tiles = 448 // tile_rays
+    n = n_tiles * tile_rays
+    o, inv, tm = o[:n], inv[:n], tm[:n]
+    kw = dict(t_min=1e-3, n_tiles=n_tiles, tile_rays=tile_rays)
+    mask = torch.empty((n_tiles, cull.n_blocks(lo.shape[0], blk)),
+                       dtype=torch.int32, device=dev)
+    got = cull.tile_cull_skip(lo, hi, o, inv, tm, blk=blk, mask_out=mask,
+                              **kw)
+    assert torch.equal(got, cull.tile_cull_skip_plain(lo, hi, o, inv, tm,
+                                                      blk=blk, **kw))
+    assert torch.equal(got, cull.tile_cull_plain(lo, hi, o, inv, tm, **kw))
+    assert torch.equal(mask, cull.sc_mask_plain(lo, hi, o, inv, tm,
+                                                blk=blk, **kw))
+
+
+def test_sweep_refuses_other_widths(dev):
+    accel = build_clusters(*_soup(300, 1), method="sahsplit").to(dev)
+    o, d = _rays(96 * 2, 2, dev)
+    rays6 = packet._tile_rays6(o, d, 2, 96)
+    st = torch.zeros((2, 1), device=dev)
+    si = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="128, 256"):
+        sweep.sweep_closest(st, si, rays6, torch.ones((2, 96), device=dev),
+                            accel, 1e-3)
+
+
+# --- P2 at the probe's grid ----------------------------------------------
+
+@pytest.mark.parametrize("gate", [False, True])
+@pytest.mark.parametrize("kind", ["probe", "ties", "steps"])
+def test_cond_walk_at_the_probe_grid_matches_plain(dev, gate, kind):
+    """P2 at the probe's 64 grid steps of a 2-CTA cluster and 256
+    iterations: bit for bit the plain version, one launch."""
+    from pathtracer_torch.kernels import probes
+
+    x = cond_case(kind, dev)
+    name = "cond_walk_gated" if gate else "cond_walk"
+    before = kernels.LAUNCHES[name]
+    got = probes.cond_walk(x, 256, gate, grid=64)
+    assert kernels.LAUNCHES[name] == before + 1
+    ref = probes.cond_walk_plain(x, 256, gate)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))

@@ -212,10 +212,16 @@ REFUSED = {
     "12bit": (lambda: _sof_patched(0xC1, 12), "12-bit JPEG"),
     "lossless": (lambda: _sof_patched(0xC3), "lossless JPEG"),
     "hierarchical": (lambda: _sof_patched(0xC5), "hierarchical JPEG"),
-    "bmp": (lambda: _other("BMP"), "BMP"),
+    # BMP and TGA decode (tests/test_torch_images_tga_bmp.py); what PIL
+    # refuses of them stays refused
+    "bmp": (lambda: ic.bmp_file(np.zeros((1, 4), np.uint8), 2, 1, 2),
+            "2-bit BMP"),
     "webp": (lambda: _other("WEBP"), "WebP"),
     "gif": (lambda: _other("GIF"), "GIF"),
-    "tga": (lambda: _other("TGA"), "not a PNG or JPEG"),
+    "tga": (lambda: ic.tga_file(np.zeros((1, 2), np.uint8), 1, 8,
+                                cmap=np.zeros((2, 4), np.uint8),
+                                cmap_depth=32),
+            "8-bit colour-mapped TGA with a 32-bit colour map"),
     "png_palette16": (lambda: ic.png_file(np.zeros((2, 2), int), 3, 16,
                                           palette=[[0, 0, 0]]),
                       "PNG of bit depth 16 and colour type 3"),

@@ -9,7 +9,7 @@ wavefront order, port vs the JAX package, bit for bit.
   them), rays inside boxes (entry 0 in many clusters: lowest id wins),
   parked rays (id 0, +inf) and pad boxes;
 - `_frustum_cull` (K7's plain version `cull.frustum_cull_plain`) at tile
-  widths 32 and 64, with parked rays and per-ray t_max;
+  widths 32, 64, 128 and 256, with parked rays and per-ray t_max;
 - `_packed_schedule_sort` (PT_SCHED_PACK), `_group_blocks` (fetch
   groups 2-4 with a ragged last group) and `integrator/path.
   _wavefront_order`.
@@ -148,7 +148,7 @@ def test_first_cluster_bit_exact(which, request):
     assert torch.equal(bid, tid) and torch.equal(bt, tt)
 
 
-@pytest.mark.parametrize("tile_rays", [32, 64])
+@pytest.mark.parametrize("tile_rays", [32, 64, 128, 256])
 @pytest.mark.parametrize("which", ["morton375", "padded"])
 def test_frustum_cull_bit_exact(which, tile_rays, request):
     ja, ta = request.getfixturevalue(which)

@@ -164,7 +164,7 @@ def test_refused_knob_raises_naming_it(name, cluster_scene, monkeypatch):
 
 
 @pytest.mark.parametrize("env,match,kw", [
-    ({"PT_TILE_RAYS": "128"}, "PT_TILE_RAYS=128", {}),
+    ({"PT_TILE_RAYS": "96"}, "PT_TILE_RAYS=96", {}),
     # read where the JAX package reads it: a wavefront of several chunks
     ({"PT_SORT_SCOPE": "local"}, "PT_SORT_SCOPE", dict(chunk_rays=128)),
     ({"PT_KEY_SCHEME_OCCL": "octant"}, "PT_KEY_SCHEME_OCCL", {}),
