@@ -45,10 +45,13 @@ Drives pathtracer_torch's paths on the card and checks them:
    steps and P2 gated and ungated, both designs, bit-exact, with P2's
    SASS instruction counts of the walk and the extraction, P3's full
    variant hit-exact
-   with t bit-exact and the others +inf, at cpi 1 and 12); K2 on P3's
-   schedule at cpi 1, its t bit for bit P3's, and P3's cost a column
-   within P3_OVER_K2 of K2's; P3's bound from the lane-test branches its
-   plain version counts on the run's data;
+   with t bit-exact and the others +inf, at cpi 1 and 12, with each
+   variant's registers, ring stages and blocks an SM); K2 on P3's
+   schedule at cpi 1 (bench/sweep_attrib.k2_columns), its t bit for bit
+   P3's, and K2's cost a column beside P3 full's (logged, no limit:
+   P3 stages its columns its own way, K2 is pair_metrics' rate); P3's
+   bound from the lane-test branches its plain version counts on the
+   run's data;
 3. the config 1-5 golden gates at 64x64, 4 spp, through the kernels
    (robust gate of benchmarks/run_configs.py);
 4. the headline - textured sponza_like (~262k triangles), 1920x1080,
@@ -73,9 +76,10 @@ Drives pathtracer_torch's paths on the card and checks them:
    headline with BENCH_FRAMES=2 (its default 8 cut to keep the phase
    near 30 s; 4 warm-up frames a leg, the textured and the interleaved
    untextured leg as the entry runs them), launch counts set to 0 just
-   before and read just after (K1-K3 and P3 must launch): its JSON line,
-   a finite positive value, pair_metrics without error and with the
-   rate P3 measured on the card; pair_metrics' visited/needed counts on
+   before and read just after (K1-K3 must launch): its JSON line, a
+   finite positive value, pair_metrics without error and with the rate
+   K2 itself ran at in that run (bench/sweep_attrib.k2_columns, K2
+   launched there); pair_metrics' visited/needed counts on
    a 131,072-ray bounce-1 batch equal with K1 and with the plain cull;
    K2's measured time on the whole bounce-1 batch beside the model's
    sweep_model_ms;
@@ -1033,10 +1037,6 @@ WALK_OPS, EXTRACT_OPS = 2, 2
 # warp's 5 maxima, then the stop rule's 3 compares and acc's add (23)
 P3_LANE_OPS = {"lanes": 14, "signs": 4, "in_range": 22, "hits": 1}
 P3_COLUMN_OPS = 23
-# P3's full variant runs K2's column body: its cost a column may differ
-# from K2's on the same schedule only by the walks' own parts (staging,
-# read-ahead, stop rule)
-P3_OVER_K2 = (0.8, 1.25)
 PROBE_KERNELS = ("chain_f32", "chain_bf16", "cond_walk", "cond_walk_gated",
                  "sweep_attrib")
 
@@ -1138,7 +1138,11 @@ def phase_probes():
             if not ok:
                 raise PhaseError(f"sweep_attrib {v} at cpi {cpi} differs "
                                  "from its plain version")
-    p3_vs_k2 = p3_against_k2(lm, rays)
+    for cpi in (1, 12):
+        for v in probes.VARIANTS:
+            log("probe_p3_kernel", variant=v, cpi=cpi,
+                **probes.kernel_info(v, sweep_attrib.R, sweep_attrib.K, cpi))
+    k2_us, p3_vs_k2 = p3_against_k2(lm, rays, p3[1]["full"])
     # P3's line: the full variant at cpi 1 and the longer length; its
     # operations are the branches the plain version counts on this data
     cols = p3[1]["cols"][1]
@@ -1179,7 +1183,7 @@ def phase_probes():
         bf16_speedup=p1["bf16_speedup"],
         gated_over_always=p2["gated_over_always"],
         us_per_col_cpi1=p3[1]["full"], us_per_col_cpi12=p3[12]["full"],
-        p3_over_k2=p3_vs_k2)
+        k2_us_per_col=k2_us, p3_over_k2=p3_vs_k2)
     return stats
 
 
@@ -1229,56 +1233,34 @@ def p2_sass():
     return counts
 
 
-def p3_against_k2(lm, rays):
-    """K2 (sweep_closest) on P3's synthetic schedule at cpi 1, beside
-    P3's full variant: every lane a real triangle (id row 1, n_lanes K),
-    t_cap +inf, P3's t_min. K2's t + the column count must equal P3's
-    output bit for bit, and P3's cost a (tile, column), dt / dcols at the
-    driver's two lengths, must lie within P3_OVER_K2 of K2's: P3 measures
-    K2's column for pair_metrics. Returns P3's over K2's."""
-    import types
-
+def p3_against_k2(lm, rays, p3_per_col):
+    """K2 (sweep_closest) on P3's synthetic schedule at cpi 1 through
+    bench/sweep_attrib.k2_columns (every lane a real triangle, t_cap
+    +inf, P3's t_min), beside P3's full variant: K2's t + the column
+    count must equal P3's output bit for bit at both of sweep_attrib's
+    lengths. K2's cost a (tile, column), dt / dcols, is logged beside
+    p3_per_col (P3 full's, from the attribution run) and their ratio:
+    P3 stages its columns through its own ring, so the ratio has no
+    limit. Returns (K2's us a column, P3 over K2)."""
     import torch
 
-    from pathtracer_torch.bench import harness, sweep_attrib
-    from pathtracer_torch.kernels import probes, sweep
+    from pathtracer_torch.bench import sweep_attrib
+    from pathtracer_torch.kernels import probes
 
-    tiles, k = sweep_attrib.TILES, sweep_attrib.K
-    lm2 = lm.clone()
-    lm2[:, :, 12] = 1.0
-    accel = types.SimpleNamespace(
-        blocks_lm=lm2, blocks_t=lm2.transpose(1, 2),
-        n_lanes=torch.full((lm.shape[0],), k, dtype=torch.int32,
-                           device=DEVICE))
-    cap = torch.full((tiles, sweep_attrib.R), torch.inf, device=DEVICE)
-    dt = {"p3": [], "k2": []}
-    for n_cols in sweep_attrib.COLS:
+    tiles = sweep_attrib.TILES
+    k2 = sweep_attrib.k2_columns(DEVICE, blocks_lm=lm, rays=rays)
+    for n_cols, t in zip(sweep_attrib.COLS, k2["t"]):
         st, si = sweep_attrib.schedule(tiles, n_cols, 1,
                                        sweep_attrib.CLUSTERS, DEVICE)
-        d3, p3 = harness.time_call(
-            lambda: probes.sweep_attrib(st, si, rays, lm, 1, "full"),
-            torch.device(DEVICE), 3, 3)
-        d2, k2 = harness.time_call(
-            lambda: sweep.sweep_closest(st, si, rays, cap, accel, 1e-3),
-            torch.device(DEVICE), 3, 3)
-        if not same_bits(p3[:, 0], k2[0] + float(n_cols)):
+        p3 = probes.sweep_attrib(st, si, rays, lm, 1, "full")
+        if not same_bits(p3[:, 0], t + float(n_cols)):
             raise PhaseError(f"P3's full variant and K2 differ on P3's "
                              f"schedule of {n_cols} columns")
-        dt["p3"].append(d3)
-        dt["k2"].append(d2)
-    a, b = sweep_attrib.COLS
-    per_col = {kk: (v[1] - v[0]) / ((b - a) * tiles) * 1e6
-               for kk, v in dt.items()}
-    ratio = per_col["p3"] / per_col["k2"]
-    log("probe_p3_vs_k2", cols=[a, b], tiles=tiles,
-        p3_ms=[v * 1e3 for v in dt["p3"]], k2_ms=[v * 1e3 for v in dt["k2"]],
-        p3_us_per_col=per_col["p3"], k2_us_per_col=per_col["k2"],
-        p3_over_k2=ratio, limits=P3_OVER_K2)
-    if not P3_OVER_K2[0] <= ratio <= P3_OVER_K2[1]:
-        raise PhaseError(f"P3's cost a column is {ratio:.3f}x K2's on the "
-                         f"same schedule (limits {P3_OVER_K2}): P3 no "
-                         "longer measures K2's column")
-    return ratio
+    ratio = p3_per_col / k2["per_col"]
+    log("probe_p3_vs_k2", cols=list(sweep_attrib.COLS), tiles=tiles,
+        k2_ms=k2["ms"], k2_us_per_col=k2["per_col"],
+        p3_us_per_col=p3_per_col, p3_over_k2=ratio, card=card_line())
+    return k2["per_col"], ratio
 
 
 def phase_bench(scene, cfg, cam):
@@ -1286,10 +1268,11 @@ def phase_bench(scene, cfg, cam):
     (BENCH_SMOKE_FRAMES timed frames a leg), launch counts set to 0
     just before and read just after: its JSON line on a log line, a
     finite positive value, pair_metrics without error and with the rate
-    P3 measured on the card. Then pair_metrics' visited/needed counts on
-    a PAIR_CHECK_RAYS bounce-1 batch against the plain cull's on the same
-    batch, and K2's time on the entry's whole bounce-1 batch beside the
-    model's sweep_model_ms."""
+    K2 ran at in this run (sweep_attrib.k2_columns, recorded as the
+    entry calls it, K2 launched there). Then pair_metrics'
+    visited/needed counts on a PAIR_CHECK_RAYS bounce-1 batch against
+    the plain cull's on the same batch, and K2's time on the entry's
+    whole bounce-1 batch beside the model's sweep_model_ms."""
     import math
 
     import numpy as np
@@ -1297,18 +1280,33 @@ def phase_bench(scene, cfg, cam):
 
     from pathtracer_torch import kernels
     from pathtracer_torch.bench import __main__ as entry
-    from pathtracer_torch.bench import pair_metrics
+    from pathtracer_torch.bench import pair_metrics, sweep_attrib
     from pathtracer_torch.kernels import cull, sweep
 
     t0 = time.perf_counter()
     env = dict(os.environ, BENCH_FRAMES=str(BENCH_SMOKE_FRAMES))
+    real_k2_columns = sweep_attrib.k2_columns
+    k2_rates = []
+
+    def k2_columns(*a, **kw):
+        before = kernels.LAUNCHES["sweep_closest"]
+        res = real_k2_columns(*a, **kw)
+        k2_rates.append((res["per_col"],
+                         kernels.LAUNCHES["sweep_closest"] - before))
+        return res
+
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    rec = entry.run(env)
+    sweep_attrib.k2_columns = k2_columns
+    try:
+        rec = entry.run(env)
+    finally:
+        sweep_attrib.k2_columns = real_k2_columns
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     run_s = time.perf_counter() - t0
-    log("bench", line=rec, launches=launches, seconds=run_s)
+    log("bench", line=rec, launches=launches, seconds=run_s,
+        k2_rate_runs=k2_rates)
     pm = rec["detail"].get("pair_metrics", {})
     if not (math.isfinite(rec["value"]) and rec["value"] > 0):
         raise PhaseError(f"bench: value {rec['value']}")
@@ -1317,8 +1315,13 @@ def phase_bench(scene, cfg, cam):
     if pm.get("sweep_us_per_iter") is None:
         raise PhaseError("bench: pair_metrics' rate was not measured on "
                          "the card")
-    missing = [k for k in UNPRIMED_KERNELS + ("sweep_attrib",)
-               if launches[k] == 0]
+    if not (len(k2_rates) == 1 and k2_rates[0][1] > 0
+            and pm["sweep_us_per_iter"] == k2_rates[0][0]):
+        raise PhaseError(f"bench: pair_metrics' rate "
+                         f"{pm['sweep_us_per_iter']} is not K2's cost a "
+                         f"column measured in this run ({k2_rates}: "
+                         "us, K2 launches)")
+    missing = [k for k in UNPRIMED_KERNELS if launches[k] == 0]
     if missing:
         raise PhaseError(f"bench: the path launched no {missing}")
 
@@ -3016,7 +3019,7 @@ def main(argv=None):
             base, skip, primed, r_b = phase_headline(scene, cfg, cam,
                                                      args.frames)
             variants = phase_variants(scene, cfg, cam, tmp_dir)
-            _, bench_launches = phase_bench(scene, cfg, cam)
+            phase_bench(scene, cfg, cam)
             glb_res, lscene, glb = phase_assets(scene, cfg, cam,
                                                 args.frames, base, r_b,
                                                 tmp_dir)
@@ -3043,9 +3046,7 @@ def main(argv=None):
             "bvh_closest": config2, "bvh_occluded": config2}
     for name, (src, replaces) in KERNELS.items():
         s = stats[name]
-        if name == "sweep_attrib":     # on the bench's path (pair_metrics)
-            launches = bench_launches[name]
-        elif name in PROBE_KERNELS:    # on the probe drivers' path
+        if name in PROBE_KERNELS:      # on the probe drivers' path
             launches = s["launches"]
         else:
             launches = runs.get(name, glb_res)["launches"][name]

@@ -143,7 +143,7 @@ def run(env=os.environ):
             detail["pair_metrics"] = bounce1_pair_metrics(scene, cfg, cam)
         except Exception as e:
             # metrics never kill a CPU run; on the card a kernel that
-            # fails to build or launch (P3 measures the rate) must
+            # fails to build or launch (K2 measures the rate) must
             if device.type == "cuda":
                 raise
             detail["pair_metrics"] = {"error": repr(e)}

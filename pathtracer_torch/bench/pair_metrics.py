@@ -14,9 +14,10 @@ and the cost model they imply at the card's own rate:
   sweep_pairs_g           (ray, triangle) pairs the visited columns hold
                           (cols x PT_TILE_RAYS x K)
   sweep_us_per_iter       K2's cost of one column a tile on this card,
-                          measured live by P3 (bench/sweep_attrib.py,
-                          full variant at cpi 1) when the scene is on a
-                          card; None on the CPU
+                          measured live on K2 itself (bench/sweep_attrib
+                          .us_per_col: sweep_closest on P3's synthetic
+                          schedule at cpi 1, dt / dcols) when the scene
+                          is on a card; None on the CPU
   sweep_model_ms          visited columns x that cost: what K2 should take
                           for the batch (None on the CPU)
   sweep_gpairs_per_s      the pair rate the model implies (None on the CPU)
@@ -161,7 +162,8 @@ def pair_metrics(vis, need, tile_live, live, k, us_per_col=None):
 
 def bounce1_pair_metrics(scene, cfg, camera, max_rays: int = 1 << 21):
     """Exact visited/needed column stats on the real bounce-1 batch and,
-    on a card, the cost model at the rate P3 measures there and then."""
+    on a card, the cost model at the rate K2 runs there and then
+    (sweep_attrib.us_per_col)."""
     o2, d2 = bounce1_batch(scene, cfg, camera, max_rays)
     stats = schedule_stats(scene.clusters, o2, d2)
     rate = None

@@ -1,9 +1,10 @@
 """Attribution of K2's per-column cost on the card (counterpart of benchmarks/sweep_attrib.py).
 
 Runs the five variants of P3 (kernels/probes.sweep_attrib: K2's column
-walk on a synthetic stream in which every tile walks exactly n_cols
-columns of cpi clusters) at two schedule lengths; cost per (tile,
-column) = dt / dcols removes the launch and the per-tile work:
+body on a synthetic stream in which every tile walks exactly n_cols
+columns of cpi clusters, staged by P3's own ring of TMA bulk copies) at
+two schedule lengths; cost per (tile, column) = dt / dcols removes the
+launch and the per-tile work:
 
   empty   loop, barrier, schedule read        -> loop floor
   nodma   + lane test on a zeroed slot        -> loop floor + BW ALU
@@ -19,16 +20,19 @@ column) = dt / dcols removes the launch and the per-tile work:
 On the card the variants are timed with CUDA events over `reps` launches
 after `warmup` launches; a (tile, column) cost is amortized over the
 whole card, so it is the rate of a launch that fills it: the default
-tile count is K2's chunk (2,048 tiles of 64 rays). At cpi 1 a column is
-K2's (one cluster of 128 lanes); `us_per_col` gives that rate to
-pair_metrics' cost model. The lengths are the JAX driver's: 64 and 192
-columns on the card, 16 and 24 with --device cpu (the plain versions,
-as its interpret mode), where the tile count defaults to the JAX
-driver's 256.
+tile count is K2's chunk (2,048 tiles of 64 rays). Beside them K2
+itself (kernels/sweep.sweep_closest) runs P3's schedule at cpi 1, where
+a column is K2's one cluster of 128 lanes (k2_columns); its dt / dcols
+is the rate `us_per_col` gives pair_metrics' cost model, and the
+driver prints P3 full's cost a column over it. The lengths are the JAX
+driver's: 64 and 192 columns on the card, 16 and 24 with --device cpu
+(the plain versions, as its interpret mode), where the tile count
+defaults to the JAX driver's 256.
 
     python -m pathtracer_torch.bench.sweep_attrib [--cpi 12] [--tiles N]
 
-prints one line a variant and the attribution, then one JSON line.
+prints one line a variant, the attribution and K2's rate, then one JSON
+line.
 """
 
 from __future__ import annotations
@@ -36,12 +40,13 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import types
 
 import numpy as np
 import torch
 
 from pathtracer_torch.bench.harness import time_call
-from pathtracer_torch.kernels import probes
+from pathtracer_torch.kernels import probes, sweep
 
 R = 64          # rays a tile (packet.TILE_RAYS)
 K = 128         # lanes a cluster
@@ -50,6 +55,7 @@ TILES = 2048    # K2's chunk (packet.CHUNK_TILES): fills the card
 CLUSTERS = 2048
 COLS = (64, 192)
 PLAIN_TILES, PLAIN_COLS = 256, (16, 24)   # the JAX driver's interpret mode
+T_MIN = 1e-3    # P3's (sweep_attrib's default) and K2's on this schedule
 
 
 def probe_inputs(tiles, c_clusters=CLUSTERS, device="cuda", seed=1):
@@ -137,14 +143,60 @@ def attribution(device="cuda", tiles=None, cpi=1, cols=None,
     return res
 
 
+def k2_accel(blocks_lm):
+    """P3's cluster table as K2 reads it: every lane a real triangle (id
+    row 12 set to 1, so its id 0 passes K2's pad filter; n_lanes K)."""
+    lm = blocks_lm.clone()
+    lm[:, :, 12] = 1.0
+    return types.SimpleNamespace(
+        blocks_lm=lm, blocks_t=lm.transpose(1, 2),
+        n_lanes=torch.full((lm.shape[0],), lm.shape[1], dtype=torch.int32,
+                           device=lm.device))
+
+
+def k2_columns(device="cuda", tiles=None, cols=None, c_clusters=CLUSTERS,
+               blocks_lm=None, rays=None, warmup=3, reps=3):
+    """K2 (sweep.sweep_closest) on P3's schedule at cpi 1, t_cap +inf,
+    t_min T_MIN: {"ms": [a launch at each length], "per_col": us a
+    (tile, column), dt / dcols, "per_tile": us, the intercept, "t": [K2's
+    t f32[tiles, R] at each length]}. blocks_lm and rays default to
+    probe_inputs'; tiles and cols as in attribution. On the schedule's
+    rows K2 finds what P3's full variant finds: its t + n_cols is P3's
+    output bit for bit."""
+    device = torch.device(device)
+    card = device.type == "cuda"
+    if tiles is None:
+        tiles = TILES if card else PLAIN_TILES
+    if cols is None:
+        cols = COLS if card else PLAIN_COLS
+    if blocks_lm is None:
+        blocks_lm, rays = probe_inputs(tiles, c_clusters, device)
+    accel = k2_accel(blocks_lm)
+    cap = torch.full((tiles, R), torch.inf, dtype=torch.float32,
+                     device=device)
+    dts, ts = [], []
+    for n_cols in cols:
+        st, si = schedule(tiles, n_cols, 1, c_clusters, device)
+        dt, (t, _, _, _) = time_call(
+            lambda: sweep.sweep_closest(st, si, rays, cap, accel, T_MIN),
+            device, warmup, reps)
+        dts.append(dt)
+        ts.append(t)
+    a, b = cols
+    per_col = (dts[1] - dts[0]) / ((b - a) * tiles) * 1e6
+    return dict(ms=[dt * 1e3 for dt in dts], per_col=per_col,
+                per_tile=dts[0] / tiles * 1e6 - a * per_col, t=ts)
+
+
 def us_per_col(device="cuda"):
-    """The card's cost of one K2 column (cpi 1) a tile, in us amortized
-    over a launch that fills the card: P3's full variant, dt / dcols."""
+    """The card's cost of one K2 column a tile, in us amortized over a
+    launch that fills the card: K2 itself on P3's schedule, dt / dcols
+    (k2_columns)."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError("us_per_col measures the card; got "
                          f"device {device}")
-    return attribution(device, cpi=1, variants=("full",))["full"]
+    return k2_columns(device)["per_col"]
 
 
 def main(argv=None):
@@ -160,6 +212,10 @@ def main(argv=None):
         raise SystemExit("sweep_attrib: no CUDA device (use --device cpu "
                          "for a plain-version run at a tiny size)")
     res = attribution(args.device, args.tiles, args.cpi)
+    k2 = k2_columns(args.device, res["tiles"])
+    res["k2_per_col"] = k2["per_col"]
+    res["k2_ms"] = k2["ms"]
+    res["full_over_k2"] = res["full"] / k2["per_col"]
     for v, pc in res["per_col"].items():
         print(f"{v:6s}: {pc:8.4f} us/col  per-tile fixed "
               f"{res['per_tile'][v]:8.3f} us", flush=True)
@@ -171,6 +227,8 @@ def main(argv=None):
     print(f"  per extra start     {res['per_extra_start']:8.4f} us")
     print(f"  full                {res['full']:8.4f} us "
           f"(overlap {res['overlap']:+.4f})")
+    print(f"  K2 (cpi 1)          {k2['per_col']:8.4f} us "
+          f"(P3 full / K2 {res['full_over_k2']:.3f})")
     print(json.dumps(res))
     return 0
 

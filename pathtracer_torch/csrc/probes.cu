@@ -42,23 +42,20 @@
 //   compare and select where it runs.
 //
 // P3 attrib_kernel<V> replaces benchmarks/sweep_attrib.py:_kernel: K2's
-//   structure (csrc/sweep.cu: one block of 256 threads a 64-ray tile,
-//   four threads a ray over interleaved lanes, a double-buffered 16-byte
-//   cp.async ring of lane-major rows, one barrier a column, candidates
-//   merged after it) walking a synthetic schedule of n_cols columns of cpi
-//   clusters each. The column body - candidate seed, merge and tile
-//   maximum, lane tests - is K2's own code, from sweep_column.cuh; only
-//   the walk's staging and stop rule are P3's. Five variants:
+//   column body (csrc/sweep_column.cuh: one block of 256 threads a 64-ray
+//   tile, four threads a ray over interleaved lanes, candidates merged
+//   after one barrier a column) walking a synthetic schedule of n_cols
+//   columns of cpi clusters each. The column body - candidate seed,
+//   merge and tile maximum, lane tests - is K2's own code; the staging
+//   and the walk are P3's. Five variants:
 //     empty  the loop, its barrier and its schedule read;
 //     nodma  + the Baldwin-Weber lane test and K2's candidate merge and
-//            tile maximum, on a zeroed ring slot (no copies);
-//     noalu  + the ring: cpi copies a column (ids read one column ahead
-//            through shared memory), one wait; each thread then reads one
-//            row-0 value of the column's lanes, so the copy feeds the
-//            output;
-//     dma1   as noalu, with ONE contiguous copy of cpi clusters a column;
-//     full   everything: a column then costs what a K2 column costs (at
-//            cpi 1).
+//            tile maximum, on a zeroed ring stage (no copies);
+//     noalu  + the ring: cpi bulk copies a column, one wait; each thread
+//            then reads one row-0 value of the column's lanes, so the
+//            copy feeds the output;
+//     dma1   as noalu, with ONE bulk copy of cpi contiguous clusters;
+//     full   everything.
 //   The stop rule is the JAX kernel's - col < n_cols, the column's first
 //   schedule entry finite, acc < 3e38 - and, in the two variants that
 //   test lanes, also K2's (the entry below the tile's largest best t); on
@@ -72,6 +69,41 @@
 //   this run's data takes (sign stage for every lane, the reciprocal and
 //   t range for lanes that pass the signs, u and v for lanes in range),
 //   counted by the plain version.
+//
+//   Staging, Hopper's way (the Pallas kernel's DMA ring, and the port's
+//   first copy of it, had every thread issue 16-byte cp.async copies and learn of
+//   their arrival from cp.async.wait_group plus a CTA barrier). A ring of
+//   S stages of cpi * k lane-major rows (cpi x 8 KB at k = 128) in
+//   dynamic shared memory, S picked on the host
+//   (kernels/probes.attrib_stages: the most, up to 3, that fit 227 KB
+//   beside the candidate slabs; 2 from cpi 10 at k = 128). One elected
+//   thread, thread 0, issues one TMA bulk copy (cp.async.bulk, global to
+//   shared) a cluster of a column - dma1 one of cpi clusters - after an
+//   arrive.expect_tx of the column's bytes on the stage's "full"
+//   mbarrier; every thread waits on that barrier's phase parity
+//   (column / S & 1) and on nothing else to learn that its rows are in.
+//   The ids of the next column to copy are read from si one column
+//   ahead, straight into registers of warp 0's lanes q < cpi, and
+//   shuffled to thread 0 as it issues; nothing passes them through
+//   shared memory.
+//   The producer is that consumer thread, not a separate producer warp:
+//   K2's merge needs one CTA barrier a column anyway (it reads the other
+//   parts' candidates), and every thread passes it after its last read of
+//   column j - 1's stage, so after the barrier of column j the stage is
+//   free and thread 0 refills it with column j + S - 1. That barrier is
+//   the ring's "empty" barrier. A producer warp would add 32 threads to
+//   every block, an empty mbarrier a stage with 256 arrivals a column,
+//   a named barrier for the consumers, and a handshake to learn of the
+//   stop rule, which only the merge can evaluate; what it would take
+//   off warp 0 is cpi shuffles and cpi + 1 issues a column.
+//   Copies issued past a stop are waited for before the block exits (its
+//   shared memory must not be handed on with copies in flight). Bulk
+//   copies need 16-byte addresses and sizes: a cluster is k * 64 bytes
+//   and every stage starts at a multiple of it; one phase's byte count,
+//   at most 13 x 8 KB, is far below the mbarrier's 2^20 - 1. No shared
+//   memory that a generic store writes is ever a TMA destination: nodma
+//   zeroes stage 0 and copies nothing. A wait that outlasts ~8 s traps
+//   (a copy that never lands would otherwise hang the card).
 //
 // Built with -fmad=false: every expression rounds as in the plain
 // versions, so kernel and plain version agree bit for bit.
@@ -249,49 +281,121 @@ __global__ void __cluster_dims__(kWalkCtas, 1, 1)
 // ---- P3 -----------------------------------------------------------------
 
 constexpr int kDma1Span = 1024;        // dma1's cluster range (JAX: 1024 // cpi)
+constexpr long long kWaitCycles = 1LL << 34;   // ~8 s at the SM's clock
 
 enum { kEmpty = 0, kNoDma = 1, kNoAlu = 2, kDma1 = 3, kFull = 4 };
 
-// Stage column col's cpi clusters into ring slot dst: dma1 one contiguous
-// span, the others one copy a cluster with ids from `ids` (shared).
-template <int V>
-__device__ __forceinline__ void stage(float4* dst,
-                                      const float4* __restrict__ lm,
-                                      const int* ids, int col, int k,
-                                      int cpi) {
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The barriers are named by their shared-memory addresses (32 bits).
+__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// one arrival on bar, and `bytes` more that its phase waits to receive
+__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ bool bar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// wait for the phase of bar whose parity is `parity` to complete
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  if (bar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!bar_try(bar, parity))
+    if (clock64() - t0 > kWaitCycles) __trap();
+}
+
+// TMA bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global src to shared dst, completing on bar
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Warp 0: copy column col into its stage, col % S, of the ring at shared
+// address `ring` (barriers at `full`). `ids` holds, in lane q < cpi, the
+// id of the column's cluster q (unused by dma1).
+template <int V, int S>
+__device__ __forceinline__ void issue_column(uint32_t ring, uint32_t full,
+                                             const float4* __restrict__ lm,
+                                             int col, int ids, int k,
+                                             int cpi) {
+  const int s = col % S;
+  const uint32_t cluster = (uint32_t)k * 64u, bytes = cpi * cluster;
+  const uint32_t dst = ring + s * bytes, bar = full + 8u * s;
+  const bool elected = threadIdx.x == 0;
+  if (elected) bar_expect(bar, bytes);
   if (V == kDma1) {
     const int span = max(1, kDma1Span / cpi);
-    copy16(dst, lm + (size_t)(col % span) * cpi * k * 4, cpi * k * 4);
+    if (elected)
+      bulk_copy(dst, lm + (size_t)(col % span) * cpi * k * 4, bytes, bar);
   } else {
-    for (int q = 0; q < cpi; ++q)
-      copy16(dst + q * k * 4, lm + (size_t)ids[q] * k * 4, k * 4);
+    for (int q = 0; q < cpi; ++q) {
+      const int id = __shfl_sync(0xffffffffu, ids, q);
+      if (elected)
+        bulk_copy(dst + q * cluster, lm + (size_t)id * k * 4, cluster, bar);
+    }
   }
-  commit();
 }
 
-// Shared memory: ring [2][cpi * k lanes][4 float4], candidate slabs
-// [2][kParts][R] x 5 words, ids [2][cpi].
-size_t attrib_shmem(int tile_rays, int k, int cpi) {
-  return 2 * (size_t)cpi * k * 16 * sizeof(float) + cands_bytes(tile_rays) +
-         2 * (size_t)cpi * sizeof(int);
+// Shared memory: ring [stages][cpi * k lanes][4 float4], candidate slabs
+// [2][kParts][R] x 5 words, full barriers [stages] (8-byte words; the
+// ring's and the slabs' sizes are multiples of 16 bytes).
+size_t attrib_shmem(int tile_rays, int k, int cpi, int stages) {
+  return (size_t)stages * cpi * k * 16 * sizeof(float) +
+         cands_bytes(tile_rays) + (size_t)stages * sizeof(uint64_t);
 }
 
-template <int V>
-__global__ void __launch_bounds__(kMaxThreads)
+// S ring stages: 2 or 3 (attrib_stages), a template parameter. At most
+// 48 registers a thread, so that 5 blocks of 256 threads share an SM as
+// K2's do: left free, ptxas gives full 63-64 (4 blocks an SM) for the
+// producer's state beside K2's column body; capped, it spills nothing.
+constexpr int kAttribBlocks = 5;
+
+template <int V, int S>
+__global__ void __launch_bounds__(kMaxThreads, kAttribBlocks)
     attrib_kernel(const float* __restrict__ st, const int* __restrict__ si,
                   int cs, const float* __restrict__ rays,
                   const float4* __restrict__ lm, int k, int cpi, int n_cols,
                   float t_min, float* __restrict__ out) {
   constexpr bool kDma = V == kNoAlu || V == kDma1 || V == kFull;
   constexpr bool kAlu = V == kNoDma || V == kFull;
+  constexpr bool kIds = V == kNoAlu || V == kFull;   // copies by cluster id
   extern __shared__ float4 sh[];
   const int nr = blockDim.x / kParts;
   const int r = threadIdx.x % nr, p = threadIdx.x / nr;
   const int lane = threadIdx.x & 31;
+  const bool warp0 = threadIdx.x < 32;
   const int me = p * nr + r;
   const int col_lanes = cpi * k;
-  const Cands<kParts> c(sh + 8 * col_lanes, nr);   // after the ring's slots
-  int* ids = reinterpret_cast<int*>(c.end());                 // [2][cpi]
+  const Cands<kParts> c(sh + (size_t)S * 4 * col_lanes, nr);
+  const uint32_t ring = smem_addr(sh);
+  const uint32_t full = smem_addr(c.end());   // S barriers, 8 bytes each
   const size_t tile = blockIdx.x;
   const float* srow = st + tile * cs;
   const int* irow = si + tile * cs;
@@ -303,22 +407,33 @@ __global__ void __launch_bounds__(kMaxThreads)
   int best_tri = -1;
   float best_u = 0.0f, best_v = 0.0f;
   if (kAlu) seed_closest(c, me, best_t);
-  if (!kDma) {   // nodma tests a zeroed slot; empty reads nothing from it
+  int ids = 0;   // warp 0, lane q < cpi: cluster q of the next column to copy
+  if (!kDma) {   // nodma tests a zeroed stage; empty reads nothing from it
     for (int i = threadIdx.x; i < 4 * col_lanes; i += blockDim.x)
       sh[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   } else {
-    if (V != kDma1) {
-      if (threadIdx.x < cpi) ids[threadIdx.x] = irow[threadIdx.x];
-      __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < S; ++s) bar_init(full + 8u * s, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-    stage<V>(sh, lm, ids, 0, k, cpi);
-    if (V != kDma1 && n_cols > 1 && threadIdx.x < cpi)
-      ids[cpi + threadIdx.x] = irow[cpi + threadIdx.x];   // column 1's
+    __syncthreads();   // the barriers exist before anyone waits on them
+    if (warp0) {       // columns 0 .. S-2 fill the ring's first stages
+      const int first = min(S - 1, n_cols);
+      for (int col = 0; col < first; ++col) {
+        if (kIds && lane < cpi) ids = irow[col * cpi + lane];
+        issue_column<V, S>(ring, full, lm, col, ids, k, cpi);
+      }
+      if (kIds && lane < cpi && first < n_cols)
+        ids = irow[first * cpi + lane];
+    }
   }
-  float st_cur = srow[0], st_next = INFINITY;
+  float st_cur = srow[0];
   float acc = 0.0f, touch = 0.0f;
-  for (int j = 0;; ++j) {
-    if (kDma) wait_copies();
+  int s = 0;           // column j's stage, j % S
+  uint32_t phase = 0;  // the parity of its use, (j / S) & 1
+  int j = 0;
+  for (;; ++j) {
+    // every thread has read column j-1's stage and written its candidate
     __syncthreads();
     float tile_max = INFINITY;
     if (kAlu)   // merge column j-1's candidates, then the tile's maximum
@@ -327,19 +442,23 @@ __global__ void __launch_bounds__(kMaxThreads)
     if (!(j < n_cols && st_cur < INFINITY && acc < 3e38f &&
           st_cur < tile_max))
       break;
-    int next_id = 0;
-    if (j + 1 < n_cols) {
-      st_next = srow[(j + 1) * cpi];
-      if (kDma)
-        stage<V>(sh + ((j + 1) & 1) * 4 * col_lanes, lm,
-                 ids + ((j + 1) & 1) * cpi, j + 1, k, cpi);
-    } else {
-      st_next = INFINITY;
+    const float st_next = j + 1 < n_cols ? srow[(j + 1) * cpi] : INFINITY;
+    const float4* rows = sh;
+    if (kDma) {
+      // column j-1's stage is free: refill it with column j + S - 1
+      const int col = j + S - 1;
+      if (warp0 && col < n_cols) {
+        issue_column<V, S>(ring, full, lm, col, ids, k, cpi);
+        if (kIds && lane < cpi && col + 1 < n_cols)
+          ids = irow[(col + 1) * cpi + lane];
+      }
+      bar_wait(full + 8u * s, phase);
+      rows = sh + (size_t)s * 4 * col_lanes;
+      if (++s == S) {
+        s = 0;
+        phase ^= 1u;
+      }
     }
-    if (V == kNoAlu || V == kFull)
-      if (threadIdx.x < cpi && j + 2 < n_cols)
-        next_id = irow[(j + 2) * cpi + threadIdx.x];
-    const float4* rows = sh + (kDma ? (j & 1) * 4 * col_lanes : 0);
     if (kAlu) {
       test_closest<false, kParts>(rows, col_lanes, p, ox, oy, oz, dx, dy,
                                   dz, t_min, best_t, c,
@@ -348,10 +467,14 @@ __global__ void __launch_bounds__(kMaxThreads)
       const int n = V == kDma1 ? k : col_lanes;
       for (int l = threadIdx.x; l < n; l += blockDim.x) touch += rows[4 * l].x;
     }
-    if ((V == kNoAlu || V == kFull) && threadIdx.x < cpi)
-      ids[(j & 1) * cpi + threadIdx.x] = next_id;   // column j+2's
     acc += 1.0f;
     st_cur = st_next;
+  }
+  if (kDma && threadIdx.x == 0) {
+    // columns j .. j + S - 2 may be in flight: they land before the exit
+    const int issued = min(n_cols, j + S - 1);
+    for (int col = j; col < issued; ++col)
+      bar_wait(full + 8u * (col % S), (uint32_t)(col / S) & 1u);
   }
   if (p == 0) {
     // K2's merge also carries tri, u and v: fold them in where they cannot
@@ -361,14 +484,41 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-const void* attrib_of(int variant) {
+template <int V>
+const void* attrib_of_stages(int stages) {
+  return stages == 2 ? (const void*)attrib_kernel<V, 2>
+                     : (const void*)attrib_kernel<V, 3>;
+}
+
+// the kernel of a variant and a ring of 2 or 3 stages
+const void* attrib_of(int variant, int stages) {
   switch (variant) {
-    case kEmpty: return (const void*)attrib_kernel<kEmpty>;
-    case kNoDma: return (const void*)attrib_kernel<kNoDma>;
-    case kNoAlu: return (const void*)attrib_kernel<kNoAlu>;
-    case kDma1: return (const void*)attrib_kernel<kDma1>;
-    default: return (const void*)attrib_kernel<kFull>;
+    case kEmpty: return attrib_of_stages<kEmpty>(stages);
+    case kNoDma: return attrib_of_stages<kNoDma>(stages);
+    case kNoAlu: return attrib_of_stages<kNoAlu>(stages);
+    case kDma1: return attrib_of_stages<kDma1>(stages);
+    default: return attrib_of_stages<kFull>(stages);
   }
+}
+
+// cudaFuncAttributeMaxDynamicSharedMemorySize of a kernel, raised to
+// `shmem` where it is below (set once per kernel and size, not at every
+// launch; the wrapper keeps shmem within the card's 232,448 bytes)
+cudaError_t attrib_allow(int variant, int stages, size_t shmem) {
+  static size_t shmem_set[5][2] = {};
+  size_t& set = shmem_set[variant][stages - 2];
+  if (shmem <= set) return cudaSuccess;
+  const void* fn = attrib_of(variant, stages);
+  // as K2: the largest shared-memory carveout, since shared memory
+  // limits how many blocks share an SM
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+  if (e == cudaSuccess) set = shmem;
+  return e;
 }
 
 }  // namespace
@@ -405,54 +555,49 @@ extern "C" int pt_cond_walk(const float* x, int n_iter, int grid, int gate,
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of attrib_kernel for tile_rays rays a tile, k lanes
-// and cpi clusters a column (the wrapper checks it against the card's
-// limit before it launches).
-extern "C" int pt_attrib_shmem(int tile_rays, int k, int cpi) {
-  return (int)attrib_shmem(tile_rays, k, cpi);
+// Dynamic shared memory of attrib_kernel for tile_rays rays a tile, k
+// lanes, cpi clusters a column and a ring of `stages` (the wrapper checks
+// it against the card's limit before it launches).
+extern "C" int pt_attrib_shmem(int tile_rays, int k, int cpi, int stages) {
+  return (int)attrib_shmem(tile_rays, k, cpi, stages);
+}
+
+// Registers and local bytes a thread of a variant with a ring of
+// `stages`, and its resident blocks an SM at tile_rays * kParts threads
+// and the shared memory of (tile_rays, k, cpi, stages).
+extern "C" int pt_attrib_info(int variant, int tile_rays, int k, int cpi,
+                              int stages, int* regs, int* local, int* blocks,
+                              int* threads) {
+  if (variant < 0 || variant > kFull || stages < 2 || stages > 3)
+    return (int)cudaErrorInvalidValue;
+  const size_t shmem = attrib_shmem(tile_rays, k, cpi, stages);
+  cudaFuncAttributes a;
+  cudaError_t e = attrib_allow(variant, stages, shmem);
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&a, attrib_of(variant, stages));
+  if (e != cudaSuccess) return (int)e;
+  *regs = a.numRegs;
+  *local = (int)a.localSizeBytes;
+  *threads = tile_rays * kParts;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, attrib_of(variant, stages), *threads, shmem);
 }
 
 extern "C" int pt_sweep_attrib(int variant, const float* st, const int* si,
                                int tiles, int cs, const float* rays,
                                const float* blocks_lm, int k, int tile_rays,
-                               int cpi, float t_min, float* out,
+                               int cpi, int stages, float t_min, float* out,
                                void* stream) {
-  // the wrapper keeps shmem within the card's 232,448 bytes a block; the
-  // attribute is set once per variant and size, not at every launch
-  static size_t shmem_set[5] = {0, 0, 0, 0, 0};
-  const size_t shmem = attrib_shmem(tile_rays, k, cpi);
-  if (variant < 0 || variant > kFull) return (int)cudaErrorInvalidValue;
-  if (shmem > shmem_set[variant]) {
-    cudaError_t e = cudaFuncSetAttribute(
-        attrib_of(variant), cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)shmem);
-    if (e != cudaSuccess) return (int)e;
-    shmem_set[variant] = shmem;
-  }
-  const int n_cols = cs / cpi;
+  if (variant < 0 || variant > kFull || stages < 2 || stages > 3)
+    return (int)cudaErrorInvalidValue;
+  const size_t shmem = attrib_shmem(tile_rays, k, cpi, stages);
+  cudaError_t e = attrib_allow(variant, stages, shmem);
+  if (e != cudaSuccess) return (int)e;
+  int n_cols = cs / cpi;
   const float4* lm = (const float4*)blocks_lm;
-  const dim3 grid(tiles), block(tile_rays * kParts);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (variant) {
-    case kEmpty:
-      attrib_kernel<kEmpty><<<grid, block, shmem, s>>>(
-          st, si, cs, rays, lm, k, cpi, n_cols, t_min, out);
-      break;
-    case kNoDma:
-      attrib_kernel<kNoDma><<<grid, block, shmem, s>>>(
-          st, si, cs, rays, lm, k, cpi, n_cols, t_min, out);
-      break;
-    case kNoAlu:
-      attrib_kernel<kNoAlu><<<grid, block, shmem, s>>>(
-          st, si, cs, rays, lm, k, cpi, n_cols, t_min, out);
-      break;
-    case kDma1:
-      attrib_kernel<kDma1><<<grid, block, shmem, s>>>(
-          st, si, cs, rays, lm, k, cpi, n_cols, t_min, out);
-      break;
-    default:
-      attrib_kernel<kFull><<<grid, block, shmem, s>>>(
-          st, si, cs, rays, lm, k, cpi, n_cols, t_min, out);
-  }
-  return (int)cudaGetLastError();
+  void* args[] = {&st, &si, &cs, &rays, &lm, &k, &cpi, &n_cols, &t_min, &out};
+  e = cudaLaunchKernel(attrib_of(variant, stages), dim3(tiles),
+                       dim3(tile_rays * kParts), args, shmem,
+                       (cudaStream_t)stream);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

@@ -11,8 +11,9 @@
       cluster.
   sweep_attrib(st, si, rays, blocks_lm, cpi, variant, t_min)
                                           P3, benchmarks/sweep_attrib.py:56
-      K2's column walk on a synthetic schedule, one of VARIANTS ->
-      best_t + acc f32[tiles, 1, R].
+      K2's column body on a synthetic schedule, one of VARIANTS ->
+      best_t + acc f32[tiles, 1, R]; on the card its columns come
+      through a ring of attrib_stages() stages filled by TMA bulk copies.
 
 Each wrapper runs the plain PyTorch version for CPU tensors and launches
 its CUDA kernel for CUDA tensors (or raises); it adds one to its count
@@ -36,6 +37,7 @@ VARIANTS = ("empty", "nodma", "noalu", "dma1", "full")
 DMA1_SPAN = 1024            # dma1 copies clusters (col % (1024 // cpi)) * cpi
 SHMEM_LIMIT = 232_448       # dynamic shared memory a block on an H100
 PARTS = 4                   # threads a ray in K2's column (kParts)
+RING_STAGES = 3             # most stages of P3's ring
 LANE_COUNTS = ("columns", "lanes", "signs", "in_range", "hits")
 
 _SIG = {
@@ -45,12 +47,13 @@ _SIG = {
                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "pt_cond_walk": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
-    "pt_attrib_shmem": [ctypes.c_int, ctypes.c_int, ctypes.c_int],
+    "pt_attrib_shmem": [ctypes.c_int] * 4,
+    "pt_attrib_info": [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4,
     "pt_sweep_attrib": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                        ctypes.c_void_p],
+                        ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                        ctypes.c_void_p, ctypes.c_void_p],
 }
 
 
@@ -163,6 +166,47 @@ def cond_walk(x, n_iter=256, gate=False, grid=64):
 
 
 # --- P3 ------------------------------------------------------------------
+
+def attrib_shmem(tile_rays, k, cpi, stages):
+    """Dynamic shared memory of P3's kernel (csrc/probes.cu
+    attrib_shmem): the ring, `stages` x cpi clusters of k lanes of 16
+    floats; K2's candidate slabs, 2 x PARTS x tile_rays x 5 words; one
+    8-byte mbarrier a stage."""
+    return (stages * cpi * k * 16 * 4 + 2 * PARTS * tile_rays * 5 * 4
+            + stages * 8)
+
+
+def attrib_stages(tile_rays, k, cpi):
+    """Stages of P3's ring for tile_rays rays a tile and cpi clusters of
+    k lanes a column: the most, up to RING_STAGES, whose shared memory
+    fits SHMEM_LIMIT, and never fewer than 2 (the double buffer; a
+    column too large for two stages is refused by the wrapper). Up to
+    two columns are then in flight ahead of the one tested. At cpi 1
+    three stages take 34,840 bytes a block: shared memory allows 6 blocks
+    an SM, more than the 5 that full's 48 registers allow; the variants
+    with fewer registers (empty, noalu, dma1) go from 8 blocks to 6."""
+    fit = [s for s in range(2, RING_STAGES + 1)
+           if attrib_shmem(tile_rays, k, cpi, s) <= SHMEM_LIMIT]
+    return max(fit, default=2)
+
+
+def kernel_info(variant, tile_rays=64, k=128, cpi=1):
+    """Registers and local (spill) bytes a thread, threads a block,
+    resident blocks and the occupancy (resident warps / 64) an SM of P3's
+    `variant` at its ring of attrib_stages(tile_rays, k, cpi), from the
+    CUDA runtime (needs a card; the ptxas report is
+    cuda_build.build_logs["probes"])."""
+    stages = attrib_stages(tile_rays, k, cpi)
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    rc = _lib().pt_attrib_info(VARIANTS.index(variant), tile_rays, k, cpi,
+                               stages, *(ctypes.byref(v) for v in vals))
+    cuda_build.check_launch(rc, f"kernel_info({variant})")
+    regs, local, blocks, threads = (v.value for v in vals)
+    return dict(registers=regs, local_bytes=local, threads=threads,
+                blocks_per_sm=blocks, occupancy=blocks * threads / 32 / 64,
+                stages=stages,
+                shmem=attrib_shmem(tile_rays, k, cpi, stages))
+
 
 def _lane_counts(blk, o, d, t_min, best, live, counts):
     """Add to `counts` the branches K2's column body (sweep_column.cuh:
@@ -291,8 +335,14 @@ def sweep_attrib(st, si, rays, blocks_lm, cpi, variant, t_min=1e-3):
            (c, k, 16))
     if r not in (32, 64):
         raise ValueError(f"sweep_attrib: tile_rays {r} must be 32 or 64")
-    lib = _lib()
-    shmem = lib.pt_attrib_shmem(r, k, int(cpi))
+    if cpi > 32:
+        raise ValueError(f"sweep_attrib: cpi {cpi} above 32 (warp 0 holds "
+                         "a column's cluster ids, one a lane)")
+    if blocks_lm.data_ptr() % 16:
+        raise ValueError("sweep_attrib: blocks_lm must start at a 16-byte "
+                         "boundary (the source of TMA bulk copies)")
+    stages = attrib_stages(r, k, int(cpi))
+    shmem = attrib_shmem(r, k, int(cpi), stages)
     if shmem > SHMEM_LIMIT:
         raise ValueError(f"sweep_attrib: cpi {cpi} x {k} lanes needs "
                          f"{shmem} B of shared memory a block (at most "
@@ -304,9 +354,9 @@ def sweep_attrib(st, si, rays, blocks_lm, cpi, variant, t_min=1e-3):
     out = torch.empty((tiles, 1, r), dtype=torch.float32, device=dev)
     if tiles == 0:
         return out
-    rc = lib.pt_sweep_attrib(
+    rc = _lib().pt_sweep_attrib(
         VARIANTS.index(variant), st.data_ptr(), si.data_ptr(), tiles, cs,
-        rays.data_ptr(), blocks_lm.data_ptr(), k, r, int(cpi),
+        rays.data_ptr(), blocks_lm.data_ptr(), k, r, int(cpi), stages,
         float(t_min), out.data_ptr(), cuda_build.stream_ptr(dev))
     cuda_build.check_launch(rc, f"sweep_attrib({variant})")
     LAUNCHES["sweep_attrib"] += 1

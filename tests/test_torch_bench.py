@@ -10,6 +10,7 @@ otherwise.
 """
 
 import json
+import types
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +27,7 @@ from pathtracer.kernels import packet as jpacket
 from pathtracer.scene import procedural as jproc
 from pathtracer_torch.accel.cluster import build_scene_clusters
 from pathtracer_torch.bench import __main__ as entry
-from pathtracer_torch.bench import harness, pair_metrics
+from pathtracer_torch.bench import harness, pair_metrics, sweep_attrib
 from pathtracer_torch.config import RenderConfig
 from pathtracer_torch.integrator.camera import Camera
 from pathtracer_torch.render import render_frame_with_stats
@@ -231,32 +232,117 @@ def test_pair_metrics_dict_close_to_jax(pair_case):
     assert pm["packet_waste"] >= 1.0
 
 
+def test_bounce1_pair_metrics_takes_k2s_rate(pair_case, monkeypatch):
+    """On a card the model's rate is K2's cost a column from K2's own
+    timer (sweep_attrib.k2_columns, through us_per_col), not P3's
+    attribution. The scene stands in for a card's: its batch and counts
+    are the CPU's, its device says cuda, and K2's timer is a recorder."""
+    c = pair_case
+    o2, d2 = pair_metrics.bounce1_batch(c["scene"], c["cfg"], c["cam"])
+    stats = pair_metrics.schedule_stats(c["scene"].clusters, o2, d2)
+    calls = []
+
+    def k2_timer(device="cuda", *a, **kw):
+        calls.append(torch.device(device))
+        return {"per_col": 0.0125, "ms": [1.0, 2.0], "per_tile": 0.0,
+                "t": []}
+
+    def no_p3(*a, **kw):
+        raise AssertionError("the rate came from P3's attribution")
+
+    monkeypatch.setattr(sweep_attrib, "k2_columns", k2_timer)
+    monkeypatch.setattr(sweep_attrib, "attribution", no_p3)
+    monkeypatch.setattr(pair_metrics, "bounce1_batch",
+                        lambda *a, **kw: (o2, d2))
+    monkeypatch.setattr(pair_metrics, "schedule_stats",
+                        lambda *a, **kw: stats)
+    card = types.SimpleNamespace(device=torch.device("cuda"),
+                                 clusters=c["scene"].clusters)
+    pm = pair_metrics.bounce1_pair_metrics(card, c["cfg"], c["cam"])
+    assert calls == [torch.device("cuda")]
+    assert pm["sweep_us_per_iter"] == 0.0125
+    cols = float(stats[0][stats[2]].sum())
+    assert pm["sweep_model_ms"] == round(cols * 0.0125e-3, 1)
+    assert pm == pair_metrics.pair_metrics(*stats, 128, 0.0125)
+
+
 # --- the entry -------------------------------------------------------------
 
 _TINY = dict(BENCH_WIDTH="16", BENCH_HEIGHT="16", BENCH_TRIS="3000",
              BENCH_FRAMES="2", BENCH_SPP="1")
 
 
-def test_entry_on_cpu_prints_bench_keys(monkeypatch, capsys):
+def _tiny_env(monkeypatch):
     for k in list(_TINY) + ["PT_PLATFORM"]:
         monkeypatch.delenv(k, raising=False)
     for k, v in dict(_TINY, PT_PLATFORM="cpu").items():
         monkeypatch.setenv(k, v)
+
+
+def _entry_line(capsys):
     assert entry.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1
-    rec = json.loads(lines[0])
+    return json.loads(lines[0])
+
+
+def _check_bench_line(rec):
+    """bench.py's keys at any rate. The entry rounds the rate to 3
+    places (value) and its ratio to the 300 Mrays/s target to 4
+    (vs_baseline), so a slow CPU frame prints a value of 0.0: the rate's
+    unrounded parts in the detail show that it is positive, and
+    vs_baseline may differ from value / 300 by the two roundings' half
+    units and no more."""
     assert set(rec) == {"metric", "value", "unit", "vs_baseline", "detail"}
     assert rec["metric"] == "sponza_1080p_mrays_per_sec_per_chip"
-    assert rec["unit"] == "Mrays/s" and rec["value"] > 0
-    assert rec["vs_baseline"] == round(rec["value"] / 300.0, 4)
     d = rec["detail"]
+    assert rec["unit"] == "Mrays/s" and rec["value"] >= 0
+    assert d["rays_per_frame"] > 0 and d["ms_per_frame"] > 0
+    assert abs(rec["vs_baseline"] - rec["value"] / 300.0) \
+        <= 0.5e-4 + 0.5e-3 / 300.0
     assert d["device"] == {"platform": "cpu", "kind": "cpu", "count": 1}
     assert d["resolution"] == [16, 16] and d["textured"] is True
     assert "untextured_mrays_per_sec" in d
     assert "error" not in d["pair_metrics"]
     assert d["pair_metrics"]["sweep_model_ms"] is None
     assert "vs_design_ceiling_18mrays" not in d and "configs_sweep" not in d
+
+
+def test_entry_on_cpu_prints_bench_keys(monkeypatch, capsys):
+    _tiny_env(monkeypatch)
+    _check_bench_line(_entry_line(capsys))
+
+
+_SLOW_RAYS = 2048.0      # rays a frame of the stand-in step
+_SLOW_RATE = 400.0       # rays a second: 0.0004 Mrays/s
+
+
+def test_entry_at_a_slow_rate_prints_bench_keys(monkeypatch, capsys):
+    """The entry at 0.0004 Mrays/s, deterministically: the harness's
+    step renders nothing and its clock advances by the frame's rays over
+    400 rays/s a step, so every timed frame takes 5.12 s. The line's
+    value rounds to 0.0, which the assertions this file held before
+    (value > 0, vs_baseline == round(value / 300, 4)) refuse; the
+    detail's unrounded parts still show the rate."""
+    _tiny_env(monkeypatch)
+    now = [0.0]
+
+    def step(scene, cfg, cam, frame_idx, prime):
+        now[0] += _SLOW_RAYS / _SLOW_RATE
+        return None, torch.tensor(_SLOW_RAYS), prime
+
+    monkeypatch.setattr(harness, "_step", step)
+    monkeypatch.setattr(harness, "time",
+                        types.SimpleNamespace(perf_counter=lambda: now[0]))
+    rec = _entry_line(capsys)
+    d = rec["detail"]
+    assert d["rays_per_frame"] == _SLOW_RAYS
+    assert d["ms_per_frame"] == round(_SLOW_RAYS / _SLOW_RATE * 1e3, 3)
+    assert d["untextured_mrays_per_sec"] == 0.0
+    assert rec["value"] == 0.0 and rec["vs_baseline"] == 0.0
+    assert not (rec["value"] > 0
+                and rec["vs_baseline"] == round(rec["value"] / 300.0, 4))
+    _check_bench_line(rec)
 
 
 def test_entry_raises_without_a_card(monkeypatch):

@@ -920,27 +920,142 @@ def test_cond_walk_kernel_matches_plain(dev, gate, kind, n_iter):
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
 
 
-@pytest.mark.parametrize("variant", ["empty", "nodma", "noalu", "dma1",
-                                     "full"])
-@pytest.mark.parametrize("cpi,n_cols", [(1, 1), (1, 5), (12, 1), (12, 3)])
-def test_sweep_attrib_kernel_matches_plain(dev, variant, cpi, n_cols):
+def exact_schedule(tiles, n_cols, cpi, c, dev):
+    """sweep_attrib.schedule cut to its n_cols * cpi entries: the kernel's
+    n_cols is then the walk's own (below, at or above the ring's stages),
+    where sweep_attrib's padding to lcm(cpi, 128) entries makes it >= 128."""
     from pathtracer_torch.bench import sweep_attrib
-    from pathtracer_torch.kernels import probes
 
-    tiles, c = 16, 512
-    lm, rays = sweep_attrib.probe_inputs(tiles, c, dev)
     st, si = sweep_attrib.schedule(tiles, n_cols, cpi, c, dev)
-    before = kernels.LAUNCHES["sweep_attrib"]
-    got = probes.sweep_attrib(st, si, rays, lm, cpi, variant)
-    assert kernels.LAUNCHES["sweep_attrib"] == before + 1
-    ref = probes.sweep_attrib_plain(st, si, rays, lm.transpose(1, 2), cpi,
-                                    variant)
+    cs = n_cols * cpi
+    return st[:, :cs].contiguous(), si[:, :cs].contiguous()
+
+
+def attrib_stop_case(tiles, n_cols, cpi, stop_col, inf_col, c, dev,
+                     seed=5):
+    """P3's inputs where the stop rule fires mid-walk: (st, si, rays,
+    blocks_lm) of n_cols columns. Cluster 0 is a wall every ray hits
+    (each lane the plane z = 5 with u = v = 0.25; rays leave z <= 1
+    with dz > 0, so t <= 6 |d| / dz < 1e3) and starts every column 0;
+    the other clusters are probe_inputs' random rows. Even tiles: entries
+    0 before column stop_col, 1e3 from it, so the variants that test
+    lanes stop at stop_col by K2's rule (every ray's best t < 1e3) and
+    the others walk on. Odd tiles: +inf from column inf_col, where every
+    variant stops."""
+    from pathtracer_torch.bench import sweep_attrib
+
+    lm, _ = sweep_attrib.probe_inputs(tiles, c, "cpu", seed=seed)
+    lm[0] = 0.0
+    lm[0, :, 2] = 1.0     # n = (0, 0, 1)
+    lm[0, :, 3] = 5.0     # d
+    lm[0, :, 7] = 0.25    # c1: u
+    lm[0, :, 11] = 0.25   # c2: v
+    lm[0, :, 12] = 1.0    # id row
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-1.0, 1.0, (tiles, 3, sweep_attrib.R))
+    d = rng.normal(size=(tiles, 3, sweep_attrib.R))
+    d[:, 2] = np.abs(d[:, 2]) + 0.5
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = torch.from_numpy(np.concatenate([o, d], axis=1).astype(
+        np.float32))
+    st, si = exact_schedule(tiles, n_cols, cpi, c, "cpu")
+    si[:, 0] = 0
+    st[0::2, stop_col * cpi:] = 1e3
+    st[1::2, inf_col * cpi:] = torch.inf
+    return st.to(dev), si.to(dev), rays.to(dev), lm.to(dev)
+
+
+def _attrib_same(got, ref, variant):
     if variant != "full":
         assert bool(torch.isinf(got).all()) and bool(torch.isinf(ref).all())
         return
     assert torch.equal(torch.isfinite(got), torch.isfinite(ref))
     assert bool(torch.isfinite(ref).any())
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("variant", ["empty", "nodma", "noalu", "dma1",
+                                     "full"])
+@pytest.mark.parametrize("cpi", range(1, 14))
+@pytest.mark.parametrize("n_cols", range(1, 6))
+def test_sweep_attrib_kernel_matches_plain(dev, variant, cpi, n_cols):
+    """Every cpi of 1-13 (rings of 3 stages to cpi 9, 2 from 10) at 1-5
+    columns, below, at and above the ring's stages: on the schedule cut
+    to its columns and on sweep_attrib's padded one, where the walk stops
+    at the first +inf entry (sweep_attrib's 2,048 clusters: dma1 then
+    copies up to 1,014 of them)."""
+    from pathtracer_torch.bench import sweep_attrib
+    from pathtracer_torch.kernels import probes
+
+    tiles, c = 16, sweep_attrib.CLUSTERS
+    lm, rays = sweep_attrib.probe_inputs(tiles, c, dev)
+    for st, si in (exact_schedule(tiles, n_cols, cpi, c, dev),
+                   sweep_attrib.schedule(tiles, n_cols, cpi, c, dev)):
+        before = kernels.LAUNCHES["sweep_attrib"]
+        got = probes.sweep_attrib(st, si, rays, lm, cpi, variant)
+        assert kernels.LAUNCHES["sweep_attrib"] == before + 1
+        ref = probes.sweep_attrib_plain(st, si, rays, lm.transpose(1, 2),
+                                        cpi, variant)
+        _attrib_same(got, ref, variant)
+
+
+@pytest.mark.parametrize("variant", ["empty", "nodma", "noalu", "dma1",
+                                     "full"])
+@pytest.mark.parametrize("cpi,n_cols,stop_col,inf_col",
+                         [(1, 7, 3, 5), (1, 2, 1, 1), (2, 6, 4, 2),
+                          (9, 5, 2, 3), (12, 4, 2, 3), (13, 3, 1, 2)])
+def test_sweep_attrib_kernel_stops_mid_walk(dev, variant, cpi, n_cols,
+                                            stop_col, inf_col):
+    """attrib_stop_case: K2's rule stops the lane-testing variants at
+    stop_col on even tiles, a +inf entry every variant at inf_col on odd
+    ones, with copies of later columns in flight; full's column count
+    (its output less its t) is the plain version's."""
+    from pathtracer_torch.kernels import probes
+
+    st, si, rays, lm = attrib_stop_case(16, n_cols, cpi, stop_col, inf_col,
+                                        64, dev)
+    got = probes.sweep_attrib(st, si, rays, lm, cpi, variant)
+    ref = probes.sweep_attrib_plain(st, si, rays, lm.transpose(1, 2), cpi,
+                                    variant)
+    _attrib_same(got, ref, variant)
+
+
+@pytest.mark.parametrize("variant", ["empty", "nodma", "noalu", "dma1",
+                                     "full"])
+@pytest.mark.parametrize("cpi", [1, 9, 10, 13])
+def test_sweep_attrib_kernel_at_32_rays(dev, variant, cpi):
+    """32-ray tiles (128 threads a block) at 1-5 columns."""
+    from pathtracer_torch.bench import sweep_attrib
+    from pathtracer_torch.kernels import probes
+
+    tiles, c = 8, 512
+    lm, rays = sweep_attrib.probe_inputs(tiles, c, dev)
+    rays = rays[:, :, :32].contiguous()
+    for n_cols in range(1, 6):
+        st, si = exact_schedule(tiles, n_cols, cpi, c, dev)
+        got = probes.sweep_attrib(st, si, rays, lm, cpi, variant)
+        ref = probes.sweep_attrib_plain(st, si, rays, lm.transpose(1, 2),
+                                        cpi, variant)
+        _attrib_same(got, ref, variant)
+
+
+def test_attrib_ring_layout_and_occupancy(dev):
+    """The kernel's shared memory is attrib_shmem's for every cpi of
+    1-13 at the stages attrib_stages picks; at cpi 1 the ring leaves
+    shared memory for at least as many blocks an SM as registers allow
+    a 256-thread block of K2 (48 registers: 5)."""
+    from pathtracer_torch.kernels import probes
+
+    lib = probes._lib()
+    for r in (32, 64):
+        for cpi in range(1, 14):
+            s = probes.attrib_stages(r, 128, cpi)
+            assert lib.pt_attrib_shmem(r, 128, cpi, s) \
+                == probes.attrib_shmem(r, 128, cpi, s) <= probes.SHMEM_LIMIT
+    for v in probes.VARIANTS:
+        info = probes.kernel_info(v, 64, 128, 1)
+        assert info["stages"] == 3 and info["local_bytes"] == 0
+        assert info["blocks_per_sm"] >= 5, info
 
 
 def test_probe_wrappers_check_their_inputs(dev):

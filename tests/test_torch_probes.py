@@ -30,6 +30,7 @@ from benchmarks import bf16_probe, cond_probe, sweep_attrib
 from pathtracer.kernels.pallas_sweep import LANES, SLOTS
 from pathtracer_torch.bench import sweep_attrib as tattrib
 from pathtracer_torch.kernels import LAUNCHES, probes
+from tests.test_torch_cuda import attrib_stop_case, exact_schedule
 
 
 # --- P1 ------------------------------------------------------------------
@@ -341,3 +342,86 @@ def test_attrib_driver_picks_the_jax_lengths(capsys):
     assert set(res["per_col"]) == set(probes.VARIANTS)
     with pytest.raises(SystemExit):
         tattrib.main(["--device", "cpu", "--cols", "2", "3"])
+
+
+# --- P3's ring and K2's rate ------------------------------------------------
+
+@pytest.mark.parametrize("tile_rays", [32, 64])
+@pytest.mark.parametrize("cpi", range(1, 14))
+def test_attrib_stages_fit_the_card(tile_rays, cpi):
+    """At K = 128 every cpi of 1-13 gets a ring that fits a block's
+    232,448 bytes beside the candidate slabs and barriers: 3 stages
+    wherever 3 fit (cpi <= 9), else 2; cpi 14 needs more than 2 stages
+    can have, and the wrapper refuses it."""
+    s = probes.attrib_stages(tile_rays, _K, cpi)
+    shmem = probes.attrib_shmem(tile_rays, _K, cpi, s)
+    assert shmem <= probes.SHMEM_LIMIT
+    three = probes.attrib_shmem(tile_rays, _K, cpi, 3) <= probes.SHMEM_LIMIT
+    assert s == (3 if three else 2)
+    assert three == (cpi <= 9)
+    # ring, slabs (2 x 4 parts x R x 5 words), one 8-byte barrier a stage
+    assert shmem == s * cpi * _K * 64 + 2 * 4 * tile_rays * 20 + 8 * s
+    assert probes.attrib_shmem(tile_rays, _K, 14, 2) > probes.SHMEM_LIMIT
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_us_per_col_raises_off_the_card(device):
+    with pytest.raises(ValueError, match="card"):
+        tattrib.us_per_col(device)
+
+
+@pytest.mark.parametrize("cols", [(1, 2), (2, 5)])
+def test_k2_columns_is_p3_full_on_its_schedule(cols):
+    """K2 (the plain sweep_closest) on P3's schedule at cpi 1 through
+    k2_columns finds P3 full's hits: its t + n_cols is P3's output bit
+    for bit at each length, as chip_smoke.py holds the two kernels; every
+    lane of its table is a real triangle and t_cap is +inf."""
+    tiles, c = 3, 16
+    res = tattrib.k2_columns("cpu", tiles=tiles, cols=cols, c_clusters=c,
+                             warmup=0, reps=1)
+    assert set(res) == {"ms", "per_col", "per_tile", "t"}
+    lm, rays = tattrib.probe_inputs(tiles, c, "cpu")
+    acc = tattrib.k2_accel(lm)
+    assert bool((acc.blocks_lm[:, :, 12] == 1.0).all())
+    assert torch.equal(acc.blocks_lm[:, :, :12], lm[:, :, :12])
+    assert acc.n_lanes.tolist() == [_K] * c
+    for n_cols, t in zip(cols, res["t"]):
+        st, si = tattrib.schedule(tiles, n_cols, 1, c, "cpu")
+        p3 = probes.sweep_attrib(st, si, rays, lm, 1, "full")
+        assert bool(torch.isfinite(t).any())
+        assert torch.equal((t + float(n_cols)).view(torch.int32),
+                           p3[:, 0].view(torch.int32))
+
+
+@pytest.mark.parametrize("cpi,n_cols,stop_col,inf_col",
+                         [(1, 7, 3, 5), (2, 6, 4, 2), (12, 4, 2, 3)])
+def test_attrib_stop_case_stops_mid_walk(cpi, n_cols, stop_col, inf_col):
+    """The cuda tests' stop case on the plain version: full stops at
+    stop_col on even tiles (its output is the walk cut there) and at
+    inf_col on odd ones; without the stop it would walk on."""
+    st, si, rays, lm = attrib_stop_case(4, n_cols, cpi, stop_col, inf_col,
+                                        64, "cpu")
+    blocks_t = lm.transpose(1, 2)
+    got = probes.sweep_attrib_plain(st, si, rays, blocks_t, cpi, "full")
+    assert bool(torch.isfinite(got).all())        # every ray hits the wall
+    for rows, cut in ((slice(0, None, 2), stop_col),
+                      (slice(1, None, 2), inf_col)):
+        part = probes.sweep_attrib_plain(
+            st[rows, :cut * cpi].contiguous(),
+            si[rows, :cut * cpi].contiguous(), rays[rows], blocks_t, cpi,
+            "full")
+        assert torch.equal(got[rows], part)
+    walk = probes.sweep_attrib_plain(torch.zeros_like(st), si, rays,
+                                     blocks_t, cpi, "full")
+    assert not torch.equal(walk[0::2], got[0::2])
+    # the variants without lane tests walk every finite entry
+    assert torch.isinf(probes.sweep_attrib_plain(st, si, rays, blocks_t,
+                                                 cpi, "noalu")).all()
+
+
+def test_exact_schedule_is_the_schedule_cut():
+    st, si = exact_schedule(2, 3, 4, 16, "cpu")
+    pst, psi = tattrib.schedule(2, 3, 4, 16, "cpu")
+    assert st.shape == (2, 12) and st.is_contiguous()
+    assert torch.equal(st, pst[:, :12]) and torch.equal(si, psi[:, :12])
+    assert bool((st == 0).all()) and bool(torch.isinf(pst[:, 12:]).all())
