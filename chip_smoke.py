@@ -52,8 +52,18 @@ Drives pathtracer_torch's paths on the card and checks them:
    P3 stages its columns its own way, K2 is pair_metrics' rate); P3's
    bound from the lane-test branches its plain version counts on the
    run's data;
-3. the config 1-5 golden gates at 64x64, 4 spp, through the kernels
-   (robust gate of benchmarks/run_configs.py);
+3. configs: the config sweep (pathtracer_torch/bench/configs.py, the
+   port of benchmarks/run_configs.py, whose configs, cameras and golden
+   gate this script imports) at BASELINE's sizes - configs 1-5 through
+   run_config (3 warm-up steps, --frames timed steps, the 64x64 / 4 spp
+   probe against tests/goldens), then config 4 under PT_CULL_SKIP=1,
+   the launch counts set to 0 just before each run and read just after:
+   every accuracy_ok true, ms/frame finite and positive, configs 2-5
+   launching K1 (K4 and no K1 under PT_CULL_SKIP=1), K2 and K3; one
+   `configs` line each with the record, K1-K4 launches, peak memory and
+   seconds; then `python -m pathtracer_torch.bench.configs --configs 1
+   --scale 0.25 --frames 1 --no-check` in a subprocess must exit 0 with
+   its line;
 4. the headline - textured sponza_like (~262k triangles), 1920x1080,
    4 spp, depth 6, spp-batched - unprimed with K1, unprimed with
    PT_CULL_SKIP=1 (K4 only: same ray counts frame for frame, film within
@@ -169,19 +179,17 @@ import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-GOLDEN_DIR = os.path.join(ROOT, "tests", "goldens")
-# robust image gate of benchmarks/run_configs.py:127-174
-RMSE_TOL, OUTLIER_TOL, MEAN_TOL = 5e-3, 0.02, 1e-3
+sys.path.insert(0, ROOT)
+# the five BASELINE configs, their cameras and the golden gate: one
+# definition, the config sweep's (python -m pathtracer_torch.bench.configs)
+from pathtracer_torch.bench.configs import (  # noqa: E402
+    BUNNY_CAM, ENV_CAM, MEAN_TOL, OUTLIER_TOL, RMSE_TOL, SPONZA_CAM,
+    build_configs, camera, load_golden, load_scene, probe_cfg, robust_gate,
+    run_config)
+
 DEVICE = "cuda"
 # the headline: bench.py's textured sponza_like at 1080p (never cut)
 HEADLINE_TRIS, HEADLINE_W, HEADLINE_H = 262_000, 1920, 1080
-# BASELINE configs 4 and 3 (benchmarks/run_configs.py:103-116) at their
-# published sizes
-CONFIG4_SIZE, CONFIG3_SIZE = 1024, 512
-SPONZA_CAM = ((3.0, 4.5, 6.0), (14.0, 3.0, 6.0))
-BOX_CAM = ((0.5, 0.5, 2.2), (0.5, 0.5, 0.0))
-BUNNY_CAM = ((0.0, 2.0, 5.0), (0.0, 1.2, 0.0))
-ENV_CAM = ((0.0, 2.5, 5.5), (0.0, 1.2, 0.0))
 BATCH_NAMES = ("primary", "shadow0", "bounce1")   # first traversal calls
 CHUNK_STRIDE = 16   # compare every 16th chunk of a batch ...
 CMP_CHUNKS = 4      # ... and at most 4 chunks per batch
@@ -268,9 +276,6 @@ BW_OPS = {"sweep_closest": 38,             # (ray, triangle): bw_lane
 SLAB_OPS = 25
 LEAF_OPS = {"bvh_closest": 53, "bvh_occluded": 68}
 NODE_BYTES, TRI_BYTES = 32, 36
-# BASELINE config 2 (benchmarks/run_configs.py:103-106) at its size
-CONFIG2_SIZE = 512
-QUIRKS_SIZE = 256      # BASELINE config 1 (run_configs.py:99-102)
 SOBOL_LANES = 1 << 21
 # the sharded phase: gloo ranks sharing cuda:0, and how long they may run
 SHARD_RANKS, SHARD_TIMEOUT_S = 2, 300
@@ -290,26 +295,10 @@ class PhaseError(RuntimeError):
     pass
 
 
-def robust_gate(img, golden):
-    import numpy as np
-
-    d = img - golden
-    ad = np.abs(d).max(-1)
-    inl = ad <= np.percentile(ad, 98.0)
-    rmse = float(np.sqrt(np.mean(d[inl] ** 2)))
-    flips = float((ad > 0.01).mean())
-    mean_rel = abs(float(img.mean()) - float(golden.mean())) / max(
-        abs(float(golden.mean())), 1e-6)
-    ok = rmse <= RMSE_TOL and flips <= OUTLIER_TOL and mean_rel <= MEAN_TOL
-    return dict(inlier_rmse=rmse, flip_frac=flips, mean_rel=mean_rel, ok=ok)
-
-
-def camera(spec):
-    from pathtracer_torch.integrator.camera import Camera
-
-    c = Camera(position=spec[0])
-    c.look_at(spec[1])
-    return c
+def baseline(idx, tmp_dir=None):
+    """BASELINE config idx at its published size: (name, scene_fn, cfg,
+    camera) of bench/configs.build_configs(1.0)."""
+    return build_configs(1.0, tmp_dir=tmp_dir)[idx - 1]
 
 
 def card_line():
@@ -1365,88 +1354,20 @@ def phase_bench(scene, cfg, cam):
     return rec, launches
 
 
-def envmap_scene(tmp_dir):
-    """benchmarks/run_configs.py:70-95 on the port: bunny_like(5), a 256^2
-    checker on the body, and a 512x1024 sky with a sun disc written and
-    re-read through the port's RGBE codec (the golden saw the quantised
-    map)."""
-    import numpy as np
-
-    from pathtracer_torch.scene import procedural
-    from pathtracer_torch.scene.build import MaterialDesc
-    from pathtracer_torch.scene.hdr import read_hdr, write_hdr
-
-    b = procedural.bunny_like(subdivisions=5)
-    tex = np.indices((256, 256)).sum(axis=0) % 2
-    tex = (np.stack([tex] * 3, -1) * 0.6 + 0.2).astype(np.float32)
-    tid = b.add_texture(tex)
-    b.materials[1] = MaterialDesc(albedo=(1, 1, 1), albedo_tex=tid,
-                                  roughness=0.4)
-    eh, ew = 512, 1024
-    theta = np.linspace(0, np.pi, eh)[:, None]
-    env = np.zeros((eh, ew, 3), np.float32)
-    horizon = np.clip(np.sin(theta), 0, 1) ** 3
-    env[..., 0] = 0.25 + 0.5 * horizon
-    env[..., 1] = 0.35 + 0.45 * horizon
-    env[..., 2] = 0.6 + 0.25 * horizon
-    env[60:76, 220:236] = 800.0  # sun disc
-    path = os.path.join(tmp_dir, "bench_env.hdr")
-    write_hdr(path, env)
-    b.set_envmap(read_hdr(path))
-    return b.finalize(device="cpu")
-
-
-def config4_cfg(**kw):
-    from pathtracer_torch.config import RenderConfig
-
-    return RenderConfig(max_depth=6, sky="envmap",
-                        env_importance_sampling=True, emission_gain=1.0,
-                        spp_batch=True, **kw)
-
-
-def golden_configs(tmp_dir):
-    """benchmarks/run_configs.py configs 1-5 at the 64x64 / 4 spp probe:
-    [(index, scene builder, cfg, camera spec)]."""
-    from pathtracer_torch.config import RenderConfig
-    from pathtracer_torch.scene import procedural
-
-    probe = dict(width=64, height=64, spp=4)
-    return [
-        (1, lambda: procedural.cornell_box().finalize(device="cpu"),
-         RenderConfig(max_depth=6, spp_batch=False, **probe), BOX_CAM),
-        (2, lambda: procedural.bunny_like().finalize(device="cpu"),
-         RenderConfig(max_depth=6, spp_batch=True, **probe), BUNNY_CAM),
-        (3, lambda: procedural.cornell_box(
-            materials_suite=True).finalize(device="cpu"),
-         RenderConfig(max_depth=6, spp_batch=True, **probe), BOX_CAM),
-        (4, lambda: envmap_scene(tmp_dir), config4_cfg(**probe), ENV_CAM),
-        (5, lambda: procedural.sponza_like().finalize(device="cpu"),
-         RenderConfig(max_depth=6, spp_batch=True, **probe), SPONZA_CAM),
-    ]
-
-
-def phase_goldens(tmp_dir, mesh=None, label="golden"):
-    """The config 1-5 golden gates; with a mesh, each frame rendered
-    across it (render_frame_sharded). Returns {config: image}."""
-    import numpy as np
-
-    from pathtracer_torch.accel.cluster import build_scene_clusters
+def phase_goldens(tmp_dir, mesh, label):
+    """The config 1-5 golden gates, each 64x64 probe frame rendered across
+    `mesh` (render_frame_sharded). Returns {config: image}."""
     from pathtracer_torch.parallel import sharding
-    from pathtracer_torch.render import render_frame
 
     failed, images = [], {}
-    for idx, scene_fn, cfg, cam in golden_configs(tmp_dir):
+    for idx, (_, scene_fn, cfg, cam) in enumerate(
+            build_configs(1.0, tmp_dir=tmp_dir), start=1):
         t0 = time.perf_counter()
-        scene = build_scene_clusters(scene_fn()).to(DEVICE)
-        state = camera(cam).state(device=DEVICE)
-        if mesh is None:
-            img = render_frame(scene, cfg, state, 0)
-        else:
-            img = sharding.render_frame_sharded(scene, cfg, state, 0,
-                                                mesh)[0]
+        scene = load_scene(scene_fn, DEVICE)
+        img = sharding.render_frame_sharded(
+            scene, probe_cfg(cfg), cam.state(device=DEVICE), 0, mesh)[0]
         img = images[idx] = img.cpu().numpy()
-        g = np.load(os.path.join(GOLDEN_DIR, f"config_{idx}_64.npz"))["img"]
-        res = robust_gate(img, g)
+        res = robust_gate(img, load_golden(idx))
         log(label, config=idx, tris=scene.n_tris,
             seconds=time.perf_counter() - t0, **res)
         if not res["ok"]:
@@ -1454,6 +1375,88 @@ def phase_goldens(tmp_dir, mesh=None, label="golden"):
     if failed:
         raise PhaseError(f"{label} gate failed for configs {failed}")
     return images
+
+
+# K1-K4 launches logged per config run of the configs phase
+CULL_SWEEP_KERNELS = ("tile_cull", "tile_cull_skip", "sweep_closest",
+                      "sweep_occluded")
+# the module entry itself, once, as a user runs it: config 1 at 64x64
+CONFIGS_CLI = ("-m", "pathtracer_torch.bench.configs", "--configs", "1",
+               "--scale", "0.25", "--frames", "1", "--no-check")
+
+
+def phase_configs(tmp_dir, frames):
+    """The config sweep (bench/configs.py) at BASELINE's sizes: configs
+    1-5 through run_config (3 warm-up steps, `frames` timed steps, the
+    64x64 golden probe), then config 4 under PT_CULL_SKIP=1, the launch
+    counts set to 0 just before each run and read just after; then the
+    module entry once in a subprocess. Configs 2-5 take the cluster
+    route (K1-K3; K4 in place of K1 where PT_CULL_SKIP=1 gates), config
+    1 (12 triangles) the brute route. Returns the records."""
+    import math
+
+    import torch
+
+    from pathtracer_torch import kernels
+    from pathtracer_torch.kernels import cull
+
+    t_phase = time.perf_counter()
+    entries = build_configs(1.0, tmp_dir=tmp_dir)
+    runs = [(i, entry, {}) for i, entry in enumerate(entries, start=1)]
+    runs.append((4, entries[3], {"PT_CULL_SKIP": "1"}))
+    records, failed = [], []
+    for idx, (name, scene_fn, cfg, cam), env in runs:
+        t0 = time.perf_counter()
+        with knob_env(env):
+            scene = load_scene(scene_fn, DEVICE)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            rec = run_config(idx, name, scene, cfg, cam, frames=frames)
+            torch.cuda.synchronize()
+            counts = dict(kernels.LAUNCHES)
+        launches = {k: counts[k] for k in CULL_SWEEP_KERNELS}
+        log("configs", index=idx, env=env, **rec, launches=launches,
+            clusters=scene.clusters.n_clusters,
+            k4_gates=cull.gated(scene.clusters.n_clusters, 128),
+            peak_mem_bytes=torch.cuda.max_memory_allocated(),
+            seconds=time.perf_counter() - t0)
+        records.append(dict(rec, env=env, launches=launches))
+        why = []
+        if rec["accuracy_ok"] is not True:
+            why.append(f"golden gate {rec['inlier_rmse_vs_golden']}")
+        if not (math.isfinite(rec["ms_per_frame"])
+                and rec["ms_per_frame"] > 0):
+            why.append(f"ms_per_frame {rec['ms_per_frame']}")
+        if idx > 1:
+            need = ("tile_cull_skip" if env else "tile_cull",
+                    "sweep_closest", "sweep_occluded")
+            why += [f"launched no {k}" for k in need if launches[k] == 0]
+        if env and launches["tile_cull"]:     # config 4's clusters gate K4
+            why.append(f"launched K1 {launches['tile_cull']} times")
+        if why:
+            failed.append(f"config {idx} {env}: {', '.join(why)}")
+        del scene
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, *CONFIGS_CLI], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    lines = cli.stdout.strip().splitlines()
+    log("configs_cli", argv=list(CONFIGS_CLI), rc=cli.returncode,
+        lines=lines, seconds=time.perf_counter() - t0)
+    try:
+        line = json.loads(lines[0]) if len(lines) == 1 else {}
+    except ValueError:
+        line = {}
+    if cli.returncode != 0 or line.get("config") != entries[0][0]:
+        failed.append(f"the entry exited {cli.returncode} with "
+                      f"{lines}: {cli.stderr[-2000:]}")
+    log("configs_phase", runs=len(runs),
+        seconds=time.perf_counter() - t_phase)
+    if failed:
+        raise PhaseError("configs: " + "; ".join(failed))
+    return records
 
 
 def drive(label, scene, cfg, cam, frames, need, env=None, mesh=None):
@@ -1676,9 +1679,9 @@ def phase_variants(scene, cfg, cam, tmp_dir):
     base_film = r_b.film.accum.cpu().numpy()
     base_rays = base["rays_per_step"]
     del r_b
-    g_idx, g_scene_fn, g_cfg, g_cam = golden_configs(tmp_dir)[4]
-    golden = np.load(os.path.join(GOLDEN_DIR, f"config_{g_idx}_64.npz"))[
-        "img"]
+    _, g_scene_fn, g_cfg, g_cam = baseline(5)
+    g_cfg = probe_cfg(g_cfg)
+    golden = load_golden(5)
     g_host = g_scene_fn()
     g_default = build_scene_clusters(g_host).to(DEVICE)
     out = {"default": base}
@@ -1707,7 +1710,7 @@ def phase_variants(scene, cfg, cam, tmp_dir):
             with knob_env(env):
                 g_img = render_frame(
                     g_scene, dataclasses.replace(g_cfg, **fields),
-                    camera(g_cam).state(device=DEVICE), 0).cpu().numpy()
+                    g_cam.state(device=DEVICE), 0).cpu().numpy()
         if cull_kind == "frustum" and res["launches"]["tile_cull"]:
             raise PhaseError(f"variant {label}: K1 launched "
                              f"{res['launches']['tile_cull']} times")
@@ -2283,18 +2286,16 @@ def phase_config4(tmp_dir, frames):
     """BASELINE config 4: 1024x1024, 1 spp, frame_batch 8."""
     import torch
 
-    from pathtracer_torch.accel.cluster import build_scene_clusters
-    from pathtracer_torch.config import saturating_frame_batch
     from pathtracer_torch.kernels import cull
     from pathtracer_torch.render import Renderer
 
     t0 = time.perf_counter()
-    scene = build_scene_clusters(envmap_scene(tmp_dir)).to(DEVICE)
+    _, scene_fn, cfg, cam = baseline(4, tmp_dir)
+    scene = load_scene(scene_fn, DEVICE)
     log("config4_scene", tris=scene.n_tris, seconds=time.perf_counter() - t0)
-    f = saturating_frame_batch(CONFIG4_SIZE, CONFIG4_SIZE, 1)
-    cfg = config4_cfg(width=CONFIG4_SIZE, height=CONFIG4_SIZE, spp=1,
-                      frame_batch=f)
-    cam = camera(ENV_CAM)
+    f = cfg.frame_batch
+    if (cfg.width, cfg.height, cfg.spp, f) != (1024, 1024, 1, 8):
+        raise PhaseError(f"config 4 is not BASELINE's: {cfg}")
     base, r_b = drive("config4", scene, cfg, cam, frames, UNPRIMED_KERNELS)
     # K4 where its clusters gate at the default block width (128)
     k4 = cull.gated(scene.clusters.n_clusters, 128)
@@ -2338,17 +2339,12 @@ def phase_config4(tmp_dir, frames):
 
 
 def config3_denoise_setup():
-    from pathtracer_torch.accel.cluster import build_scene_clusters
-    from pathtracer_torch.config import RenderConfig, saturating_frame_batch
-    from pathtracer_torch.scene import procedural
-
-    scene = build_scene_clusters(procedural.cornell_box(
-        materials_suite=True).finalize(device="cpu")).to(DEVICE)
-    cfg = RenderConfig(width=CONFIG3_SIZE, height=CONFIG3_SIZE, spp=4,
-                       max_depth=6, spp_batch=True, denoise=True,
-                       frame_batch=saturating_frame_batch(
-                           CONFIG3_SIZE, CONFIG3_SIZE, 4))
-    return scene, cfg
+    """BASELINE config 3 with the denoiser: (scene, cfg, camera)."""
+    _, scene_fn, cfg, cam = baseline(3)
+    if (cfg.width, cfg.height, cfg.spp, cfg.frame_batch) != (512, 512, 4, 8):
+        raise PhaseError(f"config 3 is not BASELINE's: {cfg}")
+    return (load_scene(scene_fn, DEVICE),
+            dataclasses.replace(cfg, denoise=True), cam)
 
 
 def phase_config3():
@@ -2357,9 +2353,8 @@ def phase_config3():
     import numpy as np
     import torch
 
-    scene, cfg = config3_denoise_setup()
-    res, r = drive("config3_denoise", scene, cfg, camera(BOX_CAM), 1,
-                   UNPRIMED_KERNELS)
+    scene, cfg, cam = config3_denoise_setup()
+    res, r = drive("config3_denoise", scene, cfg, cam, 1, UNPRIMED_KERNELS)
     r.denoised()                                               # warm-up
     _, dn_ms = timed(r.denoised)
     disp = r.display()
@@ -2367,7 +2362,7 @@ def phase_config3():
     ok = (bool(np.isfinite(disp).all()) and disp.min() >= 0.0
           and disp.max() <= 1.0 and sorted(aovs) == ["albedo", "depth",
                                                       "normal"]
-          and all(a.shape == (CONFIG3_SIZE, CONFIG3_SIZE, 3)
+          and all(a.shape == (cfg.height, cfg.width, 3)
                   and np.isfinite(a).all()
                   for a in aovs.values()))
     log("config3_display", spp_accumulated=r.film.frame * cfg.spp,
@@ -2382,12 +2377,8 @@ def phase_config3():
 
 
 def config2_cfg(**kw):
-    from pathtracer_torch.config import RenderConfig, saturating_frame_batch
-
-    return RenderConfig(width=CONFIG2_SIZE, height=CONFIG2_SIZE, spp=1,
-                        max_depth=6, spp_batch=True,
-                        frame_batch=saturating_frame_batch(
-                            CONFIG2_SIZE, CONFIG2_SIZE, 1), **kw)
+    """BASELINE config 2's cfg (512x512, 1 spp, frame_batch 8) with kw."""
+    return dataclasses.replace(baseline(2)[2], **kw)
 
 
 def bvh_bound_ms(name, args, node_visits, leaf_tests):
@@ -2454,10 +2445,9 @@ def phase_lbvh():
 
     from pathtracer_torch.accel import lbvh
     from pathtracer_torch.kernels import traverse
-    from pathtracer_torch.scene import procedural
 
     t0 = time.perf_counter()
-    cpu_scene = procedural.bunny_like().finalize(device="cpu")
+    cpu_scene = baseline(2)[1]()
     scene = cpu_scene.to(DEVICE)
     t1 = time.perf_counter()
     v = scene.tri_vertices(torch.arange(scene.n_tris, device=DEVICE))
@@ -2553,11 +2543,9 @@ def phase_lbvh():
 def phase_config2(scene, frames):
     """BASELINE config 2 on the bvh route against the cluster route, and
     config 2's 64x64 golden gate on the bvh route."""
-    import numpy as np
     import torch
 
     from pathtracer_torch.accel.cluster import build_scene_clusters
-    from pathtracer_torch.config import RenderConfig
     from pathtracer_torch.render import render_frame
 
     cam = camera(BUNNY_CAM)
@@ -2584,11 +2572,9 @@ def phase_config2(scene, frames):
     if not gate["ok"]:
         raise PhaseError(f"config 2: bvh film differs from cluster: {gate}")
     del scene_cl, r_c
-    cfg = RenderConfig(width=64, height=64, spp=4, max_depth=6,
-                       spp_batch=True, intersector="bvh")
+    cfg = probe_cfg(config2_cfg(intersector="bvh"))
     img = render_frame(scene, cfg, cam.state(device=DEVICE), 0)
-    g = np.load(os.path.join(GOLDEN_DIR, "config_2_64.npz"))["img"]
-    res = robust_gate(img.cpu().numpy(), g)
+    res = robust_gate(img.cpu().numpy(), load_golden(2))
     log("golden", config=2, route="bvh", tris=scene.n_tris, **res)
     if not res["ok"]:
         raise PhaseError(f"config 2 golden gate failed on the bvh route: "
@@ -2639,11 +2625,9 @@ def phase_estimators(cpu_scene2, frames):
     import numpy as np
     import torch
 
-    from pathtracer_torch.accel.cluster import build_scene_clusters
-    from pathtracer_torch.config import RenderConfig, saturating_frame_batch
+    from pathtracer_torch.config import RenderConfig
     from pathtracer_torch.render import render_frame
     from pathtracer_torch.sampling import rng
-    from pathtracer_torch.scene import procedural
 
     g = np.random.default_rng(0)
     pix = torch.from_numpy(g.integers(0, 1 << 22, SOBOL_LANES))
@@ -2660,32 +2644,29 @@ def phase_estimators(cpu_scene2, frames):
         if not same:
             raise PhaseError("Sobol draws on the card differ from the CPU")
 
-    scene3 = build_scene_clusters(procedural.cornell_box(
-        materials_suite=True).finalize(device="cpu")).to(DEVICE)
-    kw3 = dict(width=CONFIG3_SIZE, height=CONFIG3_SIZE, spp=4, max_depth=6,
-               spp_batch=True, frame_batch=saturating_frame_batch(
-                   CONFIG3_SIZE, CONFIG3_SIZE, 4))
+    _, scene_fn3, cfg3, cam3 = baseline(3)
+    scene3 = load_scene(scene_fn3, DEVICE)
     runs = {}
     for sampler in ("pcg", "sobol", "sobol", "pcg"):
         res, _ = drive(f"config3_{sampler}", scene3,
-                       RenderConfig(sampler=sampler, **kw3),
-                       camera(BOX_CAM), frames, UNPRIMED_KERNELS)
+                       dataclasses.replace(cfg3, sampler=sampler), cam3,
+                       frames, UNPRIMED_KERNELS)
         runs.setdefault(sampler, []).append(res["ms_per_frame"])
     log("config3_sobol_vs_pcg", ms_sobol=runs["sobol"], ms_pcg=runs["pcg"])
     del scene3
 
-    scene1 = build_scene_clusters(procedural.cornell_box().finalize(
-        device="cpu")).to(DEVICE)
-    cfg1 = RenderConfig(width=QUIRKS_SIZE, height=QUIRKS_SIZE, spp=4,
-                        max_depth=6, reference_quirks=True)
+    # BASELINE config 1 (256x256, 4 spp) with the reference's quirks
+    _, scene_fn1, cfg1, cam1 = baseline(1)
+    scene1 = load_scene(scene_fn1, DEVICE)
+    cfg1 = dataclasses.replace(cfg1, reference_quirks=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    img = render_frame(scene1, cfg1, camera(BOX_CAM).state(device=DEVICE),
+    img = render_frame(scene1, cfg1, cam1.state(device=DEVICE),
                        0).cpu().numpy()
     golden = np.load(os.path.join(ROOT, "tests",
                                   "golden_cornell_quirks_256.npy"))
     res = quirks_golden_gate(img, golden)
-    log("quirks_golden", config=1, size=QUIRKS_SIZE,
+    log("quirks_golden", config=1, size=cfg1.width,
         seconds=time.perf_counter() - t0, **res)
     if not res["ok"]:
         raise PhaseError(f"config 1 quirks golden failed: {res}")
@@ -2858,10 +2839,10 @@ def _sharded_rank(rank, world, store, out_dir, frames):
         seconds["goldens"] = time.perf_counter() - t1
 
         t1 = time.perf_counter()
-        scene3, cfg3 = config3_denoise_setup()
+        scene3, cfg3, cam3 = config3_denoise_setup()
         with CollectiveLog() as coll:
             res, r = drive(f"sharded_config3_denoise_rank{rank}", scene3,
-                           cfg3, camera(BOX_CAM), 1, UNPRIMED_KERNELS,
+                           cfg3, cam3, 1, UNPRIMED_KERNELS,
                            mesh=tile_mesh)
         disp = r.display()
         out["config3"] = dict(res, **coll.summary(),
@@ -2989,21 +2970,11 @@ def main(argv=None):
                     help="timed frames after one warm-up frame, per run")
     args = ap.parse_args(argv)
 
-    try:
-        import torch
-    except ImportError:
-        print("chip_smoke: torch is not installed", file=sys.stderr)
-        return 2
+    import torch
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
-        return 1
-    sys.path.insert(0, ROOT)
-    try:
-        import pathtracer_torch  # noqa: F401
-    except ImportError as e:
-        print(f"chip_smoke: run from a checkout of the repository ({e})",
-              file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3015,7 +2986,7 @@ def main(argv=None):
             scene, cfg, cam = headline_setup()
             stats = phase_kernels(scene, cfg, cam)
             stats.update(phase_probes())
-            phase_goldens(tmp_dir)
+            phase_configs(tmp_dir, args.frames)
             base, skip, primed, r_b = phase_headline(scene, cfg, cam,
                                                      args.frames)
             variants = phase_variants(scene, cfg, cam, tmp_dir)

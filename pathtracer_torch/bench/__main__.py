@@ -16,10 +16,15 @@ BENCH_SAMPLER (pcg), BENCH_SPP_BATCH (1), BENCH_FRAME_BATCH (1),
 BENCH_UNTEXTURED_REF (1), BENCH_PAIR_METRICS (1). It runs on the card
 and raises without one; PT_PLATFORM=cpu runs it on the CPU (the kernels'
 plain versions: tiny sizes only). Unlike bench.py's, a failure of the
-pair metrics on the card raises instead of landing in the detail. Left
-out against bench.py, because
-they carry TPU figures: vs_design_ceiling_18mrays (a v5e ceiling) and
-the configs_sweep attachment (TPU results).
+pair metrics on the card raises instead of landing in the detail.
+
+As bench.py attaches run_configs.py's file, the detail carries the
+config sweep as `configs_sweep` when bench_out/configs_latest.json (the
+file `python -m pathtracer_torch.bench.configs --out
+bench_out/configs_latest.json` writes, see bench/configs.py) is there
+and was written on a card; a file written on the CPU is left out. Left
+out against bench.py, because it is a TPU figure:
+vs_design_ceiling_18mrays (a v5e ceiling).
 """
 
 from __future__ import annotations
@@ -40,6 +45,10 @@ from pathtracer_torch.scene.procedural import sponza_like
 # Mrays/s a chip: the north-star TARGET of BASELINE.json, not a
 # measurement of anything
 NORTH_STAR_MRAYS = 300.0
+# the config sweep's results file (bench/configs.py --out), in the checkout
+CONFIGS_SWEEP = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__)))), "bench_out",
+    "configs_latest.json")
 
 
 def bench_device(env=os.environ):
@@ -53,6 +62,28 @@ def bench_device(env=os.environ):
         raise RuntimeError("pathtracer_torch.bench: no CUDA device; set "
                            "PT_PLATFORM=cpu for a run on the CPU")
     return torch.device("cuda")
+
+
+def device_record(device):
+    """{"platform", "kind", "count"} of the device a result came from."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {"platform": "cpu", "kind": "cpu", "count": 1}
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
+            "count": torch.cuda.device_count()}
+
+
+def configs_sweep():
+    """The config sweep's results file, if there is one and a card wrote
+    it (bench.py:158-167 attaches its file whatever wrote it)."""
+    try:
+        with open(CONFIGS_SWEEP) as f:
+            sweep = json.load(f)
+    except (OSError, ValueError):
+        return None
+    if sweep.get("device", {}).get("platform") != "gpu":
+        return None
+    return sweep
 
 
 def _scene(env, tris, textured, device):
@@ -105,11 +136,7 @@ def run(env=os.environ):
         "resolution": [width, height],
         "spp": cfg.spp,
         "max_depth": cfg.max_depth,
-        "device": {"platform": "gpu" if device.type == "cuda" else "cpu",
-                   "kind": (torch.cuda.get_device_name(device)
-                            if device.type == "cuda" else "cpu"),
-                   "count": (torch.cuda.device_count()
-                             if device.type == "cuda" else 1)},
+        "device": device_record(device),
     }
     if untex_ref:
         # the untextured companion, its windows interleaved with the
@@ -147,6 +174,10 @@ def run(env=os.environ):
             if device.type == "cuda":
                 raise
             detail["pair_metrics"] = {"error": repr(e)}
+
+    sweep = configs_sweep()
+    if sweep is not None:
+        detail["configs_sweep"] = sweep
 
     return {
         "metric": "sponza_1080p_mrays_per_sec_per_chip",

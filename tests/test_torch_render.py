@@ -2,9 +2,9 @@
 renderer, the committed config 1/3 goldens, a jax-free run and the CLI.
 
 Images are judged with the robust gate of benchmarks/run_configs.py
-(inlier RMSE <= 5e-3, <= 2% winner flips, relative mean shift <= 1e-3):
-same-seed renders differ only by float arithmetic, which flips nearest
-hit winners at silhouettes.
+(inlier RMSE <= 5e-3, <= 2% winner flips, relative mean shift <= 1e-3),
+the port's bench/configs.robust_gate: same-seed renders differ only by
+float arithmetic, which flips nearest hit winners at silhouettes.
 """
 
 import dataclasses
@@ -25,6 +25,7 @@ from pathtracer.scene import procedural as jproc
 from pathtracer_torch import render as trender
 from pathtracer_torch.accel.cluster import accel_from_numpy
 from pathtracer_torch.accel.cluster import build_scene_clusters as tbuild
+from pathtracer_torch.bench.configs import robust_gate
 from pathtracer_torch.config import RenderConfig
 from pathtracer_torch.integrator.camera import Camera
 from pathtracer_torch.scene import procedural as tproc
@@ -43,24 +44,9 @@ def _cam(cls, spec):
     return c
 
 
-def robust_gate(img, golden):
-    """(inlier RMSE, flip fraction, relative mean shift) of img against
-    golden: [..., C] numpy, JAX or CPU torch arrays."""
-    img, golden = np.asarray(img), np.asarray(golden)
-    d = img - golden
-    ad = np.abs(d).max(-1)
-    inl = ad <= np.percentile(ad, 98.0)
-    rmse = float(np.sqrt(np.mean(d[inl] ** 2)))
-    flips = float((ad > 0.01).mean())
-    mean_rel = abs(float(img.mean()) - float(golden.mean())) / max(
-        abs(float(golden.mean())), 1e-6)
-    return rmse, flips, mean_rel
-
-
 def _assert_gate(img, golden):
-    rmse, flips, mean_rel = robust_gate(img, golden)
-    assert rmse <= 5e-3 and flips <= 0.02 and mean_rel <= 1e-3, \
-        (rmse, flips, mean_rel)
+    gate = robust_gate(img, golden)
+    assert gate["ok"], gate
 
 
 @pytest.fixture(scope="module")
@@ -202,6 +188,9 @@ def test_package_source_imports_no_jax():
                 assert "import pathtracer." not in src, f
                 assert "from pathtracer." not in src, f
                 assert "from pathtracer import" not in src, f
+                # benchmarks/ (run_configs.py and the probes) imports jax
+                assert "import benchmarks" not in src, f
+                assert "from benchmarks" not in src, f
 
 
 def test_app_renders_and_rejects_unported_flags(tmp_path):
