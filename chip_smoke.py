@@ -183,9 +183,8 @@ sys.path.insert(0, ROOT)
 # the five BASELINE configs, their cameras and the golden gate: one
 # definition, the config sweep's (python -m pathtracer_torch.bench.configs)
 from pathtracer_torch.bench.configs import (  # noqa: E402
-    BUNNY_CAM, ENV_CAM, MEAN_TOL, OUTLIER_TOL, RMSE_TOL, SPONZA_CAM,
-    build_configs, camera, load_golden, load_scene, probe_cfg, robust_gate,
-    run_config)
+    MEAN_TOL, OUTLIER_TOL, RMSE_TOL, SPONZA_CAM, build_configs, camera,
+    load_golden, load_scene, probe_cfg, robust_gate, run_config)
 
 DEVICE = "cuda"
 # the headline: bench.py's textured sponza_like at 1080p (never cut)
@@ -234,7 +233,9 @@ KERNELS = {
     "sweep_attrib": ("pathtracer_torch/csrc/probes.cu",
                      "benchmarks/sweep_attrib.py:56"),
 }
-KERNEL_IDS = {"tile_cull": "K1", "frustum_cull": "K7",
+KERNEL_IDS = {"tile_cull": "K1", "sweep_closest": "K2",
+              "sweep_occluded": "K3", "sweep_occluded_blocker": "K3b",
+              "tile_cull_skip": "K4", "frustum_cull": "K7",
               "first_cluster": "K8"}
 CLUSTER_KERNELS = ("tile_cull", "tile_cull_skip", "sweep_closest",
                    "sweep_occluded", "sweep_occluded_blocker",
@@ -295,10 +296,10 @@ class PhaseError(RuntimeError):
     pass
 
 
-def baseline(idx, tmp_dir=None):
+def baseline(idx):
     """BASELINE config idx at its published size: (name, scene_fn, cfg,
     camera) of bench/configs.build_configs(1.0)."""
-    return build_configs(1.0, tmp_dir=tmp_dir)[idx - 1]
+    return build_configs(1.0)[idx - 1]
 
 
 def card_line():
@@ -406,11 +407,11 @@ def cull_route(kind):
 
 
 def capture_chunks(scene, cfg, cam, frame_idx=0, prime=None, env=None,
-                   cull_kind="ray"):
+                   cull_kind="ray", stride=CHUNK_STRIDE):
     """Kernel arguments of one frame's primary, bounce-0 shadow and
     bounce-1 batches, recorded inside packet.py's chunk bodies while
-    render_frame_with_stats renders the frame: every CHUNK_STRIDE-th
-    chunk of each batch, at most CMP_CHUNKS of them, and each batch's
+    render_frame_with_stats renders the frame: every stride-th chunk of
+    each batch, at most CMP_CHUNKS of them, and each batch's
     first K8 call (the firstcluster key of a sorted batch). env: knobs
     set for the frame; cull_kind: the traversal calls' cull=.
     """
@@ -434,7 +435,7 @@ def capture_chunks(scene, cfg, cam, frame_idx=0, prime=None, env=None,
             cur["keep"] = False
             if b is not None:
                 b["chunks"] += 1
-                cur["keep"] = ((b["chunks"] - 1) % CHUNK_STRIDE == 0
+                cur["keep"] = ((b["chunks"] - 1) % stride == 0
                                and len(b[name]) < CMP_CHUNKS)
                 if cur["keep"]:
                     b[name].append((copies(a, (2, 3, 4)), dict(kw)))
@@ -559,6 +560,46 @@ def bound_ms(name, args, pair_tests, tile_rays=64):
         moved = (nbytes(st, si, rays, per_ray, accel.blocks_t)
                  + outs * per_ray.numel() * 4)
     return ops / PEAK_FP32_INSTR * 1e3, moved / PEAK_BYTES * 1e3, pairs
+
+
+def exact_vs_plain(name, label, out, ref):
+    """Raise PhaseError unless a cluster kernel's output is its plain
+    version's bit for bit (K2: the hit triangle first, then t, u and v);
+    returns the largest |out - ref| over the entries that hold a
+    distance (0.0, as bit-exactness makes it)."""
+    import torch
+
+    tag = f"{KERNEL_IDS[name]} {label}"
+    if name in ("tile_cull", "tile_cull_skip", "frustum_cull"):
+        if not torch.equal(out, ref):
+            raise PhaseError(f"{tag}: {int((out != ref).sum())} entries "
+                             "differ")
+        fin = torch.isfinite(out)
+        return (float((out[fin] - ref[fin]).abs().max())
+                if bool(fin.any()) else 0.0)
+    if name == "sweep_closest":
+        if not torch.equal(out[1], ref[1]):
+            raise PhaseError(f"{tag}: {int((out[1] != ref[1]).sum())} rays "
+                             "hit another triangle")
+        for x, y, nm in zip(out[::2] + out[3:], ref[::2] + ref[3:],
+                            ("t", "u", "v")):
+            if not torch.equal(x, y):
+                raise PhaseError(f"{tag}: {nm} not bit-exact "
+                                 f"(max {float((x - y).abs().max())})")
+        hit = out[1] >= 0
+        return (float((out[0][hit] - ref[0][hit]).abs().max())
+                if bool(hit.any()) else 0.0)
+    if name == "sweep_occluded":
+        if not torch.equal(out, ref):
+            raise PhaseError(f"{tag}: {int((out != ref).sum())} rays differ")
+        return 0.0
+    names = (("id", "t") if name == "first_cluster"
+             else ("blocked", "btri"))            # sweep_occluded_blocker
+    for x, y, nm in zip(out, ref, names):
+        if not torch.equal(x, y):
+            raise PhaseError(f"{tag}: {nm} differs on "
+                             f"{int((x != y).sum())} rays")
+    return 0.0
 
 
 def phase_kernels(scene, cfg, cam):
@@ -748,46 +789,13 @@ def phase_kernels(scene, cfg, cam):
             cull_chunks.append((label, args, kw, ms))
         pair_tests = torch.zeros((), dtype=torch.int64, device=DEVICE)
         ref, ms_p = timed(lambda: run_plain(name, args, kw, pair_tests))
-        if name in ("tile_cull", "frustum_cull"):
-            if not torch.equal(out, ref):
-                bad = int((out != ref).sum())
-                raise PhaseError(f"{KERNEL_IDS[name]} {label}: {bad} "
-                                 "entries differ")
-            fin = torch.isfinite(out)
-            err = float((out[fin] - ref[fin]).abs().max()) \
-                if bool(fin.any()) else 0.0
-        elif name == "first_cluster":
-            for x, y, nm in zip(out, ref, ("id", "t")):
-                if not torch.equal(x, y):
-                    raise PhaseError(f"K8 {label}: {nm} differs on "
-                                     f"{int((x != y).sum())} rays")
-            err = 0.0
+        err = exact_vs_plain(name, label, out, ref)
+        if name == "first_cluster":
             log("k8_call", batch=label, rays=out[0].numel(),
                 unparked=int((args[2][:, 0] < 1e29).sum()),
                 clusters=args[0].shape[0],
                 entered=int(torch.isfinite(out[1]).sum()))
-        elif name == "sweep_closest":
-            if not torch.equal(out[1], ref[1]):
-                bad = int((out[1] != ref[1]).sum())
-                raise PhaseError(f"K2 {label}: {bad} rays hit another "
-                                 "triangle")
-            for x, y, nm in zip(out[::2] + out[3:], ref[::2] + ref[3:],
-                                ("t", "u", "v")):
-                if not torch.equal(x, y):
-                    raise PhaseError(f"K2 {label}: {nm} not bit-exact "
-                                     f"(max {float((x - y).abs().max())})")
-            hit = out[1] >= 0
-            err = float((out[0][hit] - ref[0][hit]).abs().max()) \
-                if bool(hit.any()) else 0.0
-        elif name == "sweep_occluded":
-            err = float(int((out != ref).sum()))
-            if err:
-                raise PhaseError(f"K3 {label}: {int(err)} rays differ")
-        else:
-            for x, y, nm in zip(out, ref, ("blocked", "btri")):
-                if not torch.equal(x, y):
-                    raise PhaseError(f"K3b {label}: {nm} differs on "
-                                     f"{int((x != y).sum())} rays")
+        elif name == "sweep_occluded_blocker":
             k3 = sweep.sweep_occluded(*args)
             if not torch.equal(k3, out[0]):
                 raise PhaseError(f"K3b {label}: blocked != K3's")
@@ -795,7 +803,6 @@ def phase_kernels(scene, cfg, cam):
             log("k3b_chunk", batch=label, rays=out[0].numel(),
                 blocked=int(out[0].sum()), hints_verified=hints,
                 hints_on_edges=edge)
-            err = 0.0
         if record:
             record_stats(into[name], name, args, ms, ms_p, pair_tests, err,
                          kw.get("tile_rays", 64))
@@ -1385,41 +1392,98 @@ CONFIGS_CLI = ("-m", "pathtracer_torch.bench.configs", "--configs", "1",
                "--scale", "0.25", "--frames", "1", "--no-check")
 
 
+def hold_chunks(label, scene, cfg, cam, env):
+    """One frame of a config at its full size, traced (capture_chunks),
+    and its recorded K1-K3 chunks held against their plain versions bit
+    for bit; where env sets PT_CULL_SKIP=1 and the clusters gate, K4 on
+    the K1 chunks in K1's place, held against its plain version and
+    K1's. Returns {kernel: chunks held}. Its launches are not the
+    path's: the configs phase reads the counts before."""
+    from pathtracer_torch.kernels import cull, packet, sweep
+
+    blk = SKIP_BLKS[0]
+    k4 = (env.get("PT_CULL_SKIP", "0") != "0"
+          and cull.gated(scene.clusters.n_clusters, blk))
+    # the CMP_CHUNKS recorded chunks spread over a primary batch of
+    # width x height x spp rays (chunks of CHUNK_TILES 64-ray tiles)
+    stride = max(1, cfg.width * cfg.height * cfg.spp
+                 // (CMP_CHUNKS * packet.CHUNK_TILES * 64))
+    held = dict.fromkeys(CULL_SWEEP_KERNELS, 0)
+    for b in capture_chunks(scene, cfg, cam, env=env, stride=stride):
+        where = f"{label} {b['label']}"
+        for args, kw in b["tile_cull"]:
+            k1 = cull.tile_cull_plain(*args, **kw)
+            if k4:
+                out = cull.tile_cull_skip(*args, **kw, blk=blk)
+                exact_vs_plain("tile_cull_skip", where, out,
+                               cull.tile_cull_skip_plain(*args, **kw,
+                                                         blk=blk))
+                exact_vs_plain("tile_cull_skip", where + " vs K1", out, k1)
+                held["tile_cull_skip"] += 1
+            else:
+                exact_vs_plain("tile_cull", where,
+                               cull.tile_cull(*args, **kw), k1)
+                held["tile_cull"] += 1
+        for args, kw in b["sweep_closest"]:
+            exact_vs_plain("sweep_closest", where,
+                           sweep.sweep_closest(*args, **kw),
+                           sweep.sweep_closest_plain(*plain_args(args)))
+            held["sweep_closest"] += 1
+        for args, kw in b["sweep_occluded"]:
+            exact_vs_plain("sweep_occluded", where,
+                           sweep.sweep_occluded(*args, **kw),
+                           sweep.sweep_occluded_plain(*plain_args(args)))
+            held["sweep_occluded"] += 1
+    return held
+
+
 def phase_configs(tmp_dir, frames):
     """The config sweep (bench/configs.py) at BASELINE's sizes: configs
     1-5 through run_config (3 warm-up steps, `frames` timed steps, the
-    64x64 golden probe), then config 4 under PT_CULL_SKIP=1, the launch
-    counts set to 0 just before each run and read just after; then the
-    module entry once in a subprocess. Configs 2-5 take the cluster
-    route (K1-K3; K4 in place of K1 where PT_CULL_SKIP=1 gates), config
-    1 (12 triangles) the brute route. Returns the records."""
+    64x64 golden probe), then config 4 on its scene again under
+    PT_CULL_SKIP=1, the launch counts set to 0 just before each run and
+    read just after. After each run of configs 2-5, one full-size frame's
+    K1-K3 (K4) chunks are held against their plain versions
+    (hold_chunks), and config 4's frame 0 under PT_CULL_SKIP=1 against
+    its frame 0 on K1, with its ray counts. Then the module entry once in
+    a subprocess. Configs 2-5 take the cluster route (K1-K3; K4 in place
+    of K1 where PT_CULL_SKIP=1 gates), config 1 (12 triangles) the brute
+    route. Returns (the records, config 4's (scene, cfg, camera))."""
     import math
 
     import torch
 
     from pathtracer_torch import kernels
     from pathtracer_torch.kernels import cull
+    from pathtracer_torch.render import render_frame
 
     t_phase = time.perf_counter()
     entries = build_configs(1.0, tmp_dir=tmp_dir)
     runs = [(i, entry, {}) for i, entry in enumerate(entries, start=1)]
     runs.append((4, entries[3], {"PT_CULL_SKIP": "1"}))
-    records, failed = [], []
+    records, failed, frame0, scene4 = [], [], {}, None
     for idx, (name, scene_fn, cfg, cam), env in runs:
         t0 = time.perf_counter()
+        scene = scene4 if env else load_scene(scene_fn, DEVICE)
+        k4_gates = cull.gated(scene.clusters.n_clusters, SKIP_BLKS[0])
         with knob_env(env):
-            scene = load_scene(scene_fn, DEVICE)
             torch.cuda.synchronize()
             kernels.reset_launch_counts()
             torch.cuda.reset_peak_memory_stats()
             rec = run_config(idx, name, scene, cfg, cam, frames=frames)
             torch.cuda.synchronize()
             counts = dict(kernels.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            if idx == 4:     # frame 0 of each cull, for the A/B below
+                frame0[bool(env)] = (render_frame(
+                    scene, cfg, cam.state(device=DEVICE), 0).cpu().numpy(),
+                    rec["rays_per_frame"])
         launches = {k: counts[k] for k in CULL_SWEEP_KERNELS}
+        held = (hold_chunks(f"config {idx}", scene, cfg, cam, env)
+                if idx > 1 else {})
         log("configs", index=idx, env=env, **rec, launches=launches,
-            clusters=scene.clusters.n_clusters,
-            k4_gates=cull.gated(scene.clusters.n_clusters, 128),
-            peak_mem_bytes=torch.cuda.max_memory_allocated(),
+            chunks_held=held, clusters=scene.clusters.n_clusters,
+            k4_gates=k4_gates, peak_mem_bytes=peak,
             seconds=time.perf_counter() - t0)
         records.append(dict(rec, env=env, launches=launches))
         why = []
@@ -1429,15 +1493,25 @@ def phase_configs(tmp_dir, frames):
                 and rec["ms_per_frame"] > 0):
             why.append(f"ms_per_frame {rec['ms_per_frame']}")
         if idx > 1:
-            need = ("tile_cull_skip" if env else "tile_cull",
+            need = ("tile_cull_skip" if env and k4_gates else "tile_cull",
                     "sweep_closest", "sweep_occluded")
             why += [f"launched no {k}" for k in need if launches[k] == 0]
-        if env and launches["tile_cull"]:     # config 4's clusters gate K4
+            why += [f"held no {k} chunk" for k in need if held[k] == 0]
+        if env and k4_gates and launches["tile_cull"]:
             why.append(f"launched K1 {launches['tile_cull']} times")
         if why:
             failed.append(f"config {idx} {env}: {', '.join(why)}")
+        if idx == 4:
+            scene4 = scene
         del scene
         torch.cuda.empty_cache()
+
+    (k1_img, k1_rays), (k4_img, k4_rays) = frame0[False], frame0[True]
+    gate = robust_gate(k4_img, k1_img)
+    log("configs_cull_skip_ab", rays=k4_rays, k1_rays=k1_rays, **gate)
+    if not gate["ok"] or k4_rays != k1_rays:
+        failed.append(f"config 4 under PT_CULL_SKIP=1 renders otherwise "
+                      f"than on K1: {gate}, rays {k4_rays} vs {k1_rays}")
 
     t0 = time.perf_counter()
     cli = subprocess.run([sys.executable, *CONFIGS_CLI], cwd=ROOT,
@@ -1456,7 +1530,7 @@ def phase_configs(tmp_dir, frames):
         seconds=time.perf_counter() - t_phase)
     if failed:
         raise PhaseError("configs: " + "; ".join(failed))
-    return records
+    return records, (scene4,) + entries[3][2:]
 
 
 def drive(label, scene, cfg, cam, frames, need, env=None, mesh=None):
@@ -2282,38 +2356,25 @@ def phase_viewer(lscene, cfg, glb, tmp_dir):
     return res
 
 
-def phase_config4(tmp_dir, frames):
-    """BASELINE config 4: 1024x1024, 1 spp, frame_batch 8."""
+def phase_config4(scene, cfg, cam, frames):
+    """BASELINE config 4 (1024x1024, 1 spp, frame_batch 8) on the configs
+    phase's scene, whose runs drove it on K1 and on K4: primed, and one
+    8-frame step against 8 single-frame steps."""
     import torch
 
-    from pathtracer_torch.kernels import cull
     from pathtracer_torch.render import Renderer
 
-    t0 = time.perf_counter()
-    _, scene_fn, cfg, cam = baseline(4, tmp_dir)
-    scene = load_scene(scene_fn, DEVICE)
-    log("config4_scene", tris=scene.n_tris, seconds=time.perf_counter() - t0)
     f = cfg.frame_batch
     if (cfg.width, cfg.height, cfg.spp, f) != (1024, 1024, 1, 8):
         raise PhaseError(f"config 4 is not BASELINE's: {cfg}")
-    base, r_b = drive("config4", scene, cfg, cam, frames, UNPRIMED_KERNELS)
-    # K4 where its clusters gate at the default block width (128)
-    k4 = cull.gated(scene.clusters.n_clusters, 128)
-    skip, r_s = drive("config4_cull_skip", scene, cfg, cam, frames,
-                      SKIP_KERNELS if k4 else UNPRIMED_KERNELS,
-                      env={"PT_CULL_SKIP": "1"})
-    if k4 and skip["launches"]["tile_cull"]:
-        raise PhaseError("config 4 with PT_CULL_SKIP=1 launched K1 "
-                         f"{skip['launches']['tile_cull']} times")
-    same_render("config4_cull_skip_ab", skip, r_s, base, r_b)
     primed, _ = drive("config4_primed", scene,
                       dataclasses.replace(cfg, primary_priming=True), cam,
                       frames, PRIMED_KERNELS)
     if not primed["hinted_pixels"][2] > 0:
         raise PhaseError("config 4 primed: no env-NEE blocker hint")
     # one F-frame step against F single-frame steps: the same samples
-    single = Renderer(scene, dataclasses.replace(cfg, frame_batch=1),
-                      camera(ENV_CAM), device=DEVICE)
+    single = Renderer(scene, dataclasses.replace(cfg, frame_batch=1), cam,
+                      device=DEVICE)
     rays_single = 0
     t0 = time.perf_counter()
     for _ in range(f):
@@ -2321,7 +2382,7 @@ def phase_config4(tmp_dir, frames):
         rays_single += int(single.last_rays)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    batched = Renderer(scene, cfg, camera(ENV_CAM), device=DEVICE)
+    batched = Renderer(scene, cfg, cam, device=DEVICE)
     batched.step()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -2376,9 +2437,11 @@ def phase_config3():
     return res, disp
 
 
-def config2_cfg(**kw):
-    """BASELINE config 2's cfg (512x512, 1 spp, frame_batch 8) with kw."""
-    return dataclasses.replace(baseline(2)[2], **kw)
+def config2_setup(**kw):
+    """BASELINE config 2's cfg (512x512, 1 spp, frame_batch 8) with kw,
+    and its camera."""
+    _, _, cfg, cam = baseline(2)
+    return dataclasses.replace(cfg, **kw), cam
 
 
 def bvh_bound_ms(name, args, node_visits, leaf_tests):
@@ -2471,8 +2534,8 @@ def phase_lbvh():
                          f"{diff}")
     scene = scene.with_bvh(bvh)
     cpu_scene = cpu_scene.with_bvh(cpu_bvh)
-    cfg = config2_cfg(intersector="bvh")
-    calls = capture_bvh_calls(scene, cfg, camera(BUNNY_CAM))
+    cfg, cam = config2_setup(intersector="bvh")
+    calls = capture_bvh_calls(scene, cfg, cam)
     stats = {k: {"ms": [], "plain_ms": [], "ops_ms": [], "bytes_ms": [],
                  "visit_bytes_ms": [], "bound_ms": [], "node_visits": [],
                  "leaf_tests": [], "calls": 0, "max_abs_err": 0.0}
@@ -2548,9 +2611,8 @@ def phase_config2(scene, frames):
     from pathtracer_torch.accel.cluster import build_scene_clusters
     from pathtracer_torch.render import render_frame
 
-    cam = camera(BUNNY_CAM)
-    bvh, r_b = drive("config2_bvh", scene, config2_cfg(intersector="bvh"),
-                     cam, frames, BVH_KERNELS)
+    cfg, cam = config2_setup(intersector="bvh")
+    bvh, r_b = drive("config2_bvh", scene, cfg, cam, frames, BVH_KERNELS)
     stray = {k: bvh["launches"][k] for k in CLUSTER_KERNELS
              if bvh["launches"][k]}
     if stray:
@@ -2561,8 +2623,8 @@ def phase_config2(scene, frames):
     log("config2_clusters", clusters=scene_cl.clusters.n_clusters,
         seconds=time.perf_counter() - t0)
     cl, r_c = drive("config2_cluster", scene_cl,
-                    config2_cfg(intersector="cluster"), cam, frames,
-                    UNPRIMED_KERNELS)
+                    dataclasses.replace(cfg, intersector="cluster"), cam,
+                    frames, UNPRIMED_KERNELS)
     gate = robust_gate(r_b.film.accum.cpu().numpy(),
                        r_c.film.accum.cpu().numpy())
     log("config2_bvh_vs_cluster", ms_bvh=bvh["ms_per_frame"],
@@ -2572,8 +2634,7 @@ def phase_config2(scene, frames):
     if not gate["ok"]:
         raise PhaseError(f"config 2: bvh film differs from cluster: {gate}")
     del scene_cl, r_c
-    cfg = probe_cfg(config2_cfg(intersector="bvh"))
-    img = render_frame(scene, cfg, cam.state(device=DEVICE), 0)
+    img = render_frame(scene, probe_cfg(cfg), cam.state(device=DEVICE), 0)
     res = robust_gate(img.cpu().numpy(), load_golden(2))
     log("golden", config=2, route="bvh", tris=scene.n_tris, **res)
     if not res["ok"]:
@@ -2673,7 +2734,7 @@ def phase_estimators(cpu_scene2, frames):
 
     cfg_h = RenderConfig(width=64, height=64, spp=4, max_depth=6,
                          spp_batch=True, intersector="bvh", sky="hosek")
-    cam = camera(BUNNY_CAM)
+    cam = baseline(2)[3]
     t0 = time.perf_counter()
     card = render_frame(cpu_scene2.to(DEVICE), cfg_h,
                         cam.state(device=DEVICE), 0).cpu().numpy()
@@ -2986,7 +3047,7 @@ def main(argv=None):
             scene, cfg, cam = headline_setup()
             stats = phase_kernels(scene, cfg, cam)
             stats.update(phase_probes())
-            phase_configs(tmp_dir, args.frames)
+            _, config4 = phase_configs(tmp_dir, args.frames)
             base, skip, primed, r_b = phase_headline(scene, cfg, cam,
                                                      args.frames)
             variants = phase_variants(scene, cfg, cam, tmp_dir)
@@ -2998,7 +3059,8 @@ def main(argv=None):
             phase_images(cfg, cam, args.frames, tmp_dir)
             ref_film = r_b.film.accum.cpu().numpy()
             del lscene, r_b
-            phase_config4(tmp_dir, args.frames)
+            phase_config4(*config4, args.frames)
+            del config4
             _, ref_display = phase_config3()
             scene2, cpu_scene2, bvh_stats = phase_lbvh()
             stats.update(bvh_stats)

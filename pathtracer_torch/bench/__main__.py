@@ -21,8 +21,10 @@ pair metrics on the card raises instead of landing in the detail.
 As bench.py attaches run_configs.py's file, the detail carries the
 config sweep as `configs_sweep` when bench_out/configs_latest.json (the
 file `python -m pathtracer_torch.bench.configs --out
-bench_out/configs_latest.json` writes, see bench/configs.py) is there
-and was written on a card; a file written on the CPU is left out. Left
+bench_out/configs_latest.json` writes, see bench/configs.py) is there,
+was written on a card and names this tree's sources (harness.source_hash);
+a card's file from other sources goes in as `configs_sweep_stale`, and a
+file written on the CPU is left out. Left
 out against bench.py, because it is a TPU figure:
 vs_design_ceiling_18mrays (a v5e ceiling).
 """
@@ -34,10 +36,10 @@ import os
 import sys
 import tempfile
 
-import torch
-
 from pathtracer_torch.accel.cluster import build_scene_clusters
-from pathtracer_torch.bench.harness import bench_interleaved, bench_scene
+from pathtracer_torch.bench.harness import (bench_device, bench_interleaved,
+                                           bench_scene, device_record,
+                                           source_hash)
 from pathtracer_torch.config import RenderConfig
 from pathtracer_torch.integrator.camera import Camera
 from pathtracer_torch.scene.procedural import sponza_like
@@ -51,31 +53,12 @@ CONFIGS_SWEEP = os.path.join(os.path.dirname(os.path.dirname(
     "configs_latest.json")
 
 
-def bench_device(env=os.environ):
-    """cuda unless PT_PLATFORM=cpu; raises without a card."""
-    platform = env.get("PT_PLATFORM", "cuda")
-    if platform == "cpu":
-        return torch.device("cpu")
-    if platform not in ("cuda", "gpu"):
-        raise ValueError(f"PT_PLATFORM={platform!r}: cpu or cuda")
-    if not torch.cuda.is_available():
-        raise RuntimeError("pathtracer_torch.bench: no CUDA device; set "
-                           "PT_PLATFORM=cpu for a run on the CPU")
-    return torch.device("cuda")
-
-
-def device_record(device):
-    """{"platform", "kind", "count"} of the device a result came from."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return {"platform": "cpu", "kind": "cpu", "count": 1}
-    return {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
-            "count": torch.cuda.device_count()}
-
-
 def configs_sweep():
-    """The config sweep's results file, if there is one and a card wrote
-    it (bench.py:158-167 attaches its file whatever wrote it)."""
+    """(key, the config sweep's results file) if there is one and a card
+    wrote it: key "configs_sweep" when the file names this tree's
+    source_hash, else "configs_sweep_stale"; None for no file or a file
+    written on the CPU (bench.py:158-167 attaches its file whatever
+    wrote it, and whenever)."""
     try:
         with open(CONFIGS_SWEEP) as f:
             sweep = json.load(f)
@@ -83,7 +66,9 @@ def configs_sweep():
         return None
     if sweep.get("device", {}).get("platform") != "gpu":
         return None
-    return sweep
+    if sweep.get("source") != source_hash():
+        return "configs_sweep_stale", sweep
+    return "configs_sweep", sweep
 
 
 def _scene(env, tris, textured, device):
@@ -177,7 +162,7 @@ def run(env=os.environ):
 
     sweep = configs_sweep()
     if sweep is not None:
-        detail["configs_sweep"] = sweep
+        detail[sweep[0]] = sweep[1]
 
     return {
         "metric": "sponza_1080p_mrays_per_sec_per_chip",

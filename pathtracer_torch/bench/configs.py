@@ -36,8 +36,8 @@ import sys
 import numpy as np
 
 from pathtracer_torch.accel.cluster import build_scene_clusters
-from pathtracer_torch.bench.__main__ import bench_device, device_record
-from pathtracer_torch.bench.harness import bench_scene
+from pathtracer_torch.bench.harness import (bench_device, bench_scene,
+                                           device_record, source_hash)
 from pathtracer_torch.config import RenderConfig, saturating_frame_batch
 from pathtracer_torch.integrator.camera import Camera
 from pathtracer_torch.render import render_frame
@@ -250,6 +250,7 @@ def main(argv=None):
             json.dump({"date": datetime.date.today().isoformat(),
                        "scale": args.scale, "frames": args.frames,
                        "device": device_record(device),
+                       "source": source_hash(),
                        "configs": results}, f, indent=1)
     return 0
 

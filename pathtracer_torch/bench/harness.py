@@ -12,6 +12,8 @@ frame's work runs on into the next one's timing.
 
 from __future__ import annotations
 
+import hashlib
+import os
 import statistics
 import time
 from dataclasses import dataclass, field
@@ -24,6 +26,50 @@ from pathtracer_torch.integrator.camera import Camera
 from pathtracer_torch.render import (_initial_prime, render_frame_batched,
                                      render_frame_with_stats)
 from pathtracer_torch.scene.types import Scene
+
+
+# the package's own directory: its sources make source_hash()
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE_SUFFIXES = (".py", ".cu", ".cuh", ".cpp", ".h")
+
+
+def bench_device(env=os.environ):
+    """cuda unless PT_PLATFORM=cpu; raises without a card."""
+    platform = env.get("PT_PLATFORM", "cuda")
+    if platform == "cpu":
+        return torch.device("cpu")
+    if platform not in ("cuda", "gpu"):
+        raise ValueError(f"PT_PLATFORM={platform!r}: cpu or cuda")
+    if not torch.cuda.is_available():
+        raise RuntimeError("pathtracer_torch.bench: no CUDA device; set "
+                           "PT_PLATFORM=cpu for a run on the CPU")
+    return torch.device("cuda")
+
+
+def device_record(device):
+    """{"platform", "kind", "count"} of the device a result came from."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {"platform": "cpu", "kind": "cpu", "count": 1}
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
+            "count": torch.cuda.device_count()}
+
+
+def source_hash(root=PACKAGE_DIR):
+    """sha256 of the package's sources (path and bytes of every .py and
+    CUDA/C++ file, build outputs and caches left out): names the tree a
+    results file was written by."""
+    h = hashlib.sha256()
+    for top, dirs, files in os.walk(root):
+        dirs[:] = sorted(d for d in dirs
+                         if d not in ("_build", "__pycache__"))
+        for name in sorted(files):
+            if name.endswith(SOURCE_SUFFIXES):
+                path = os.path.join(top, name)
+                h.update(os.path.relpath(path, root).encode() + b"\0")
+                with open(path, "rb") as f:
+                    h.update(f.read())
+    return h.hexdigest()
 
 
 @dataclass

@@ -13,7 +13,8 @@ benchmarks/run_configs.py.
   frame batch and the device, and passes the golden gate; it refuses
   --write-goldens and raises without a card;
 - python -m pathtracer_torch.bench attaches the sweep's file only when
-  a card wrote it.
+  a card wrote it, and marks it stale unless it names this tree's
+  sources.
 
 No assertion reads a time or a rate.
 """
@@ -232,8 +233,10 @@ def test_entry_on_cpu_prints_run_configs_keys(monkeypatch, tmp_path,
         assert rec["resolution"] == [16, 16] and rec["spp"] == 4
         assert rec["frame_batch"] == 1 and rec["device"] == cpu
     saved = json.loads(out.read_text())
-    assert set(saved) == {"date", "scale", "frames", "device", "configs"}
+    assert set(saved) == {"date", "scale", "frames", "device", "source",
+                          "configs"}
     assert saved["configs"] == lines and saved["device"] == cpu
+    assert saved["source"] == harness.source_hash()
     assert (saved["scale"], saved["frames"]) == (0.03125, 1)
 
 
@@ -250,13 +253,22 @@ def test_entry_refusals(monkeypatch):
         configs.main(["--configs", "1"])
 
 
-@pytest.mark.parametrize("platform", ["gpu", "cpu"])
-def test_bench_attaches_a_cards_sweep(platform, monkeypatch, tmp_path):
+@pytest.mark.parametrize("platform,source,key", [
+    pytest.param("gpu", "this", "configs_sweep", id="gpu"),
+    pytest.param("cpu", "this", None, id="cpu"),
+    pytest.param("gpu", "other", "configs_sweep_stale", id="gpu-stale"),
+])
+def test_bench_attaches_a_cards_sweep(platform, source, key, monkeypatch,
+                                      tmp_path):
     """The bench entry's detail carries the sweep's file as
-    configs_sweep when a card wrote it, and leaves a CPU file out. The
-    harness step is a stand-in: only the attachment is under test."""
+    configs_sweep when a card wrote it from this tree's sources, as
+    configs_sweep_stale when a card wrote it from other sources, and
+    leaves a CPU file out. The harness step is a stand-in: only the
+    attachment is under test."""
     sweep = {"date": "2026-01-01", "scale": 1.0, "frames": 4,
              "device": {"platform": platform, "kind": "x", "count": 1},
+             "source": (harness.source_hash() if source == "this"
+                        else "0" * 64),
              "configs": [{"config": "cornell_256_4spp"}]}
     path = tmp_path / "configs_latest.json"
     path.write_text(json.dumps(sweep))
@@ -273,9 +285,29 @@ def test_bench_attaches_a_cards_sweep(platform, monkeypatch, tmp_path):
                BENCH_TRIS="3000", BENCH_FRAMES="2", BENCH_SPP="1",
                BENCH_UNTEXTURED_REF="0", BENCH_PAIR_METRICS="0")
     detail = entry.run(env)["detail"]
-    if platform == "gpu":
-        assert detail["configs_sweep"] == sweep
-    else:
-        assert "configs_sweep" not in detail
+    attached = {k for k in ("configs_sweep", "configs_sweep_stale")
+                if k in detail}
+    assert attached == ({key} if key else set())
+    if key:
+        assert detail[key] == sweep
     monkeypatch.setattr(entry, "CONFIGS_SWEEP", str(tmp_path / "absent"))
     assert entry.configs_sweep() is None
+
+
+def test_source_hash_names_the_sources(tmp_path):
+    """source_hash changes with a source's bytes and name, and not with
+    build outputs or caches."""
+    (tmp_path / "a.py").write_text("x = 1\n")
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "k.cu").write_text("// k\n")
+    first = harness.source_hash(tmp_path)
+    for skipped in ("_build", "__pycache__"):
+        (tmp_path / skipped).mkdir()
+        (tmp_path / skipped / "k.py").write_text("built\n")
+    (tmp_path / "notes.txt").write_text("not a source\n")
+    assert harness.source_hash(tmp_path) == first
+    (tmp_path / "csrc" / "k.cu").write_text("// k2\n")
+    second = harness.source_hash(tmp_path)
+    assert second != first
+    (tmp_path / "csrc" / "k.cu").rename(tmp_path / "csrc" / "j.cu")
+    assert harness.source_hash(tmp_path) not in (first, second)
