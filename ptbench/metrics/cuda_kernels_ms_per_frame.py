@@ -1,0 +1,10 @@
+"""cuda_kernels_ms_per_frame: device time of the program's hand-written
+kernels (every __global__ function of its .cu sources, by name), per
+frame of the profiled steps, in ms."""
+
+
+def read(rec):
+    p = rec.profile
+    if not p or p["busy_s"] <= 0 or not p["frames"]:
+        return None
+    return 1e3 * p["by_kind"]["handwritten"] / p["frames"]
