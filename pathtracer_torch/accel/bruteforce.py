@@ -10,6 +10,7 @@ the shadow-priming hint).
 
 from __future__ import annotations
 
+from pathtracer_torch import tracing
 from pathtracer_torch.kernels import intersect as isect
 
 
@@ -18,10 +19,12 @@ def make_brute_intersectors(v0, v1, v2):
     f32 [T, 3]."""
 
     def intersect_fn(o, d, t_min, t_max, primary=False):
-        return isect.intersect_brute(o, d, v0, v1, v2, t_min, t_max)
+        with tracing.span("pt.traverse.closest"):
+            return isect.intersect_brute(o, d, v0, v1, v2, t_min, t_max)
 
     def occluded_fn(o, d, t_max, primary=False, want_blocker=False):
-        return isect.occluded_brute(o, d, t_max, v0, v1, v2,
-                                    want_blocker=want_blocker)
+        with tracing.span("pt.traverse.occluded"):
+            return isect.occluded_brute(o, d, t_max, v0, v1, v2,
+                                        want_blocker=want_blocker)
 
     return intersect_fn, occluded_fn

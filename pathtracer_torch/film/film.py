@@ -16,6 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from pathtracer_torch import tracing
+
 
 @dataclasses.dataclass
 class Film:
@@ -33,14 +35,16 @@ def new_film(width: int, height: int, *, device) -> Film:
 def accumulate(film: Film, frame_radiance) -> Film:
     """One progressive step: raygen.rgen:300-302 recurrence in f32."""
     f = float(film.frame)
-    accum = (film.accum * f + frame_radiance) / (f + 1.0)
+    with tracing.span("pt.film"):
+        accum = (film.accum * f + frame_radiance) / (f + 1.0)
     return Film(accum=accum, frame=film.frame + 1)
 
 
 def accumulate_many(film: Film, radiance_sum, k: int) -> Film:
     """Fold k frames' summed radiance in one step: (accum*f + sum)/(f+k)."""
     f = float(film.frame)
-    accum = (film.accum * f + radiance_sum) / (f + float(k))
+    with tracing.span("pt.film"):
+        accum = (film.accum * f + radiance_sum) / (f + float(k))
     return Film(accum=accum, frame=film.frame + int(k))
 
 

@@ -14,6 +14,7 @@ import math
 import numpy as np
 import torch
 
+from pathtracer_torch import tracing
 from pathtracer_torch.sampling import rng
 from pathtracer_torch.utils import vmath
 
@@ -84,8 +85,8 @@ class Camera:
         self.moved = True
 
     def state(self, *, device) -> CameraState:
-        t = lambda a: torch.tensor(np.asarray(a, np.float32),  # noqa: E731
-                                   device=device)
+        t = lambda a: tracing.device_tensor(  # noqa: E731
+            np.asarray(a, np.float32), device)
         return CameraState(position=t(self.position), front=t(self.front),
                            up=t(self.up), right=t(self.right))
 

@@ -36,6 +36,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from pathtracer_torch import tracing
 from pathtracer_torch.accel import morton as morton_mod
 from pathtracer_torch.bsdf import microfacet as mf
 from pathtracer_torch.config import RenderConfig
@@ -723,11 +724,14 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
              pixel_ids, sample_ids,
              torch.zeros((), dtype=torch.int64, device=dev))
     if cfg.max_depth > 1:
-        state = bounce(0, state, primary=True)
+        with tracing.span("pt.bounce", depth=0):
+            state = bounce(0, state, primary=True)
         for depth in range(1, cfg.max_depth - 1):
-            state = bounce(depth, state)
-    state, _ = segment(state, cfg.max_depth - 1,
-                       primary=(cfg.max_depth == 1))
+            with tracing.span("pt.bounce", depth=depth):
+                state = bounce(depth, state)
+    with tracing.span("pt.bounce", depth=cfg.max_depth - 1):
+        state, _ = segment(state, cfg.max_depth - 1,
+                           primary=(cfg.max_depth == 1))
     radiance = state[3]
     if cfg.clamp_radiance > 0.0:
         radiance = torch.clamp(radiance, max=cfg.clamp_radiance)
@@ -750,5 +754,6 @@ def _gbuffer(surf: Surface, o, d, active, rows, n_rows: int):
                    torch.full((n_rows, 1), torch.inf, device=o.device),
                    torch.ones((n_rows, 3), device=o.device)], dim=1)
     has = first < n
-    g[has] = grow[first[has]]
+    with tracing.host_sync("gbuffer"):  # a masked index reads its count
+        g[has] = grow[first[has]]
     return {"normal": g[:, 0:3], "depth": g[:, 3], "albedo": g[:, 4:7]}

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pathtracer_torch import tracing
 from pathtracer_torch.scene.envlight import M_PI
 
 # Hosek-Wilkie coefficients, turbidity 3 / albedo 1 slice
@@ -70,8 +71,8 @@ _BOT = (0.02, 0.02, 0.05)
 def gradient_sky(d, gain: float = 0.2):
     """Simple vertical gradient (miss.rmiss:153-156) x gain."""
     t = torch.clamp(0.5 * (d[..., 1] + 1.0), 0.0, 1.0)
-    top = torch.tensor(_TOP, dtype=torch.float32, device=d.device)
-    bot = torch.tensor(_BOT, dtype=torch.float32, device=d.device)
+    top = tracing.device_tensor(_TOP, d.device, torch.float32)
+    bot = tracing.device_tensor(_BOT, d.device, torch.float32)
     m = ((1.0 - t) ** 2)[..., None]
     return (top * (1.0 - m) + bot * m) * gain
 
@@ -104,7 +105,7 @@ def hosek_wilkie_sky(d, sun_dir, intensity: float = 20.0):
     """
     dev = d.device
     d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
-    s = torch.tensor(sun_dir, dtype=torch.float32, device=dev)
+    s = tracing.device_tensor(sun_dir, dev, torch.float32)
     s = s / torch.linalg.vector_norm(s)
     theta = torch.arccos(torch.clamp(d[..., 1], -1.0, 1.0))
     sun_zenith = torch.arccos(torch.clamp(s[1], -1.0, 1.0))
@@ -115,12 +116,12 @@ def hosek_wilkie_sky(d, sun_dir, intensity: float = 20.0):
     xyz = []
     for coeffs, rad in ((_COEFFS_X, _RAD_X), (_COEFFS_Y, _RAD_Y),
                         (_COEFFS_Z, _RAD_Z)):
-        cp = torch.from_numpy(coeffs.reshape(6, 9).T.copy()).to(dev)
+        cp = tracing.device_tensor(coeffs.reshape(6, 9).T.copy(), dev)
         c = _quintic_bezier(cp, t.expand(9))                 # [9]
-        mean_rad = _quintic_bezier(torch.from_numpy(rad).to(dev), t)
+        mean_rad = _quintic_bezier(tracing.device_tensor(rad, dev), t)
         xyz.append(_hw_F(theta, gamma, c) * mean_rad)
     xyz = torch.stack(xyz, dim=-1)
-    m = torch.from_numpy(_XYZ_TO_RGB).to(dev)
+    m = tracing.device_tensor(_XYZ_TO_RGB, dev)
     rgb = torch.stack([torch.sum(xyz * m[i], dim=-1) for i in range(3)],
                       dim=-1)
     return torch.clamp(rgb, min=0.0) * intensity

@@ -22,6 +22,8 @@ import shutil
 import subprocess
 import threading
 
+from pathtracer_torch import tracing
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -44,14 +46,21 @@ def nvcc_path() -> str:
                        "of pathtracer_torch are built with nvcc at first use")
 
 
+def stale(name: str) -> bool:
+    """Is lib<name>.so missing or older than csrc/<name>.cu or a header
+    of csrc/ (csrc/*.cuh)?"""
+    so = os.path.join(BUILD_DIR, f"lib{name}.so")
+    deps = [os.path.join(CSRC, f"{name}.cu")] + glob.glob(
+        os.path.join(CSRC, "*.cuh"))
+    return not (os.path.exists(so) and os.path.getmtime(so) >= max(
+        os.path.getmtime(d) for d in deps))
+
+
 def build(name: str) -> str:
-    """Compile csrc/<name>.cu if the library is missing or older than the
-    source or a header of csrc/ (csrc/*.cuh)."""
+    """Compile csrc/<name>.cu if the library is stale."""
     src = os.path.join(CSRC, f"{name}.cu")
     so = os.path.join(BUILD_DIR, f"lib{name}.so")
-    deps = [src] + glob.glob(os.path.join(CSRC, "*.cuh"))
-    if os.path.exists(so) and os.path.getmtime(so) >= max(
-            os.path.getmtime(d) for d in deps):
+    if not stale(name):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
@@ -69,16 +78,20 @@ def load(name: str, signatures: dict):
     """Build (if needed) and dlopen lib<name>.so, binding `signatures`.
 
     signatures: {function: [ctypes argtypes]}; every function returns
-    the int cudaError_t of its launch.
+    the int cudaError_t of its launch. The first load of a library in
+    the process is a pt.kernel_load span (tracing), recorded whether
+    tracing is on or off.
     """
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build(name))
-            for fn, argtypes in signatures.items():
-                f = getattr(lib, fn)
-                f.argtypes = argtypes
-                f.restype = ctypes.c_int
+            with tracing.Span("pt.kernel_load", {"lib": name}) as sp:
+                sp.set(built=stale(name))
+                lib = ctypes.CDLL(build(name))
+                for fn, argtypes in signatures.items():
+                    f = getattr(lib, fn)
+                    f.argtypes = argtypes
+                    f.restype = ctypes.c_int
             _libs[name] = lib
         return lib
 

@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from pathtracer_torch import tracing
 from pathtracer_torch.utils import vmath
 
 DET_EPS = 1e-12
@@ -80,8 +81,7 @@ def intersect_brute(o, d, tri_v0, tri_v1, tri_v2, t_min, t_max,
                     tri_chunk: int = 256) -> Hit:
     """Closest hit of rays [N,3] against all triangles [T,3] (O(N*T))."""
     n = o.shape[0]
-    t_max = torch.as_tensor(t_max, dtype=torch.float32,
-                            device=o.device).expand(n)
+    t_max = tracing.device_tensor(t_max, o.device, torch.float32).expand(n)
     tv0, tv1, tv2 = _pad_tris(tri_v0, tri_v1, tri_v2, tri_chunk)
     best_t = t_max.clone()
     best_tri = torch.full((n,), -1, dtype=torch.int32, device=o.device)
@@ -111,8 +111,7 @@ def occluded_brute(o, d, t_max, tri_v0, tri_v1, tri_v2,
     most tri_chunk triangles this is the JAX package's choice exactly.
     """
     n = o.shape[0]
-    t_max = torch.as_tensor(t_max, dtype=torch.float32,
-                            device=o.device).expand(n)
+    t_max = tracing.device_tensor(t_max, o.device, torch.float32).expand(n)
     tv0, tv1, tv2 = _pad_tris(tri_v0, tri_v1, tri_v2, tri_chunk)
     blocked = torch.zeros(n, dtype=torch.bool, device=o.device)
     btri = torch.full((n,), -1, dtype=torch.int32, device=o.device)

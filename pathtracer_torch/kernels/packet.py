@@ -34,7 +34,7 @@ import dataclasses
 
 import torch
 
-from pathtracer_torch import knobs
+from pathtracer_torch import knobs, tracing
 from pathtracer_torch.accel import cluster as cluster_mod
 from pathtracer_torch.accel import morton as morton_mod
 from pathtracer_torch.kernels import cull, sweep
@@ -239,8 +239,8 @@ def _packed_schedule_sort(tile_tnear):
     mag = torch.where(fin, tile_tnear, 0.0)
     scale = torch.clamp(mag.max(), min=1e-20)
     maxq = (1 << 20) - 2
-    maxq_f = torch.tensor(float(maxq), dtype=torch.float32,
-                          device=tile_tnear.device)
+    maxq_f = tracing.device_tensor(float(maxq), tile_tnear.device,
+                                    torch.float32)
     q = torch.clamp((mag * (maxq_f / scale)).to(torch.int64), max=maxq)
     cid = torch.arange(c, dtype=torch.int64, device=tile_tnear.device)
     key = torch.where(fin, (q << 12) | cid[None, :], 0xFFFFFFFF)
@@ -269,7 +269,9 @@ def chunk_live(o, chunk_rays):
     pad = (-live.shape[0]) % chunk_rays
     if pad:
         live = torch.cat([live, live.new_zeros(pad)])
-    return live.reshape(-1, chunk_rays).any(dim=1).tolist()
+    flags = live.reshape(-1, chunk_rays).any(dim=1)
+    with tracing.host_sync("chunk_live"):
+        return flags.tolist()
 
 
 def _chunk_map(fn, rays, n, tile_rays, chunk_rays, dead):
@@ -278,25 +280,33 @@ def _chunk_map(fn, rays, n, tile_rays, chunk_rays, dead):
     outs = []
     for ci, live in enumerate(chunk_live(rays[0], chunk_rays)):
         part = tuple(a[ci * chunk_rays:(ci + 1) * chunk_rays] for a in rays)
-        outs.append(fn(part) if live else dead(part[0].shape[0]))
+        if live:
+            with tracing.span("pt.chunk"):
+                outs.append(fn(part))
+        else:
+            outs.append(dead(part[0].shape[0]))
     return tuple(torch.cat(x)[:n] for x in zip(*outs))
 
 
 def _per_ray(t_max, o):
-    return torch.as_tensor(t_max, dtype=torch.float32,
-                           device=o.device).expand(o.shape[0]).contiguous()
+    return tracing.device_tensor(t_max, o.device, torch.float32).expand(
+        o.shape[0]).contiguous()
 
 
 def _coherence_sort(accel, o, d, t_max, dir_bits, scheme=None):
-    order = torch.sort(_coherence_key(accel, o, d, dir_bits, scheme),
-                       stable=True).indices
-    return order, o[order], d[order], t_max[order]
+    with tracing.span("pt.sort"):
+        order = torch.sort(_coherence_key(accel, o, d, dir_bits, scheme),
+                           stable=True).indices
+        return order, o[order], d[order], t_max[order]
 
 
-def _unsort(order, x):
-    out = torch.empty_like(x)
-    out[order] = x
-    return out
+def _unsort(order, xs):
+    """Each tensor of xs scattered back through the sort's order."""
+    with tracing.span("pt.sort"):
+        outs = tuple(torch.empty_like(x) for x in xs)
+        for out, x in zip(outs, xs):
+            out[order] = x
+        return outs
 
 
 def _tile_rays6(o, d, n_tiles, tile_rays):
@@ -370,10 +380,10 @@ def _traverse(accel, o, d, t_max, sort_rays, tile_rays, chunk_rays,
         def fn(rays):
             part_order, *sorted_rays = _coherence_sort(accel, *rays,
                                                        dir_bits, scheme)
-            return tuple(_unsort(part_order, x) for x in body(sorted_rays))
+            return _unsort(part_order, body(sorted_rays))
     out = _chunk_map(fn, (o, d, t_max), n, tile_rays, chunk_rays, dead)
     if order is not None:
-        out = tuple(_unsort(order, x) for x in out)
+        out = _unsort(order, out)
     return out
 
 
@@ -406,7 +416,6 @@ def intersect_clusters(accel, o, d, t_min, t_max, sort_rays: bool = True,
     tile_rays, chunk_rays = _call_shape(tile_rays, chunk_rays, cull)
     if dir_bits is None:
         dir_bits = knobs.integer("PT_CLOSEST_DB", 3)
-    t_max = _per_ray(t_max, o)
     dev = o.device
 
     def dead(m):
@@ -414,10 +423,13 @@ def intersect_clusters(accel, o, d, t_min, t_max, sort_rays: bool = True,
         return (z + torch.inf, torch.full((m,), -1, dtype=torch.int32,
                                           device=dev), z, z)
 
-    t, tri, u, v = _traverse(
-        accel, o, d, t_max, sort_rays, tile_rays, chunk_rays, dir_bits, None,
-        lambda r: _closest_chunk(accel, *r, t_min, tile_rays, cull, group),
-        dead)
+    with tracing.span("pt.traverse.closest"):
+        t, tri, u, v = _traverse(
+            accel, o, d, _per_ray(t_max, o), sort_rays, tile_rays,
+            chunk_rays, dir_bits, None,
+            lambda r: _closest_chunk(accel, *r, t_min, tile_rays, cull,
+                                     group),
+            dead)
     return Hit(t=t, tri=tri, u=u, v=v)
 
 
@@ -437,7 +449,6 @@ def occluded_clusters(accel, o, d, t_max, sort_rays: bool = True,
     if dir_bits is None:
         dir_bits = knobs.integer("PT_OCCL_DB", 2)
     scheme = knobs.choice("PT_KEY_SCHEME_OCCL", "dirmajor", KEY_SCHEMES)
-    t_max = _per_ray(t_max, o)
     dev = o.device
 
     def dead(m):
@@ -447,9 +458,11 @@ def occluded_clusters(accel, o, d, t_max, sort_rays: bool = True,
                                        device=dev)
         return (blocked,)
 
-    out = _traverse(
-        accel, o, d, t_max, sort_rays, tile_rays, chunk_rays, dir_bits,
-        scheme, lambda r: _occluded_chunk(accel, *r, tile_rays,
-                                          want_blocker, cull, group),
-        dead)
+    with tracing.span("pt.traverse.occluded"):
+        out = _traverse(
+            accel, o, d, _per_ray(t_max, o), sort_rays, tile_rays,
+            chunk_rays, dir_bits, scheme,
+            lambda r: _occluded_chunk(accel, *r, tile_rays, want_blocker,
+                                      cull, group),
+            dead)
     return out if want_blocker else out[0]

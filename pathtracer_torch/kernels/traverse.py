@@ -32,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from pathtracer_torch import tracing
 from pathtracer_torch.kernels import LAUNCHES, cuda_build
 from pathtracer_torch.kernels.intersect import DET_EPS, Hit
 from pathtracer_torch.scene.types import Bvh
@@ -110,8 +111,8 @@ def _slab(nodes, ni, o, inv_d):
 
 
 def _per_ray(x, n, device):
-    return torch.as_tensor(x, dtype=torch.float32,
-                           device=device).expand(n).contiguous()
+    return tracing.device_tensor(x, device, torch.float32).expand(
+        n).contiguous()
 
 
 def _count(counter, value):

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from pathtracer_torch import config as config_mod
-from pathtracer_torch import knobs
+from pathtracer_torch import knobs, tracing
 from pathtracer_torch.accel import bruteforce
 from pathtracer_torch.config import RenderConfig
 from pathtracer_torch.film import film as film_mod
@@ -82,17 +82,19 @@ def make_intersectors(scene: Scene, cfg: RenderConfig):
         packed = traverse.pack_bvh(scene.bvh, scene.indices, scene.positions)
 
         def intersect_fn(o, d, t_min, t_max, primary=False):
-            return traverse.intersect_bvh(packed, o.contiguous(),
-                                          d.contiguous(), t_min, t_max)
+            with tracing.span("pt.traverse.closest"):
+                return traverse.intersect_bvh(packed, o.contiguous(),
+                                              d.contiguous(), t_min, t_max)
 
         def occluded_fn(o, d, t_max, primary=False, want_blocker=False):
-            blocked = traverse.occluded_bvh(packed, o.contiguous(),
-                                            d.contiguous(), t_max)
-            if want_blocker:
-                return blocked, torch.full(o.shape[:1], -1,
-                                           dtype=torch.int32,
-                                           device=o.device)
-            return blocked
+            with tracing.span("pt.traverse.occluded"):
+                blocked = traverse.occluded_bvh(packed, o.contiguous(),
+                                                d.contiguous(), t_max)
+                if want_blocker:
+                    return blocked, torch.full(o.shape[:1], -1,
+                                               dtype=torch.int32,
+                                               device=o.device)
+                return blocked
 
         return intersect_fn, occluded_fn, traverse.hint_test(packed)
 
@@ -178,21 +180,23 @@ def render_sample(scene: Scene, cfg: RenderConfig, cam: cam_mod.CameraState,
     """ONE sample per pixel -> (radiance f32[H, W, 3], rays int64 scalar,
     prime_out, gbuf). prime: i32[W*H, 3] hints in pixel order, or None;
     gbuf (with gbuffer): primary-hit rows in pixel order, or None."""
-    intersect_fn, occluded_fn, hint_fn = make_intersectors(scene, cfg)
-    w, h = cfg.width, cfg.height
-    dev = scene.device
-    pixel_ids = _base_pixels(w, h, dev)
-    sample_ids = torch.full((w * h,), frame_idx * cfg.spp + s,
-                            dtype=torch.int64, device=dev)
-    o, d = _primary_rays(cfg, cam, pixel_ids, sample_ids)
-    radiance, pix_out, rays, prime_out, gbuf = path_mod.trace_paths(
-        scene, cfg, o, d, pixel_ids, sample_ids, intersect_fn, occluded_fn,
-        prime=prime, sample_window=1, hint_fn=hint_fn, want_gbuffer=gbuffer)
-    img = torch.zeros((w * h, 3), dtype=torch.float32, device=dev)
-    # lanes come back beside their pixel ids (permuted under
-    # cfg.wavefront_sort): one scatter lands them row-major
-    img[pix_out.long()] = radiance
-    return img.reshape(h, w, 3), rays, prime_out, gbuf
+    with tracing.span("pt.wavefront"):
+        intersect_fn, occluded_fn, hint_fn = make_intersectors(scene, cfg)
+        w, h = cfg.width, cfg.height
+        dev = scene.device
+        pixel_ids = _base_pixels(w, h, dev)
+        sample_ids = torch.full((w * h,), frame_idx * cfg.spp + s,
+                                dtype=torch.int64, device=dev)
+        o, d = _primary_rays(cfg, cam, pixel_ids, sample_ids)
+        radiance, pix_out, rays, prime_out, gbuf = path_mod.trace_paths(
+            scene, cfg, o, d, pixel_ids, sample_ids, intersect_fn,
+            occluded_fn, prime=prime, sample_window=1, hint_fn=hint_fn,
+            want_gbuffer=gbuffer)
+        img = torch.zeros((w * h, 3), dtype=torch.float32, device=dev)
+        # lanes come back beside their pixel ids (permuted under
+        # cfg.wavefront_sort): one scatter lands them row-major
+        img[pix_out.long()] = radiance
+        return img.reshape(h, w, 3), rays, prime_out, gbuf
 
 
 def _primary_rays(cfg: RenderConfig, cam, pixel_ids, sample_ids):
@@ -225,33 +229,34 @@ def _trace_pool_part(scene: Scene, cfg: RenderConfig,
     G-buffer rows with the luminance moments m1/m2 summed over samples
     (None without gbuffer).
     """
-    m = pix_part.shape[0]
-    dev = pix_part.device
-    n_s = samples.shape[0]
-    intersect_fn, occluded_fn, hint_fn = make_intersectors(scene, cfg)
-    # sample-major lane order: each sample's segment keeps the swizzle
-    pixel_ids = pix_part.repeat(n_s)
-    rows = torch.arange(m, device=dev).repeat(n_s)
-    sample_ids = samples.repeat_interleave(m)
-    o, d = _primary_rays(cfg, cam, pixel_ids, sample_ids)
-    radiance, pix_out, rays, prime_out, gbuf = path_mod.trace_paths(
-        scene, cfg, o, d, pixel_ids, sample_ids, intersect_fn, occluded_fn,
-        prime=prime_part, local_pix=rows, sample_window=sample_window,
-        hint_fn=hint_fn, want_gbuffer=gbuffer, n_pixels=m)
-    # lanes may come back permuted (cfg.wavefront_sort): a lane's part row
-    # comes from its returned pixel id through the inverse part table
-    inv_part = torch.zeros((cfg.width * cfg.height,), dtype=torch.int64,
-                           device=dev)
-    inv_part[pix_part.long()] = torch.arange(m, device=dev)
-    rows = inv_part[pix_out.long()]
-    order = None if not cfg.wavefront_sort else torch.argsort(rows,
-                                                              stable=True)
-    part_img = sample_sum(radiance, order, m, n_s)
-    if gbuf is not None:
-        lum = vmath.luminance(radiance)
-        gbuf = dict(gbuf, m1=sample_sum(lum, order, m, n_s),
-                    m2=sample_sum(lum * lum, order, m, n_s))
-    return part_img, rays, prime_out, gbuf
+    with tracing.span("pt.wavefront"):
+        m = pix_part.shape[0]
+        dev = pix_part.device
+        n_s = samples.shape[0]
+        intersect_fn, occluded_fn, hint_fn = make_intersectors(scene, cfg)
+        # sample-major lane order: each sample's segment keeps the swizzle
+        pixel_ids = pix_part.repeat(n_s)
+        rows = torch.arange(m, device=dev).repeat(n_s)
+        sample_ids = samples.repeat_interleave(m)
+        o, d = _primary_rays(cfg, cam, pixel_ids, sample_ids)
+        radiance, pix_out, rays, prime_out, gbuf = path_mod.trace_paths(
+            scene, cfg, o, d, pixel_ids, sample_ids, intersect_fn, occluded_fn,
+            prime=prime_part, local_pix=rows, sample_window=sample_window,
+            hint_fn=hint_fn, want_gbuffer=gbuffer, n_pixels=m)
+        # lanes may come back permuted (cfg.wavefront_sort): a lane's part row
+        # comes from its returned pixel id through the inverse part table
+        inv_part = torch.zeros((cfg.width * cfg.height,), dtype=torch.int64,
+                               device=dev)
+        inv_part[pix_part.long()] = torch.arange(m, device=dev)
+        rows = inv_part[pix_out.long()]
+        order = None if not cfg.wavefront_sort else torch.argsort(rows,
+                                                                  stable=True)
+        part_img = sample_sum(radiance, order, m, n_s)
+        if gbuf is not None:
+            lum = vmath.luminance(radiance)
+            gbuf = dict(gbuf, m1=sample_sum(lum, order, m, n_s),
+                        m2=sample_sum(lum * lum, order, m, n_s))
+        return part_img, rays, prime_out, gbuf
 
 
 def sample_sum(values, order, m: int, n_s: int):
@@ -489,10 +494,15 @@ class Renderer:
         self._gbuf_frames += frames
 
     def step(self) -> film_mod.Film:
+        with tracing.span("pt.step") as sp:
+            return self._step(sp)
+
+    def _step(self, sp) -> film_mod.Film:
         if self.camera.moved:
             self.reset()
             self.camera.moved = False
             if self.motion_preview > 1:
+                sp.set(frames=0)
                 return self._step_preview()
         self._preview = None
         want_gb = ((self.cfg.denoise or self.cfg.capture_gbuffer)
@@ -501,6 +511,7 @@ class Renderer:
         f = self.cfg.frame_batch
         if f == 1 and self.auto_frame_batch > 1 and self._frames_done > 0:
             f = self.auto_frame_batch
+        sp.set(frames=f)
         if self.mesh is not None or f > 1:
             prime = _initial_prime(self.cfg, self._prime, self.device)
             if self.mesh is not None:

@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pathtracer_torch import tracing
+
 SALT_JITTER = 0
 SALT_ALPHA = 1
 SALT_DIELECTRIC = 2
@@ -62,7 +64,7 @@ def pcg4d(v):
 def _word(x, device):
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.int64) & M32
-    return torch.tensor(int(x) & M32, dtype=torch.int64, device=device)
+    return tracing.device_tensor(int(x) & M32, device, torch.int64)
 
 
 def _key(pixel, sample, depth_salt, seed):

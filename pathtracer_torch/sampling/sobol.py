@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pathtracer_torch import tracing
 from pathtracer_torch.sampling.rng import M32, _mul32
 
 
@@ -84,7 +85,7 @@ def sobol4(index):
     """
     index = index & M32
     index = index ^ (index >> 1)
-    dirs = torch.from_numpy(_DIRS).to(index.device)          # [4, 32]
+    dirs = tracing.device_tensor(_DIRS, index.device)       # [4, 32]
     acc = torch.zeros(index.shape + (4,), dtype=torch.int64,
                       device=index.device)
     for k in range(32):

@@ -1,0 +1,6 @@
+"""kernel_load_s: seconds in the program's pt.kernel_load spans during
+set-up - cuda_build.load's nvcc builds and dlopens (ptbench.stages)."""
+
+
+def read(rec):
+    return rec.spans.get("kernel_load")
