@@ -51,7 +51,10 @@ Drives pathtracer_torch's paths on the card and checks them:
    P3's, and K2's cost a column beside P3 full's (logged, no limit:
    P3 stages its columns its own way, K2 is pair_metrics' rate); P3's
    bound from the lane-test branches its plain version counts on the
-   run's data;
+   run's data; K9 (the PCG4D draw of sampling/rng.py) bit for bit against
+   its plain version at a headline wavefront's 8,294,400 lanes in the
+   main path's word layout, each timed beside K9's bytes bound
+   (`k9_vs_plain`), and the headline run must launch it;
 3. configs: the config sweep (pathtracer_torch/bench/configs.py, the
    port of benchmarks/run_configs.py, whose configs, cameras and golden
    gate this script imports) at BASELINE's sizes - configs 1-5 through
@@ -232,6 +235,9 @@ KERNELS = {
                         "benchmarks/cond_probe.py:24 (gate=True)"),
     "sweep_attrib": ("pathtracer_torch/csrc/probes.cu",
                      "benchmarks/sweep_attrib.py:56"),
+    # XLA code in the JAX package: one PCG4D draw of uniform4
+    "pcg4d": ("pathtracer_torch/csrc/rng.cu",
+              "pathtracer/sampling/rng.py:47 (pcg4d, via uniform4 :80)"),
 }
 KERNEL_IDS = {"tile_cull": "K1", "sweep_closest": "K2",
               "sweep_occluded": "K3", "sweep_occluded_blocker": "K3b",
@@ -278,6 +284,11 @@ SLAB_OPS = 25
 LEAF_OPS = {"bvh_closest": 53, "bvh_occluded": 68}
 NODE_BYTES, TRI_BYTES = 32, 36
 SOBOL_LANES = 1 << 21
+# K9 at a headline wavefront (1920 x 1080 pixels x 4 spp-batched samples)
+# in the main path's word layout, RNG_REPEATS draws a timing. Its bound
+# is bytes: each lane reads an int32 pixel and an int64 sample id and
+# writes 16 B (its ~40 integer instructions take about a third of that)
+RNG_LANES, RNG_REPEATS = HEADLINE_W * HEADLINE_H * 4, 20
 # the sharded phase: gloo ranks sharing cuda:0, and how long they may run
 SHARD_RANKS, SHARD_TIMEOUT_S = 2, 300
 # the images phase: the .glb render's size, the PNG sizes whose decode is
@@ -331,7 +342,7 @@ def phase_device():
     builds = [threading.Thread(target=run, args=(native.build, lib))
               for lib in native.LIBS] + [
         threading.Thread(target=run, args=(cuda_build.build, name))
-        for name in ("cull", "sweep", "traverse", "probes")]
+        for name in ("cull", "sweep", "traverse", "probes", "rng")]
     for t in builds:
         t.start()
     for t in builds:
@@ -1037,6 +1048,57 @@ PROBE_KERNELS = ("chain_f32", "chain_bf16", "cond_walk", "cond_walk_gated",
                  "sweep_attrib")
 
 
+def phase_rng():
+    """K9 against its plain version (the eager int64 chain, on the card)
+    at RNG_LANES lanes: the pool's int32 pixel ids (render._base_pixels,
+    repeated a sample) and int64 sample ids, the depth/salt and seed
+    words as immediates. Bit for bit, then each timed under CUDA events
+    over RNG_REPEATS draws, beside its bytes bound."""
+    import torch
+
+    from pathtracer_torch import kernels
+    from pathtracer_torch.render import _base_pixels
+    from pathtracer_torch.sampling import rng
+
+    dev = torch.device(DEVICE)
+    m = HEADLINE_W * HEADLINE_H
+    spp = RNG_LANES // m
+    pix = _base_pixels(HEADLINE_W, HEADLINE_H, dev).repeat(spp)
+    samp = (1000 * spp + torch.arange(spp, dtype=torch.int64, device=dev)
+            ).repeat_interleave(m)
+    words = (pix, samp, 5 * 12 + rng.SALT_BSDF_UV, 0xFFFFFFFF)
+
+    def plain():
+        return rng._to_unit(rng.pcg4d(rng._key(*words)))
+
+    before = kernels.LAUNCHES["pcg4d"]
+    out = rng.pcg4d_uniform(*words)
+    ref = plain()
+    if kernels.LAUNCHES["pcg4d"] != before + 1:
+        raise PhaseError("K9: pcg4d_uniform did not launch the kernel")
+    if not torch.equal(out, ref):
+        raise PhaseError(f"K9: {int((out != ref).sum())} of {out.numel()} "
+                         "draws differ from the plain version")
+
+    def per_draw_ms(fn):
+        def many():
+            for _ in range(RNG_REPEATS):
+                fn()
+        many()
+        torch.cuda.synchronize()
+        return timed(many)[1] / RNG_REPEATS
+
+    ms = per_draw_ms(lambda: rng.pcg4d_uniform(*words))
+    plain_ms = per_draw_ms(plain)
+    moved = sum(t.numel() * t.element_size() for t in (pix, samp, out))
+    bound = moved / PEAK_BYTES * 1e3
+    res = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+               max_abs_err=float((out - ref).abs().max()))
+    log("k9_vs_plain", lanes=RNG_LANES, bytes=moved,
+        share_of_bound=bound / ms, card=card_line(), **res)
+    return {"pcg4d": res}
+
+
 def same_bits(a, b):
     import torch
 
@@ -1606,7 +1668,8 @@ def same_render(what, res, r, ref_res, ref_r):
 
 def phase_headline(scene, cfg, cam, frames):
     """K1, then K4 (PT_CULL_SKIP=1), then primed."""
-    base, r_b = drive("headline", scene, cfg, cam, frames, UNPRIMED_KERNELS)
+    base, r_b = drive("headline", scene, cfg, cam, frames,
+                      UNPRIMED_KERNELS + ("pcg4d",))
     skip, r_s = drive("headline_cull_skip", scene, cfg, cam, frames,
                       SKIP_KERNELS, env={"PT_CULL_SKIP": "1"})
     if skip["launches"]["tile_cull"]:
@@ -3046,6 +3109,7 @@ def main(argv=None):
             phase_device()
             scene, cfg, cam = headline_setup()
             stats = phase_kernels(scene, cfg, cam)
+            stats.update(phase_rng())
             stats.update(phase_probes())
             _, config4 = phase_configs(tmp_dir, args.frames)
             base, skip, primed, r_b = phase_headline(scene, cfg, cam,

@@ -9,6 +9,13 @@ u32 arithmetic is emulated in int64 with `& 0xFFFFFFFF`: CPU torch
 fit in int64, so `_mul32` splits one operand into 16-bit halves and
 never relies on signed overflow wrapping.
 
+`pcg4d_uniform` is the PCG draw's wrapper: on CUDA tensors it launches
+K9 (csrc/rng.cu, one thread a lane in native u32 arithmetic, the key
+words as launch arguments), on CPU tensors it runs the plain version,
+`_to_unit(pcg4d(_key(...)))`, never the reverse. The two agree bit for
+bit. Scalar key words are never copied from the host: K9 takes them as
+immediates, the plain version as `torch.full` broadcasts.
+
 `ref_pcg`, `ref_pcg2d` and `ref_rand` are the Vulkan reference's scalar
 RNG (common.glsl:27-49), used only by tests to pin its observable
 behaviour; the renderer uses the counter-based PCG4D.
@@ -16,10 +23,12 @@ behaviour; the renderer uses the counter-based PCG4D.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from pathtracer_torch import tracing
+from pathtracer_torch.kernels import LAUNCHES, cuda_build
 
 SALT_JITTER = 0
 SALT_ALPHA = 1
@@ -61,19 +70,31 @@ def pcg4d(v):
     return torch.stack([x, y, z, w], dim=-1)
 
 
-def _word(x, device):
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.int64) & M32
-    return tracing.device_tensor(int(x) & M32, device, torch.int64)
+def _device(words):
+    """The device of the first tensor among the key words (CPU if none)."""
+    return next((w.device for w in words if isinstance(w, torch.Tensor)),
+                torch.device("cpu"))
+
+
+def _broadcast(words):
+    """The tensor words broadcast together (views; torch.broadcast_shapes
+    would import sympy on its first call) and their shape."""
+    views = torch.broadcast_tensors(*(w for w in words
+                                      if isinstance(w, torch.Tensor)))
+    return iter(views), (views[0].shape if views else torch.Size())
 
 
 def _key(pixel, sample, depth_salt, seed):
-    """Stack (pixel, sample, depth_salt, seed) words, broadcast together."""
-    dev = next((t.device for t in (pixel, sample, depth_salt)
-                if isinstance(t, torch.Tensor)), torch.device("cpu"))
-    parts = torch.broadcast_tensors(*(_word(p, dev) for p in
-                                      (pixel, sample, depth_salt, seed)))
-    return torch.stack(parts, dim=-1)
+    """Stack (pixel, sample, depth_salt, seed) words, broadcast together.
+    A scalar word becomes a `torch.full` of the broadcast shape: a fill
+    on the device, not a copy of host data."""
+    words = (pixel, sample, depth_salt, seed)
+    dev = _device(words)
+    views, shape = _broadcast(words)
+    return torch.stack([next(views).to(device=dev, dtype=torch.int64) & M32
+                        if isinstance(w, torch.Tensor) else
+                        torch.full(shape, int(w) & M32, dtype=torch.int64,
+                                   device=dev) for w in words], dim=-1)
 
 
 def _to_unit(bits):
@@ -81,12 +102,87 @@ def _to_unit(bits):
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
+def _flat_stride(t):
+    """The element stride s with which t's entries lie at i * s for the
+    row-major lane index i, or None where no single stride does."""
+    stride, span = None, 1
+    for size, st in reversed(list(zip(t.shape, t.stride()))):
+        if size == 1:
+            continue
+        if stride is None:
+            stride = st
+        elif st != stride * span:
+            return None
+        span *= size
+    return stride or 0
+
+
+_SIG = {"pt_pcg4d_uniform": [ctypes.c_void_p, ctypes.c_longlong,
+                             ctypes.c_int, ctypes.c_uint] * 4
+        + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]}
+# K9's word kinds (csrc/rng.cu WordKind)
+_KIND = {torch.int32: 1, torch.int64: 2}
+
+
+def kernel_words(words, dev):
+    """K9's view of the key words (pixel, sample, depth_salt, seed): the
+    broadcast shape and, a word, (tensor, stride, kind, immediate) - the
+    tensor expanded to the shape, whose entry of row-major lane i lies
+    `stride` elements past its first, or None for a Python int, passed
+    as the immediate. Raises on a word K9 cannot take."""
+    views, shape = _broadcast(words)
+    out = []
+    for name, w in zip(("pixel", "sample", "depth_salt", "seed"), words):
+        if not isinstance(w, torch.Tensor):
+            out.append((None, 0, 0, int(w) & M32))
+            continue
+        e = next(views)
+        stride = _flat_stride(e)
+        if w.device != dev or w.dtype not in _KIND or stride is None:
+            raise ValueError(
+                f"pcg4d_uniform {name}: want an int32 or int64 tensor on "
+                f"{dev} at one stride over the lanes, got {w.dtype} "
+                f"{tuple(w.shape)} strides {w.stride()} on {w.device}")
+        out.append((e, stride, _KIND[w.dtype], 0))
+    return shape, out
+
+
+def pcg4d_uniform(pixel, sample, depth_salt, seed):
+    """Four U[0,1) floats f32[..., 4] of one PCG4D draw keyed on (pixel,
+    sample, depth_salt, seed): K9 on CUDA, the plain version on CPU.
+
+    Each word is a Python int or an integer tensor (the tensors broadcast
+    together). K9 takes int32 or int64 word tensors on the draw's device
+    whose broadcast lies at one stride over the lanes (kernel_words); it
+    raises on any other word.
+    """
+    words = (pixel, sample, depth_salt, seed)
+    dev = _device(words)
+    if dev.type == "cpu":
+        return _to_unit(pcg4d(_key(*words)))
+    if dev.type != "cuda":
+        raise ValueError(f"pcg4d_uniform: unsupported device {dev}")
+    shape, kw = kernel_words(words, dev)
+    out = torch.empty(tuple(shape) + (4,), dtype=torch.float32, device=dev)
+    n = out.numel() // 4
+    if n:
+        args = [a for e, stride, kind, imm in kw for a in
+                (None if e is None else e.data_ptr(), stride, kind, imm)]
+        lib = cuda_build.load("rng", _SIG)
+        rc = lib.pt_pcg4d_uniform(*args, n, out.data_ptr(),
+                                  cuda_build.stream_ptr(dev))
+        cuda_build.check_launch(rc, "pcg4d")
+        LAUNCHES["pcg4d"] += 1
+    return out
+
+
 def uniform4(pixel, sample, depth, salt, seed=0, sampler="pcg"):
     """Four U[0,1) floats keyed on (pixel, sample, depth, salt).
 
-    sampler: "pcg" = independent PCG4D uniforms; "sobol" = padded 4D
-    Owen-scrambled Sobol (sampling/sobol.py), keyed per (pixel, depth,
-    salt, seed) group with the sample index as its counter.
+    sampler: "pcg" = independent PCG4D uniforms (pcg4d_uniform: K9 on
+    CUDA); "sobol" = padded 4D Owen-scrambled Sobol (sampling/sobol.py),
+    keyed per (pixel, depth, salt, seed) group with the sample index as
+    its counter.
     """
     depth_salt = (int(depth) * _SALTS_PER_DEPTH + salt) & M32
     if sampler == "sobol":
@@ -99,7 +195,7 @@ def uniform4(pixel, sample, depth, salt, seed=0, sampler="pcg"):
         return _to_unit(sobol.scrambled_sobol4(key[..., 1], gk))
     if sampler != "pcg":
         raise ValueError(f"unknown sampler {sampler!r} (pcg|sobol)")
-    return _to_unit(pcg4d(_key(pixel, sample, depth_salt, seed)))
+    return pcg4d_uniform(pixel, sample, depth_salt, seed)
 
 
 def uniform2(pixel, sample, depth, salt, seed=0, sampler="pcg"):

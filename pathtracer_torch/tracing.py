@@ -11,9 +11,11 @@ Counters are plain host integers, counted whether tracing is on or off:
             traverse.occluded_bvh as "bvh_occluded" for K6, and the probes
             of probes.py: chain as "chain_f32" / "chain_bf16" for P1,
             cond_walk as "cond_walk" / "cond_walk_gated" for P2,
-            sweep_attrib for P3. Each wrapper adds one where it launches
-            its CUDA kernel and nowhere else, so a run can show that the
-            main path went through the kernels.
+            sweep_attrib for P3, and sampling/rng.pcg4d_uniform as
+            "pcg4d" for K9 (one a PCG draw of uniform1/2/4 on CUDA
+            tensors). Each wrapper adds one where it launches its CUDA
+            kernel and nowhere else, so a run can show that the main
+            path went through the kernels.
   COUNTERS  "host_syncs": the program's blocking host syncs, one at each
             site inside a step where the host waits for the device
             (host_sync): chunk_live's read of the live-chunk flags, each
@@ -64,7 +66,7 @@ LAUNCHES = {"tile_cull": 0, "tile_cull_skip": 0, "frustum_cull": 0,
             "sweep_occluded": 0, "sweep_occluded_blocker": 0,
             "bvh_closest": 0, "bvh_occluded": 0, "chain_f32": 0,
             "chain_bf16": 0, "cond_walk": 0, "cond_walk_gated": 0,
-            "sweep_attrib": 0}
+            "sweep_attrib": 0, "pcg4d": 0}
 COUNTERS = {"host_syncs": 0}
 SPANS = []              # recorded spans, oldest first, until take()
 
