@@ -31,7 +31,6 @@ from ptbench.run import (Record, build_scene, forbidden_modules, judge,
 def produce(cell, scene, seed, seconds, device):
     """One window of a run on `scene` -> (record, produced)."""
     import torch
-    from pathtracer_torch.kernels import packet
 
     from ptbench import capture, drivers
 
@@ -44,7 +43,7 @@ def produce(cell, scene, seed, seconds, device):
     for _ in range(cell.traffic["warmup_steps"]):
         driver.step()
     rec = Record()
-    with capture.HitCapture(packet, cell.traffic["hit_rays_per_call"],
+    with capture.HitCapture(cell.traffic["hit_rays_per_call"],
                             seed) as hits:
         window(driver, seconds, rec, hits)
     return rec, outputs(driver, hits, rec.steps, seed)

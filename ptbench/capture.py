@@ -1,30 +1,57 @@
 """Recording what the timed path traced, from the benchmark's side.
 
-HitCapture wraps the packet layer's two entry points
-(pathtracer_torch.kernels.packet.intersect_clusters and
-occluded_clusters, which render.make_intersectors calls by module
-attribute) while the window runs: of every captured call it keeps a
-strided sample of lanes - rays, bounds and the answers the accel,
-packet and kernel layers gave - as small device gathers, with no host
-sync. K2Capture wraps kernels.sweep.sweep_closest for one step and keeps
-the arguments of a stride sample of its chunks.
+HitCapture wraps the two entry points of every intersector route while
+the window runs, by module attribute, as the program calls them: the
+cluster route's pathtracer_torch.kernels.packet.intersect_clusters and
+occluded_clusters (render.make_intersectors), the bvh route's
+kernels.traverse.intersect_bvh and occluded_bvh (the same), and the
+brute route's kernels.intersect.intersect_brute and occluded_brute
+(accel.bruteforce, which render.make_intersectors also takes for scenes
+of at most 256 triangles). Of every captured call it keeps a strided
+sample of lanes - rays, bounds and the answers the route gave - as
+small device gathers, with no host sync. K2Capture wraps
+kernels.sweep.sweep_closest for one step and keeps the arguments of a
+stride sample of its chunks.
 """
 
 from __future__ import annotations
 
+import importlib
+
 import torch
+
+# (module of pathtracer_torch.kernels, attribute, kind, positions of the
+# call's o, d, t_min and t_max, each passed by that name where the call
+# gives fewer positional arguments; an occlusion call has no t_min)
+ENTRY_POINTS = (
+    ("packet", "intersect_clusters", "closest", (1, 2, 3, 4)),
+    ("packet", "occluded_clusters", "occluded", (1, 2, 3)),
+    ("traverse", "intersect_bvh", "closest", (1, 2, 3, 4)),
+    ("traverse", "occluded_bvh", "occluded", (1, 2, 3)),
+    ("intersect", "intersect_brute", "closest", (0, 1, 5, 6)),
+    ("intersect", "occluded_brute", "occluded", (0, 1, 2)),
+)
+
+CLOSEST_ARGS = ("o", "d", "t_min", "t_max")
+OCCLUDED_ARGS = ("o", "d", "t_max")
+
+
+def _args(a, kw, pos, names):
+    return [a[p] if p < len(a) else kw[n] for p, n in zip(pos, names)]
 
 
 class HitCapture:
-    def __init__(self, packet, per_call: int, seed: int):
-        self.packet = packet
+    def __init__(self, per_call: int, seed: int):
         self.per_call = per_call
         self.seed = int(seed)
         self.closest = []
         self.occluded = []
         self.on = False
         self.calls = 0
-        self._real = (packet.intersect_clusters, packet.occluded_clusters)
+        self._real = []
+        for mod, attr, kind, pos in ENTRY_POINTS:
+            m = importlib.import_module(f"pathtracer_torch.kernels.{mod}")
+            self._real.append((m, attr, kind, pos, getattr(m, attr)))
 
     def _lanes(self, n, device):
         stride = max(1, n // self.per_call)
@@ -33,11 +60,10 @@ class HitCapture:
         return (torch.arange(min(n, self.per_call), device=device) * stride
                 + off).clamp(max=n - 1)
 
-    def __enter__(self):
-        real_i, real_o = self._real
-
-        def intersect(accel, o, d, t_min, t_max, *a, **kw):
-            hit = real_i(accel, o, d, t_min, t_max, *a, **kw)
+    def _closest(self, real, pos):
+        def call(*a, **kw):
+            hit = real(*a, **kw)
+            o, d, t_min, t_max = _args(a, kw, pos, CLOSEST_ARGS)
             if self.on and o.shape[0]:
                 i = self._lanes(o.shape[0], o.device)
                 tm = torch.as_tensor(t_max, dtype=o.dtype, device=o.device)
@@ -46,9 +72,12 @@ class HitCapture:
                     t_max=tm.expand(o.shape[0])[i], t=hit.t[i],
                     tri=hit.tri[i], u=hit.u[i], v=hit.v[i]))
             return hit
+        return call
 
-        def occluded(accel, o, d, t_max, *a, **kw):
-            out = real_o(accel, o, d, t_max, *a, **kw)
+    def _occluded(self, real, pos):
+        def call(*a, **kw):
+            out = real(*a, **kw)
+            o, d, t_max = _args(a, kw, pos, OCCLUDED_ARGS)
             if self.on and o.shape[0]:
                 i = self._lanes(o.shape[0], o.device)
                 blocked = out[0] if isinstance(out, tuple) else out
@@ -57,14 +86,17 @@ class HitCapture:
                     o=o[i], d=d[i], t_max=tm.expand(o.shape[0])[i],
                     blocked=blocked[i]))
             return out
+        return call
 
-        self.packet.intersect_clusters = intersect
-        self.packet.occluded_clusters = occluded
+    def __enter__(self):
+        for mod, attr, kind, pos, real in self._real:
+            wrap = self._closest if kind == "closest" else self._occluded
+            setattr(mod, attr, wrap(real, pos))
         return self
 
     def __exit__(self, *exc):
-        self.packet.intersect_clusters, self.packet.occluded_clusters = \
-            self._real
+        for mod, attr, _, _, real in self._real:
+            setattr(mod, attr, real)
         return False
 
     def gathered(self):

@@ -7,8 +7,9 @@ Every run is one process on one card. It clears every PT_* variable
 a fixed directory under ptbench/.cache/ (the program's nvcc libraries
 stay in its own pathtracer_torch/_build/), generates the cell's scene
 (ptbench.scenes) and hands it to the program as arrays through
-SceneBuilder, builds the cluster accel, moves the scene to the card and
-constructs pathtracer_torch.render.Renderer as the CLI does. The cell's
+SceneBuilder, builds the accel that the configuration's intersector
+uses and moves the scene to the card (build_accel), and constructs
+pathtracer_torch.render.Renderer as the CLI does. The cell's
 driver (ptbench/drivers/<driver>.py, named by the traffic mix) runs its
 warm-up steps (set-up ends there) and then whole steps until --seconds
 have passed, the step in flight finishing. --trace 1 then profiles a
@@ -77,16 +78,40 @@ class Record:
     k2: dict = None
 
 
+def build_accel(scene, intersector, device):
+    """The scene on `device` with the accel its route traverses, built as
+    the Renderer would build it: the cluster accel on the host, then the
+    move ("cluster"); the move, then the LBVH on the device ("bvh"); the
+    move alone ("brute")."""
+    import torch
+
+    if intersector == "cluster":
+        from pathtracer_torch.accel.cluster import build_scene_clusters
+
+        scene = build_scene_clusters(scene).to(device)
+    elif intersector == "bvh":
+        from pathtracer_torch.accel import lbvh
+
+        scene = lbvh.build_scene_bvh(scene.to(device))
+    elif intersector == "brute":
+        scene = scene.to(device)
+    else:
+        raise ValueError(f"unknown intersector {intersector!r}: expected "
+                         f"cluster, bvh or brute")
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return scene
+
+
 def build_scene(cell, device, rec):
     """The cell's SceneSpec, and the program's scene with its accel on
     `device` (spans scene_build and accel_build)."""
-    import torch
-    from pathtracer_torch.accel.cluster import build_scene_clusters
     from pathtracer_torch.scene.build import MaterialDesc, SceneBuilder
-    from ptbench.scenes import procedural
+
+    from ptbench import scenes
 
     sc = cell.config["scene"]
-    spec = procedural.generate(sc["generator"], sc["args"])
+    spec = scenes.generate(sc["generator"], sc["args"])
     t0 = time.perf_counter()
     b = SceneBuilder()
     for m in spec.materials:
@@ -99,9 +124,7 @@ def build_scene(cell, device, rec):
         b.add_mesh(**m)
     scene = b.finalize(device="cpu")
     t1 = time.perf_counter()
-    scene = build_scene_clusters(scene).to(device)
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+    scene = build_accel(scene, cell.config["render"]["intersector"], device)
     rec.spans["scene_build"] = t1 - t0
     rec.spans["accel_build"] = time.perf_counter() - t1
     return spec, scene
@@ -227,7 +250,10 @@ def run(cell, seed, seconds, trace, device, out=sys.stdout, start=None):
             f"count: {torch.cuda.device_count() if torch.cuda.is_available() else 0}")
         return None
     from pathtracer_torch import knobs
-    from pathtracer_torch.kernels import LAUNCHES, packet, sweep
+    # loaded before set-up's spans open, so that accel_build times the
+    # build and no import: packet (and the cluster accel) and the LBVH
+    from pathtracer_torch.accel import lbvh  # noqa: F401
+    from pathtracer_torch.kernels import LAUNCHES, packet, sweep  # noqa: F401
 
     from ptbench import capture, checks, drivers
     from ptbench import trace as trace_mod
@@ -257,7 +283,7 @@ def run(cell, seed, seconds, trace, device, out=sys.stdout, start=None):
     for k in LAUNCHES:
         LAUNCHES[k] = 0
 
-    with capture.HitCapture(packet, cell.traffic["hit_rays_per_call"],
+    with capture.HitCapture(cell.traffic["hit_rays_per_call"],
                             seed) as hits:
         window(driver, seconds, rec, hits, count_rays=bool(trace))
     launches = {k: v for k, v in LAUNCHES.items() if v}

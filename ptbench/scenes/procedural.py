@@ -1,4 +1,6 @@
-"""Frozen numpy copies of the scene generators the cells run.
+"""Frozen numpy copies of the scene generators the cells run, and their
+helpers: a configuration reaches each generator through a module of its
+own (ptbench/scenes/<generator>.py, ptbench.scenes).
 
 Each generator returns a SceneSpec: the meshes, materials, textures and
 env map exactly as pathtracer_torch.scene.procedural hands them to its
@@ -319,15 +321,3 @@ def sponza_like(target_tris=262_000, seed=0, textured=False) -> SceneSpec:
         add_box([x - s, 0, z - s], [x + s, rng.uniform(0.5, 1.8), z + s],
                 stone if rng.random() < 0.5 else fabric, sub=3)
     return b
-
-
-GENERATORS = {"sponza_like": sponza_like, "bunny_like": bunny_like,
-              "envmap_scene": envmap_scene}
-
-
-def generate(name: str, args: dict) -> SceneSpec:
-    """The SceneSpec of generator `name` called with `args`."""
-    if name not in GENERATORS:
-        raise ValueError(f"unknown scene generator {name!r}: expected one "
-                         f"of {', '.join(sorted(GENERATORS))}")
-    return GENERATORS[name](**args)

@@ -6,7 +6,16 @@ found by its name:
 
   the configuration's file     the `file` of its BENCHMARK.json entry
                                (ptbench/configs/<config>.json)
-  a traffic mix                ptbench/traffic/<traffic>.json
+  its scene generator          ptbench/scenes/<generator>.py, named by the
+                               configuration's `scene.generator`, whose
+                               generate(**scene.args) gives the scene
+                               (ptbench.scenes)
+  its accel                    the configuration's `render.intersector`
+                               (cluster, bvh or brute) picks the build
+                               (ptbench.run.build_accel) and the entry
+                               points whose hits are compared
+                               (ptbench.capture)
+  a traffic mix               ptbench/traffic/<traffic>.json
   the mix's driver             ptbench/drivers/<driver>.py, named by the
                                mix's `driver` (ptbench.drivers)
   a metric (either kind)       ptbench/metrics/<metric>.py, whose
@@ -15,8 +24,8 @@ found by its name:
                                quantity split by the cells that report
                                it, is read by <metric>'s reader
 
-so a later configuration, mix, driver or metric is new files and new
-entries.
+so a later configuration, scene, mix, driver or metric is new files and
+new entries.
 """
 
 from __future__ import annotations

@@ -1,10 +1,16 @@
-"""The frozen scene generators give the program's own arrays at seed 0."""
+"""The frozen scene generators give the program's own arrays at seed 0,
+and a configuration's generator is found by name from a module of its
+own."""
 
 from __future__ import annotations
+
+import hashlib
+import sys
 
 import numpy as np
 import pytest
 
+from ptbench import scenes
 from ptbench.scenes import procedural, rgbe
 
 
@@ -75,8 +81,94 @@ def test_rgbe_round_trip_is_the_files(tmp_path):
 
 
 def test_unknown_generator_is_refused():
-    with pytest.raises(ValueError):
-        procedural.generate("cornell", {})
+    with pytest.raises(ValueError, match="sponza_like") as e:
+        scenes.generate("cornell", {})
+    for name in ("bunny_like", "envmap_scene"):
+        assert name in str(e.value)
+    assert {"bunny_like", "envmap_scene", "sponza_like"} <= set(
+        scenes.names())
+    assert not {"procedural", "rgbe"} & set(scenes.names())
+
+
+@pytest.mark.parametrize("name", ["procedural", "rgbe", "procedural.icosphere",
+                                  "..scenes", ""])
+def test_helper_module_is_refused(name):
+    """A module of helpers, or a name that is no module here, is no
+    generator."""
+    with pytest.raises(ValueError, match="unknown scene generator"):
+        scenes.module(name)
+
+
+def spec_digest(spec) -> str:
+    """sha256 over a SceneSpec's materials and every array, in order."""
+    h = hashlib.sha256()
+
+    def arr(a):
+        if a is None:
+            h.update(b"none")
+            return
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype.str}{a.shape}".encode())
+        h.update(a.tobytes())
+
+    for m in spec.materials:
+        h.update(repr(sorted(m.items())).encode())
+    for t in spec.textures:
+        arr(t)
+    for m in spec.meshes:
+        for k in ("positions", "indices", "uvs", "tangents"):
+            arr(m[k])
+        h.update(str(m["material"]).encode())
+    arr(spec.envmap)
+    return h.hexdigest()
+
+
+# digests of the two cells' scenes as the generators gave them when each
+# configuration's scene was still looked up in one closed table
+PINNED = {
+    "sponza_like": (dict(target_tris=262000, seed=0, textured=True),
+                    "c7d47ae6aaab6568b273b40cb61a3d23"
+                    "bbe1d4563a5f1f4437dda847cc84a0fc"),
+    "envmap_scene": (dict(subdivisions=5, tex_size=256, env_h=512,
+                          env_w=1024),
+                     "82bb92ccf6f72f8269941ed7036270631"
+                     "723a7e8330d9a9ae576c45b7e73d577"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PINNED))
+def test_generator_by_name_gives_the_cells_arrays(name):
+    args, digest = PINNED[name]
+    assert scenes.module(name).generate is getattr(procedural, name)
+    assert spec_digest(scenes.generate(name, args)) == digest
+
+
+NEW_GENERATOR = """
+from ptbench.scenes import procedural
+
+
+def generate(size=1.0):
+    b = procedural.SceneSpec()
+    m = b.add_material(albedo=(0.5, 0.5, 0.5))
+    v, i = procedural._quad([0, 0, 0], [size, 0, 0], [size, 0, size],
+                            [0, 0, size])
+    b.add_mesh(v, i, m)
+    return b
+"""
+
+
+def test_new_generator_is_found_from_a_new_file(tmp_path, monkeypatch):
+    """A new scene is a new module under ptbench/scenes/ with a
+    `generate`: a configuration naming it needs no edit elsewhere."""
+    (tmp_path / "one_quad.py").write_text(NEW_GENERATOR)
+    monkeypatch.setattr(scenes, "__path__",
+                        list(scenes.__path__) + [str(tmp_path)])
+    monkeypatch.delitem(sys.modules, "ptbench.scenes.one_quad",
+                        raising=False)
+    assert scenes.module("one_quad").__file__ == str(tmp_path / "one_quad.py")
+    assert "one_quad" in scenes.names()
+    spec = scenes.generate("one_quad", {"size": 2.0})
+    assert spec.n_tris == 2 and spec.meshes[0]["positions"].max() == 2.0
 
 
 @pytest.mark.parametrize("config", ["sponza_textured", "envmap_textured"])
@@ -90,6 +182,6 @@ def test_config_states_the_triangles_it_renders(config):
     cfg = spec.load_json(os.path.join(spec.PKG_DIR, "configs",
                                       f"{config}.json"))
     sc = cfg["scene"]
-    assert procedural.generate(sc["generator"], sc["args"]).n_tris \
+    assert scenes.generate(sc["generator"], sc["args"]).n_tris \
         == cfg["triangles"]
     assert "triangles" in cfg["reduced"]
