@@ -9,7 +9,8 @@ brute route's kernels.intersect.intersect_brute and occluded_brute
 (accel.bruteforce, which render.make_intersectors also takes for scenes
 of at most 256 triangles). Of every captured call it keeps a strided
 sample of lanes - rays, bounds and the answers the route gave - as
-small device gathers, with no host sync. K2Capture wraps
+small device gathers, with no host sync: a scalar t_max is filled on
+the device, never copied from the host. K2Capture wraps
 kernels.sweep.sweep_closest for one step and keeps the arguments of a
 stride sample of its chunks.
 """
@@ -40,6 +41,17 @@ def _args(a, kw, pos, names):
     return [a[p] if p < len(a) else kw[n] for p, n in zip(pos, names)]
 
 
+def _t_max_at(t_max, i, o):
+    """t_max of the lanes i: a per-ray (or 0-d) tensor gathered, a
+    Python scalar filled on o's device (torch.full launches a fill; a
+    torch.as_tensor of a scalar would be a blocking host-to-device
+    copy, a sync the program does not make)."""
+    if torch.is_tensor(t_max):
+        return t_max.to(device=o.device, dtype=o.dtype).expand(
+            o.shape[0])[i]
+    return torch.full(i.shape, float(t_max), dtype=o.dtype, device=o.device)
+
+
 class HitCapture:
     def __init__(self, per_call: int, seed: int):
         self.per_call = per_call
@@ -66,10 +78,9 @@ class HitCapture:
             o, d, t_min, t_max = _args(a, kw, pos, CLOSEST_ARGS)
             if self.on and o.shape[0]:
                 i = self._lanes(o.shape[0], o.device)
-                tm = torch.as_tensor(t_max, dtype=o.dtype, device=o.device)
                 self.closest.append(dict(
                     o=o[i], d=d[i], t_min=float(t_min),
-                    t_max=tm.expand(o.shape[0])[i], t=hit.t[i],
+                    t_max=_t_max_at(t_max, i, o), t=hit.t[i],
                     tri=hit.tri[i], u=hit.u[i], v=hit.v[i]))
             return hit
         return call
@@ -81,9 +92,8 @@ class HitCapture:
             if self.on and o.shape[0]:
                 i = self._lanes(o.shape[0], o.device)
                 blocked = out[0] if isinstance(out, tuple) else out
-                tm = torch.as_tensor(t_max, dtype=o.dtype, device=o.device)
                 self.occluded.append(dict(
-                    o=o[i], d=d[i], t_max=tm.expand(o.shape[0])[i],
+                    o=o[i], d=d[i], t_max=_t_max_at(t_max, i, o),
                     blocked=blocked[i]))
             return out
         return call

@@ -10,8 +10,10 @@ module and a new mix file. A driver module provides:
       .camera      the benchmark's own copy of the view
                    (ptbench.reference.camera), kept in step with the
                    program's, so the reference needs nothing of it
-      .spans       {name: [seconds, ...]} of the driver's own spans,
-                   cleared when set-up ends
+      .spans       optional: {name: [seconds, ...]} of the driver's own
+                   spans (a display driver's readback, say); run.py
+                   clears it when set-up ends and copies the window's
+                   into Record.spans as driver.<name>, for a reader
       .outputs(seed) -> dict of what the window produced that the
                    reference judges, read while the program's state lives
   reference(tb, cell, seed, produced) -> dict: the same fields of

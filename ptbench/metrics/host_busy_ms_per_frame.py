@@ -5,7 +5,7 @@ enqueue time, without the profiler's overhead - over the window's frames
 
 
 def read(rec):
-    t = getattr(rec, "tracing", None)
+    t = rec.tracing
     if not t or not rec.frames:
         return None
     return 1e3 * t["host_busy_s"] / rec.frames

@@ -4,7 +4,7 @@ host_syncs counter over the traced window, over the window's frames
 
 
 def read(rec):
-    t = getattr(rec, "tracing", None)
+    t = rec.tracing
     if not t or not rec.frames:
         return None
     return t["host_syncs"] / rec.frames

@@ -1,11 +1,11 @@
-"""integrator_ms_per_frame: device time, per frame of the profiled
-steps, of the ops launched inside the program's pt.bounce, pt.wavefront
-or pt.film spans and outside every pt.traverse.* span (ptbench.stages,
-a run with pathtracer_torch.tracing on), in ms."""
+"""integrator_ms_per_frame: device time, per frame of the profiled steps
+(the program's tracing on), of the ops launched inside its pt.bounce,
+pt.wavefront or pt.film spans and outside every pt.traverse.* span
+(ptbench.stages), in ms."""
 
 
 def read(rec):
     p = rec.profile
-    if not p or "integrator_s" not in p or not p["frames"]:
+    if not p or p["device_s"] <= 0 or not p["frames"]:
         return None
     return 1e3 * p["integrator_s"] / p["frames"]

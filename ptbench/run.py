@@ -11,11 +11,15 @@ SceneBuilder, builds the accel that the configuration's intersector
 uses and moves the scene to the card (build_accel), and constructs
 pathtracer_torch.render.Renderer as the CLI does. The cell's
 driver (ptbench/drivers/<driver>.py, named by the traffic mix) runs its
-warm-up steps (set-up ends there) and then whole steps until --seconds
-have passed, the step in flight finishing. --trace 1 then profiles a
-few more steps and replays a sample of K2's chunks. After the window the
-program's state is freed and the plain reference (ptbench.reference)
-judges what the window produced (ptbench.checks). The last line on
+warm-up steps (set-up ends there; the program's pt.kernel_load spans of
+set-up are read then) and then whole steps until --seconds have passed,
+the step in flight finishing. --trace 1 turns the program's tracing
+(pathtracer_torch.tracing) on across the window, then profiles a few
+more steps with it on (device time by kind and idle: ptbench.trace; by
+the program's spans: ptbench.stages), and replays a sample of K2's
+chunks; --trace 0 leaves tracing off. Then the program's state is
+freed and the plain reference (ptbench.reference) judges what the
+window produced (ptbench.checks). The last line on
 stdout is the result; the last lines on stderr are the numbers
 compared, each beside its limit. Without a CUDA card (or with fewer
 than the cell asks for) it exits with 2 and prints no result; if jax,
@@ -74,7 +78,8 @@ class Record:
     peak_bytes: int = 0
     spans: dict = dataclasses.field(default_factory=dict)
     rays: int = None
-    profile: dict = None
+    tracing: dict = None    # the traced window's spans and counters
+    profile: dict = None    # the profiled steps, tracing on
     k2: dict = None
 
 
@@ -141,11 +146,23 @@ def make_renderer(cell, scene, seed, device):
                     cam, device=device)
 
 
-def window(driver, seconds, rec, hits, count_rays=False):
+def window(driver, seconds, rec, hits, trace=False):
     """Whole steps until `seconds` have passed, capturing hits; fills
-    rec."""
+    rec, and copies the driver's own spans into rec.spans as
+    driver.<name>. With `trace`, the program's tracing is on across the
+    steps: rec.rays, and rec.tracing from the window's spans and the
+    rise of every counter (stages.window's keys, `spans` by name,
+    `counters`)."""
+    from pathtracer_torch import tracing
+
+    from ptbench import stages
+
     rays = 0
     f0 = driver.frames()
+    if trace:
+        tracing.take()
+        before = dict(tracing.COUNTERS)
+        tracing.enable()
     hits.on = True
     t_w0 = time.perf_counter()
     k = 0
@@ -154,7 +171,7 @@ def window(driver, seconds, rec, hits, count_rays=False):
         driver.step()
         tb = time.perf_counter()
         rec.step_s.append(tb - ta)
-        if count_rays:
+        if trace:
             rays = rays + driver.r.last_rays
         k += 1
         if tb - t_w0 >= seconds:
@@ -163,30 +180,47 @@ def window(driver, seconds, rec, hits, count_rays=False):
     rec.window_s = tb - t_w0
     rec.steps = k
     rec.frames = driver.frames() - f0
-    if count_rays:
+    if trace:
+        tracing.disable()
+        rise = {key: n - before.get(key, 0)
+                for key, n in tracing.COUNTERS.items()}
+        spans = tracing.take()
+        rec.tracing = dict(stages.window(spans, rise["host_syncs"]),
+                           spans=stages.host_spans(spans), counters=rise)
         rec.rays = int(rays)
+    for name, secs in getattr(driver, "spans", {}).items():
+        rec.spans[f"driver.{name}"] = list(secs)
 
 
 def profile_steps(driver, n, device, handwritten):
-    """torch.profiler over n more steps -> ptbench.trace.read's dict
-    with the frames they completed."""
+    """torch.profiler over n more steps with the program's tracing on,
+    its pt.* ranges on the profiler's timeline -> ptbench.trace.read's
+    keys (trace.read passes over those ranges), ptbench.stages.read's
+    with the attributes of the steps' spans, and the frames the steps
+    completed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from ptbench import trace
+    from pathtracer_torch import tracing
+
+    from ptbench import stages, trace
 
     acts = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     f0 = driver.frames()
+    tracing.take()
+    tracing.enable()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             driver.step()
         wall = time.perf_counter() - t0
-    out = trace.read(prof.events(), handwritten, wall)
-    out["frames"] = driver.frames() - f0
-    return out
+    tracing.disable()
+    events = prof.events()
+    return dict(trace.read(events, handwritten, wall),
+                frames=driver.frames() - f0,
+                **stages.read(events, handwritten, tracing.take()))
 
 
 def power_limit():
@@ -249,13 +283,13 @@ def run(cell, seed, seconds, trace, device, out=sys.stdout, start=None):
             f"available: {torch.cuda.is_available()}, "
             f"count: {torch.cuda.device_count() if torch.cuda.is_available() else 0}")
         return None
-    from pathtracer_torch import knobs
+    from pathtracer_torch import knobs, tracing
     # loaded before set-up's spans open, so that accel_build times the
     # build and no import: packet (and the cluster accel) and the LBVH
     from pathtracer_torch.accel import lbvh  # noqa: F401
     from pathtracer_torch.kernels import LAUNCHES, packet, sweep  # noqa: F401
 
-    from ptbench import capture, checks, drivers
+    from ptbench import capture, checks, drivers, stages
     from ptbench import trace as trace_mod
 
     log("knobs", json.dumps({k: [state, os.environ.get(k)]
@@ -277,6 +311,8 @@ def run(cell, seed, seconds, trace, device, out=sys.stdout, start=None):
     rec.spans["imports"] = t_imports
     sync()
     rec.setup_s = time.perf_counter() - start
+    rec.spans["kernel_load"] = stages.kernel_load_s(tracing.take())
+    getattr(driver, "spans", {}).clear()
     if is_cuda:
         setup_peak = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -285,7 +321,7 @@ def run(cell, seed, seconds, trace, device, out=sys.stdout, start=None):
 
     with capture.HitCapture(cell.traffic["hit_rays_per_call"],
                             seed) as hits:
-        window(driver, seconds, rec, hits, count_rays=bool(trace))
+        window(driver, seconds, rec, hits, trace=bool(trace))
     launches = {k: v for k, v in LAUNCHES.items() if v}
     if is_cuda:
         rec.window_peak_bytes = torch.cuda.max_memory_allocated()
@@ -298,8 +334,14 @@ def run(cell, seed, seconds, trace, device, out=sys.stdout, start=None):
     if trace:
         hand = trace_mod.handwritten_names(os.path.dirname(
             os.path.abspath(sys.modules["pathtracer_torch"].__file__)))
+        t0 = time.perf_counter()
         rec.profile = profile_steps(driver, cell.traffic["trace_steps"],
                                     device, hand)
+        log("profiled seconds", time.perf_counter() - t0)
+        log("tracing", json.dumps(rec.tracing))
+        log("profile", json.dumps(dict(rec.profile, by_span={
+            name: {k: v for k, v in row.items() if k != "attrs"}
+            for name, row in rec.profile["by_span"].items()})))
         if is_cuda:
             from ptbench.roofline import k2 as k2_mod
 
@@ -342,8 +384,9 @@ def run(cell, seed, seconds, trace, device, out=sys.stdout, start=None):
     if trace and rec.profile:
         dev["busy_s"] = rec.profile["busy_s"]
         dev["window_s"] = rec.profile["window_s"]
+        # gaps named by the program's spans
         result["breakdown"] = {"device_ops": rec.profile["device_ops"],
-                               "idle_gaps": rec.profile["idle_gaps"]}
+                               "idle_gaps": rec.profile["idle_gaps_by_span"]}
     result["checks"] = rows
     for name, row in rows.items():
         side = ">=" if row["at_least"] else "<="

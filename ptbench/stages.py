@@ -22,6 +22,14 @@ open at its launch:
 Device idle is the gaps between device activity (ptbench.trace's rule);
 a gap belongs to the innermost pt.* range open on the host at its
 midpoint.
+
+Beside the buckets, every pt.* name found in the trace is read by
+itself (`by_span`), none listed here, so that a new span's metric is a
+new reader and nothing else: the device seconds of the ops launched
+with it open anywhere on the stack and with it innermost, the idle
+seconds whose midpoint it spans, and the attributes its spans recorded
+(tracing.take() of the same steps). Its count and host seconds are the
+window's (host_spans), on the host clock.
 """
 
 from __future__ import annotations
@@ -63,11 +71,18 @@ def _open_at(ranges, times):
     return out
 
 
-def read(events, handwritten: set) -> dict:
+def read(events, handwritten: set, spans=()) -> dict:
     """Device seconds by bucket (`<bucket>_s`, summed op durations), all
     device seconds (`device_s`), idle seconds under pt.traverse.*
-    (`packet_idle_s`) and idle seconds by the innermost range open at a
-    gap's midpoint (`idle_by_span`, "(none)" outside every pt.*)."""
+    (`packet_idle_s`), idle seconds by the innermost range open at a
+    gap's midpoint (`idle_by_span`, "(none)" outside every pt.*), the
+    ten longest gaps named by that range and the innermost other host
+    event there (`idle_gaps_by_span`, [[name, seconds]]), and per pt.*
+    name of the trace (`by_span`): `device_s` (open anywhere on the
+    stack at the launch),
+    `self_device_s` (innermost), `idle_s` (open at the gap's midpoint)
+    and `attrs`, the attributes of `spans` (tracing.take()) of that
+    name, oldest first."""
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
@@ -80,6 +95,11 @@ def read(events, handwritten: set) -> dict:
     ranges = [(e.time_range.start, e.time_range.end, e.name) for e in host
               if e.name.startswith("pt.")]
     out = {f"{b}_s": 0.0 for b in BUCKETS}
+    by_span = {name: {"device_s": 0.0, "self_device_s": 0.0, "idle_s": 0.0,
+                      "attrs": []} for _, _, name in ranges}
+    for sp in spans:
+        if sp["name"] in by_span:
+            by_span[sp["name"]]["attrs"].append(sp["attrs"])
     linked = sorted(((launch[e.id], e) for e in dev if e.id in launch),
                     key=lambda te: te[0])
     for e in dev:
@@ -91,6 +111,10 @@ def read(events, handwritten: set) -> dict:
         b = ("handwritten" if trace.kind_of(e.name, handwritten)
              == "handwritten" else _bucket(names))
         out[f"{b}_s"] += _sec(e)
+        for name in set(names):
+            by_span[name]["device_s"] += _sec(e)
+        if names:
+            by_span[names[-1]]["self_device_s"] += _sec(e)
     out["device_s"] = sum(_sec(e) for e in dev)
 
     gaps, end = [], None
@@ -98,15 +122,33 @@ def read(events, handwritten: set) -> dict:
         if end is not None and s > end:
             gaps.append((0.5 * (end + s), (s - end) / 1e6))
         end = e if end is None else max(end, e)
-    by_span, packet_idle = {}, 0.0
-    for (_, sec), names in zip(gaps, _open_at(ranges, [m for m, _ in gaps])):
+    stacks = _open_at(ranges, [m for m, _ in gaps])
+    idle_by_span, packet_idle = {}, 0.0
+    for (_, sec), names in zip(gaps, stacks):
         key = names[-1] if names else "(none)"
-        by_span[key] = by_span.get(key, 0.0) + sec
+        idle_by_span[key] = idle_by_span.get(key, 0.0) + sec
         if any(n in TRAVERSE for n in names):
             packet_idle += sec
+        for name in set(names):
+            by_span[name]["idle_s"] += sec
     out["packet_idle_s"] = packet_idle
-    out["idle_by_span"] = by_span
+    out["idle_by_span"] = idle_by_span
+    out["by_span"] = by_span
+    longest = sorted(zip(gaps, stacks), key=lambda gs: -gs[0][1])[:10]
+    out["idle_gaps_by_span"] = [[_gap_name(mid, names, host), sec]
+                                for (mid, sec), names in longest]
     return out
+
+
+def _gap_name(mid, names, host) -> str:
+    """<innermost pt.* range>/<innermost other host event> at a gap's
+    midpoint: "(none)" outside every pt.*, no "/" where no other event
+    spans it."""
+    cover = [(e.time_range.end - e.time_range.start, e.name) for e in host
+             if e.time_range.start <= mid <= e.time_range.end
+             and not e.name.startswith("pt.")]
+    span = names[-1] if names else "(none)"
+    return f"{span}/{min(cover)[1]}" if cover else span
 
 
 def _sec(e) -> float:
@@ -123,6 +165,17 @@ def window(spans: list, host_syncs: int) -> dict:
     busy -= sum(s["end_ns"] - s["start_ns"] for s in spans
                 if s["name"] == "pt.sync" and s["step"] in steps)
     return {"host_syncs": int(host_syncs), "host_busy_s": busy / 1e9}
+
+
+def host_spans(spans: list) -> dict:
+    """Per span name of a window's spans (tracing.take()): how many, and
+    their host seconds (`count`, `host_s`)."""
+    out = {}
+    for s in spans:
+        row = out.setdefault(s["name"], {"count": 0, "host_s": 0.0})
+        row["count"] += 1
+        row["host_s"] += (s["end_ns"] - s["start_ns"]) / 1e9
+    return out
 
 
 def kernel_load_s(spans: list) -> float:

@@ -16,9 +16,9 @@ CELLS = ["sponza.accum_1080p", "envmap.accum_1024"]
 SEED = 2**31 + 77
 
 
-def run_tiny(name, trace=0, seconds=0.2, **traffic):
+def run_tiny(name, trace=0, seconds=0.2, device="cpu", **traffic):
     out = io.StringIO()
-    res = run.run(tiny_cell(name, **traffic), SEED, seconds, trace, "cpu",
+    res = run.run(tiny_cell(name, **traffic), SEED, seconds, trace, device,
                   out=out)
     assert res is not None
     return last_json_line(out.getvalue())
@@ -27,9 +27,12 @@ def run_tiny(name, trace=0, seconds=0.2, **traffic):
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_runs_and_agrees_with_the_reference(name, capsys):
     line = run_tiny(name)
-    assert list(line)[-1] == "checks"
-    for key in ("correct", "attempted", "failed", "metrics", "device"):
-        assert key in line
+    # the keys of an untraced line, in their order, as before tracing
+    # was read: nothing of the traced passes reaches it
+    assert list(line) == ["correct", "attempted", "failed", "metrics",
+                          "device", "checks"]
+    assert list(line["device"]) == ["platform", "kind", "count",
+                                    "memory_peak_bytes"]
     assert line["correct"] is True, line["checks"]
     assert line["attempted"] >= 1 and line["failed"] == 0
     assert set(line["checks"]) == set(checks.limits(
@@ -40,20 +43,48 @@ def test_cell_runs_and_agrees_with_the_reference(name, capsys):
         name).end_to_end}
     for m in line["metrics"].values():
         assert set(m) == {"value", "unit"}
-    assert set(line["device"]) >= {"platform", "kind", "count",
-                                   "memory_peak_bytes"}
     err = capsys.readouterr().err.strip().splitlines()
     tail = err[-len(line["checks"]):]
     assert all(t.startswith("check ") and " limit " in t for t in tail)
 
 
-def test_traced_line_carries_per_layer_metrics():
-    line = run_tiny("sponza.accum_1080p", trace=1)
+@pytest.mark.parametrize("name", CELLS)
+def test_traced_line_carries_per_layer_metrics(name):
+    """Every per-layer metric that the program's spans and counters give
+    is in a traced CPU run's line (the kernel loads, the window's host
+    busy time and syncs among them); those read from the device trace
+    are left out, since a CPU run has no device op to read."""
+    line = run_tiny(name, trace=1)
     m = line["metrics"]
-    assert {"scene_build_s", "accel_build_s", "rays_per_frame"} <= set(m)
-    assert "frame_ms" not in m
+    wanted = tiny_cell(name).per_layer
+    assert set(m) == {w["name"] for w in wanted
+                      if w["source"] != "device_trace"}
+    assert {"scene_build_s", "accel_build_s", "kernel_load_s"} <= set(m)
+    syncs = next(k for k in m if k.startswith("host_syncs_per_frame"))
+    busy = next(k for k in m if k.startswith("host_busy_ms_per_frame"))
+    assert m[syncs]["value"] > 0 and m[busy]["value"] > 0
     assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
     assert {"busy_s", "window_s"} <= set(line["device"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CELLS)
+def test_traced_line_on_the_card_reads_every_per_layer_metric(
+        name, cuda_device):
+    """On the card every per-layer metric of the cell gives a number:
+    the kinds, idle and the program's stages from the profiled pass
+    (tracing on), K2's replay."""
+    line = run_tiny(name, trace=1, device=cuda_device)
+    assert line["correct"] is True, line["checks"]
+    m = line["metrics"]
+    assert set(m) == {w["name"] for w in tiny_cell(name).per_layer}
+    for k in m:
+        if k.split(".")[0] in ("integrator_ms_per_frame",
+                               "packet_ms_per_frame", "host_syncs_per_frame",
+                               "host_busy_ms_per_frame"):
+            assert m[k]["value"] > 0, k
+    assert all(n.startswith(("pt.", "(none)"))
+               for n, _ in line["breakdown"]["idle_gaps"])
 
 
 def test_fault_state_unchanged(monkeypatch):

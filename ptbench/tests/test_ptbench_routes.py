@@ -239,3 +239,43 @@ def test_capture_wraps_every_routes_entry_points():
             assert getattr(mods[m], a) is not fn
     for (m, a), fn in real.items():
         assert getattr(mods[m], a) is fn
+
+
+@pytest.mark.parametrize("kind", ["scalar", "0-d", "per-ray"])
+def test_captured_t_max_copies_nothing_from_the_host(kind, monkeypatch):
+    """The captured t_max of the sampled lanes is the call's, whether
+    the call passed a Python scalar, a 0-d or a per-ray tensor; a scalar
+    is filled on the device, with no torch.as_tensor or torch.tensor (a
+    blocking host-to-device copy on the card)."""
+    import torch
+
+    from ptbench import capture
+
+    n = 300
+    o, d = torch.rand(n, 3), torch.rand(n, 3)
+    per_ray = torch.linspace(1.0, 2.0, n)
+    t_max = {"scalar": 7.5, "0-d": torch.tensor(7.5),
+             "per-ray": per_ray}[kind]
+    want = per_ray if kind == "per-ray" else torch.full((n,), 7.5)
+    cap = capture.HitCapture(64, 5)
+    hit = types.SimpleNamespace(t=torch.rand(n), tri=torch.arange(n),
+                                u=torch.rand(n), v=torch.rand(n))
+    closest = cap._closest(lambda *a: hit, (1, 2, 3, 4))
+    occluded = cap._occluded(lambda *a: torch.zeros(n, dtype=torch.bool),
+                             (1, 2, 3))
+
+    def refuse(*a, **kw):
+        raise AssertionError("a tensor made from host data")
+
+    monkeypatch.setattr(torch, "as_tensor", refuse)
+    monkeypatch.setattr(torch, "tensor", refuse)
+    cap.on = True
+    closest(None, o, d, 1e-3, t_max)
+    occluded(None, o, d, t_max)
+    monkeypatch.undo()
+    got = cap.gathered()
+    for k in ("closest", "occluded"):
+        lanes = [int(torch.nonzero((o == row).all(1))[0])
+                 for row in got[k]["o"]]
+        assert len(lanes) == 64
+        assert torch.equal(got[k]["t_max"], want[lanes])
