@@ -54,7 +54,15 @@ Drives pathtracer_torch's paths on the card and checks them:
    run's data; K9 (the PCG4D draw of sampling/rng.py) bit for bit against
    its plain version at a headline wavefront's 8,294,400 lanes in the
    main path's word layout, each timed beside K9's bytes bound
-   (`k9_vs_plain`), and the headline run must launch it;
+   (`k9_vs_plain`), and the headline run must launch it; K10 (a
+   bounce's shading, integrator/shade.py) and its resolve against the
+   plain chain on a headline wavefront's bounce 0 and last segment, the
+   traversal's answers replayed to both (the traversal calls' parked
+   lanes equal, rays and radiance within SHADE_ULPS ulps, the ray count
+   exact), K10's ms beside its bytes bound and both paths' ms
+   (`k10_vs_plain`), and configs 1-5's 64x64 golden gates with every
+   bounce shaded by K10 (`k10_goldens`; `--only shade` runs these two
+   alone after the device phase);
 3. configs: the config sweep (pathtracer_torch/bench/configs.py, the
    port of benchmarks/run_configs.py, whose configs, cameras and golden
    gate this script imports) at BASELINE's sizes - configs 1-5 through
@@ -186,8 +194,9 @@ sys.path.insert(0, ROOT)
 # the five BASELINE configs, their cameras and the golden gate: one
 # definition, the config sweep's (python -m pathtracer_torch.bench.configs)
 from pathtracer_torch.bench.configs import (  # noqa: E402
-    MEAN_TOL, OUTLIER_TOL, RMSE_TOL, SPONZA_CAM, build_configs, camera,
-    load_golden, load_scene, probe_cfg, robust_gate, run_config)
+    MEAN_TOL, OUTLIER_TOL, RMSE_TOL, SPONZA_CAM, accuracy_probe,
+    build_configs, camera, load_golden, load_scene, probe_cfg, robust_gate,
+    run_config)
 
 DEVICE = "cuda"
 # the headline: bench.py's textured sponza_like at 1080p (never cut)
@@ -238,6 +247,10 @@ KERNELS = {
     # XLA code in the JAX package: one PCG4D draw of uniform4
     "pcg4d": ("pathtracer_torch/csrc/rng.cu",
               "pathtracer/sampling/rng.py:47 (pcg4d, via uniform4 :80)"),
+    # XLA code in the JAX package: a bounce's shading chain
+    "shade": ("pathtracer_torch/csrc/shade.cu",
+              "pathtracer/integrator/path.py:686 (segment) and :795 "
+              "(bounce)"),
 }
 KERNEL_IDS = {"tile_cull": "K1", "sweep_closest": "K2",
               "sweep_occluded": "K3", "sweep_occluded_blocker": "K3b",
@@ -289,6 +302,19 @@ SOBOL_LANES = 1 << 21
 # is bytes: each lane reads an int32 pixel and an int64 sample id and
 # writes 16 B (its ~40 integer instructions take about a third of that)
 RNG_LANES, RNG_REPEATS = HEADLINE_W * HEADLINE_H * 4, 20
+# K10 on a headline wavefront: bounce 0 and the last segment of a depth-2
+# trace_paths, the traversal's answers replayed, SHADE_REPEATS timings a
+# path. Its bound is bytes, each input read once and each output written
+# once: a lane reads its state and hit (SHADE_LANE_IN: active, o, d,
+# throughput, radiance, prev_pdf, pixel and sample ids, t/tri/u/v) and
+# writes the next state, its sky or emission term, a shadow ray, a pending
+# term and its flag (SHADE_LANE_OUT); the tables once: the surface rows of
+# the triangles hit, the material rows, the composite texels and the
+# light rows. Floats may sit SHADE_ULPS ulps of their row's magnitude
+# from the plain chain's.
+SHADE_REPEATS, SHADE_ULPS = 3, 8
+SHADE_LANE_IN = 1 + 4 * 12 + 4 + 4 + 8 + 16
+SHADE_LANE_OUT = 4 * 12 + 4 + 1 + 28 + 12 + 1
 # the sharded phase: gloo ranks sharing cuda:0, and how long they may run
 SHARD_RANKS, SHARD_TIMEOUT_S = 2, 300
 # the images phase: the .glb render's size, the PNG sizes whose decode is
@@ -342,7 +368,8 @@ def phase_device():
     builds = [threading.Thread(target=run, args=(native.build, lib))
               for lib in native.LIBS] + [
         threading.Thread(target=run, args=(cuda_build.build, name))
-        for name in ("cull", "sweep", "traverse", "probes", "rng")]
+        for name in ("cull", "sweep", "traverse", "probes", "rng",
+                     "shade")]
     for t in builds:
         t.start()
     for t in builds:
@@ -1097,6 +1124,197 @@ def phase_rng():
     log("k9_vs_plain", lanes=RNG_LANES, bytes=moved,
         share_of_bound=bound / ms, card=card_line(), **res)
     return {"pcg4d": res}
+
+
+def ulps_apart(a, b):
+    """|a - b| in units in the last place of float32, elementwise (a
+    NaN on both sides is 0 apart)."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    gap = (ordered(a) - ordered(b)).abs()
+    return torch.where(torch.isnan(a) & torch.isnan(b), 0, gap)
+
+
+def rows_apart(a, b, ulps):
+    """Rows whose values differ by more than `ulps` ulps of the row's
+    largest magnitude (NaN equal to NaN)."""
+    import torch
+
+    a2, b2 = (x.reshape(x.shape[0], -1) for x in (a, b))
+    scale = torch.maximum(a2.abs(), b2.abs()).amax(dim=1, keepdim=True)
+    scale = torch.where(torch.isfinite(scale), scale, 0.0)
+    same = (a2 == b2) | (torch.isnan(a2) & torch.isnan(b2))
+    near = (a2 - b2).abs() <= ulps * 2.0 ** -23 * scale
+    return ~(same | near).all(dim=1)
+
+
+def phase_shade(scene, cfg, cam):
+    """K10 and its resolve against the plain chain on a headline
+    wavefront (1920 x 1080 x 4 spp-batched lanes): bounce 0 and the last
+    segment of a depth-2 trace_paths. The traversal runs once; both paths
+    then get its answers replayed, so each is the integrator alone. The
+    traversal calls' parked lanes must be equal, their rays, the radiance
+    and the ray count within SHADE_ULPS ulps / exact; each path timed
+    under CUDA events (SHADE_REPEATS runs), K10's launches alone beside
+    their bytes bound."""
+    import torch
+
+    from pathtracer_torch import tracing
+    from pathtracer_torch.integrator import path, shade
+    from pathtracer_torch.render import (_base_pixels, _primary_rays,
+                                         make_intersectors)
+
+    dev = torch.device(DEVICE)
+    cfg2 = dataclasses.replace(cfg, max_depth=2)
+    m = HEADLINE_W * HEADLINE_H
+    pix = _base_pixels(HEADLINE_W, HEADLINE_H, dev).repeat(cfg.spp)
+    samp = (4000 + torch.arange(cfg.spp, dtype=torch.int64, device=dev)
+            ).repeat_interleave(m)
+    o, d = _primary_rays(cfg2, cam.state(device=dev), pix, samp)
+    i_fn, o_fn, _ = make_intersectors(scene, cfg2)
+    answers = []
+
+    def recorded(fn):
+        def call(*a, **kw):
+            answers.append(fn(*a, **kw))
+            return answers[-1]
+        return call
+
+    path.trace_paths(scene, cfg2, o, d, pix, samp, recorded(i_fn),
+                     recorded(o_fn), sample_window=cfg.spp)
+    hits = answers[0].tri >= 0
+
+    def replay(kernel, launch_ms=None):
+        calls, it = [], iter(answers)
+
+        def closest(o_, d_, *a, **kw):
+            calls.append((o_, d_, None))
+            return next(it)
+
+        def occluded(o_, d_, t_max, **kw):
+            calls.append((o_, d_, t_max))
+            return next(it)
+
+        plain, launch = shade.kernel_shades, shade.Shader._launch
+
+        def timed_launch(self, p, lib):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            launch(self, p, lib)
+            end.record()
+            launch_ms.append((start, end))
+
+        try:
+            if not kernel:
+                shade.kernel_shades = lambda *a, **kw: False
+            if launch_ms is not None:
+                shade.Shader._launch = timed_launch
+            rad, _, rays, _, _ = path.trace_paths(
+                scene, cfg2, o, d, pix, samp, closest, occluded,
+                sample_window=cfg.spp)
+        finally:
+            shade.kernel_shades, shade.Shader._launch = plain, launch
+        return rad, int(rays), calls
+
+    before = dict(tracing.COUNTERS), tracing.LAUNCHES["shade"]
+    rk, nk, ck = replay(True)
+    launched = tracing.LAUNCHES["shade"] - before[1]
+    kernel_bounces = tracing.COUNTERS["shade_kernel"] \
+        - before[0]["shade_kernel"]
+    rp, np_, cp = replay(False)
+    why = []
+    if launched != 2 or kernel_bounces != 2:
+        why.append(f"K10 launched {launched} times over {kernel_bounces} "
+                   "kernel bounces, want 2 and 2")
+    if nk != np_:
+        why.append(f"ray count {nk} against the plain chain's {np_}")
+    parked_apart = rays_far = 0
+    for (ok_, dk, tk), (op, dp, tp) in zip(ck, cp):
+        pk, pp = ok_[:, 0] >= 1e29, op[:, 0] >= 1e29
+        parked_apart += int((pk != pp).sum())
+        live = ~pk & ~pp
+        for x, y in ((ok_, op), (dk, dp), (tk, tp)):
+            if x is not None:
+                rays_far += int(rows_apart(x[live], y[live],
+                                           SHADE_ULPS).sum())
+    if parked_apart or rays_far:
+        why.append(f"traversal inputs: {parked_apart} lanes parked on one "
+                   f"side, {rays_far} lanes' rays apart")
+    rad_far = int(rows_apart(rk, rp, SHADE_ULPS).sum())
+    if rad_far:
+        why.append(f"radiance: {rad_far} lanes apart")
+    gap = ulps_apart(rk, rp)
+
+    def best_ms(kernel):
+        runs = [timed(lambda: replay(kernel))[1]
+                for _ in range(SHADE_REPEATS)]
+        return min(runs), runs
+
+    kernel_ms, kernel_runs = best_ms(True)
+    plain_ms, plain_runs = best_ms(False)
+    launch_ms = []
+    replay(True, launch_ms)
+    torch.cuda.synchronize()
+    k10_ms = [s.elapsed_time(e) for s, e in launch_ms]
+    n = pix.shape[0]
+    n_hit = int(hits.sum())
+    tris_hit = int(torch.unique(answers[0].tri[hits]).numel())
+    tables = (tris_hit * 4 * path.pack_surface_rows(scene).shape[1]
+              + scene.n_materials * 64
+              + (0 if scene.tex_comp is None else scene.tex_comp.numel() * 8)
+              + scene.light_cdf.numel() * 4 * 18)
+    moved = n * (SHADE_LANE_IN + SHADE_LANE_OUT) + tables
+    bound = moved / PEAK_BYTES * 1e3
+    res = dict(ms=k10_ms[0], plain_ms=None, bound_ms=bound,
+               bound_by="bytes",
+               max_abs_err=float((rk - rp).abs().max()))
+    log("k10_vs_plain", lanes=n, hit_lanes=n_hit, rays=nk,
+        bounce0_k10_ms=k10_ms[0], last_segment_k10_ms=k10_ms[1],
+        tris_hit=tris_hit, bounce0_bytes=moved, bounce0_table_bytes=tables,
+        bounce0_bound_ms=bound, share_of_bound=bound / k10_ms[0],
+        kernel_path_ms=kernel_ms, plain_path_ms=plain_ms,
+        kernel_path_runs=kernel_runs, plain_path_runs=plain_runs,
+        radiance_bits_differ=int((gap > 0).sum()),
+        radiance_max_ulps=int(gap.max()), radiance_lanes_apart=rad_far,
+        traversal_parked_apart=parked_apart, traversal_rays_apart=rays_far,
+        card=card_line())
+    if why:
+        raise PhaseError("K10: " + "; ".join(why))
+    res["plain_ms"] = plain_ms
+    return {"shade": res}
+
+
+def phase_shade_goldens(tmp_dir):
+    """Configs 1-5's 64x64 golden gates (bench/configs.accuracy_probe),
+    every bounce shaded by K10: the shade_kernel counter rises and
+    shade_plain does not."""
+    import torch
+
+    from pathtracer_torch import tracing
+
+    failed = []
+    for idx, (name, scene_fn, cfg, cam) in enumerate(
+            build_configs(1.0, tmp_dir=tmp_dir), start=1):
+        t0 = time.perf_counter()
+        scene = load_scene(scene_fn, DEVICE)
+        before = dict(tracing.COUNTERS)
+        rmse, ok = accuracy_probe(scene, cfg, cam, idx, DEVICE)
+        torch.cuda.synchronize()
+        rise = {k: tracing.COUNTERS[k] - before[k]
+                for k in ("shade_kernel", "shade_plain")}
+        log("k10_goldens", config=idx, name=name, inlier_rmse=rmse, ok=ok,
+            seconds=time.perf_counter() - t0, **rise)
+        if not ok or rise["shade_kernel"] == 0 or rise["shade_plain"]:
+            failed.append(f"config {idx} (gate {ok}, rmse {rmse}, {rise})")
+        del scene
+        torch.cuda.empty_cache()
+    if failed:
+        raise PhaseError("K10 golden gates: " + "; ".join(failed))
 
 
 def same_bits(a, b):
@@ -3092,6 +3310,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--frames", type=int, default=2,
                     help="timed frames after one warm-up frame, per run")
+    ap.add_argument("--only", choices=("shade",),
+                    help="run the device phase and these phases alone: "
+                         "shade = K10 against the plain chain and the "
+                         "config 1-5 golden gates through K10")
     args = ap.parse_args(argv)
 
     import torch
@@ -3108,8 +3330,17 @@ def main(argv=None):
         with tempfile.TemporaryDirectory(dir=ROOT) as tmp_dir:
             phase_device()
             scene, cfg, cam = headline_setup()
+            if args.only == "shade":
+                shade_stats = phase_shade(scene, cfg, cam)
+                phase_shade_goldens(tmp_dir)
+                log("done", seconds=time.perf_counter() - t_start)
+                print(json.dumps({"shade": shade_stats["shade"]}),
+                      flush=True)
+                return 0
             stats = phase_kernels(scene, cfg, cam)
             stats.update(phase_rng())
+            stats.update(phase_shade(scene, cfg, cam))
+            phase_shade_goldens(tmp_dir)
             stats.update(phase_probes())
             _, config4 = phase_configs(tmp_dir, args.frames)
             base, skip, primed, r_b = phase_headline(scene, cfg, cam,

@@ -27,6 +27,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pcg4d.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -53,32 +55,15 @@ __device__ __forceinline__ uint32_t load_word(const Word& w, long long i) {
   return w.imm;
 }
 
-__device__ __forceinline__ float to_unit(uint32_t bits) {
-  return (float)(bits >> 8) * (1.0f / 16777216.0f);
-}
-
 __global__ void __launch_bounds__(kThreads)
     pcg4d_uniform_kernel(Key key, long long n, float4* __restrict__ out) {
   const long long step = (long long)gridDim.x * kThreads;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
        i += step) {
-    uint32_t x = load_word(key.w[0], i) * 1664525u + 1013904223u;
-    uint32_t y = load_word(key.w[1], i) * 1664525u + 1013904223u;
-    uint32_t z = load_word(key.w[2], i) * 1664525u + 1013904223u;
-    uint32_t w = load_word(key.w[3], i) * 1664525u + 1013904223u;
-    x += y * w;
-    y += z * x;
-    z += x * y;
-    w += y * z;
-    x ^= x >> 16;
-    y ^= y >> 16;
-    z ^= z >> 16;
-    w ^= w >> 16;
-    x += y * w;
-    y += z * x;
-    z += x * y;
-    w += y * z;
-    out[i] = make_float4(to_unit(x), to_unit(y), to_unit(z), to_unit(w));
+    const Pcg4 h = pcg4d(load_word(key.w[0], i), load_word(key.w[1], i),
+                         load_word(key.w[2], i), load_word(key.w[3], i));
+    out[i] = make_float4(to_unit(h.x), to_unit(h.y), to_unit(h.z),
+                         to_unit(h.w));
   }
 }
 

@@ -22,6 +22,15 @@ Every random number is keyed on (pixel, sample, depth, salt) by the
 counter-based PCG4D (sampling/rng.py). The ray counter is exact: path
 rays traced plus NEE visibility queries resolved (int64).
 
+On CUDA tensors each bounce's shading - everything between its
+closest-hit call and its shadow queries, and the NEE terms after them -
+is one hand-written kernel, K10 (integrator/shade.py, csrc/shade.cu),
+except for the variants shade.kernel_shades leaves to the plain chain
+here; CPU tensors always take the plain chain. The two agree on every
+discrete choice and the ray count, and on floats to a few ulps.
+tracing.COUNTERS counts the bounces each shaded ("shade_kernel",
+"shade_plain").
+
 cfg.wavefront_sort re-orders the carried state once per bounce after
 bounce 0 (_wavefront_order: dead lanes last, then direction octant and
 origin Morton), with the pixel and sample ids riding along; radiance
@@ -40,6 +49,7 @@ from pathtracer_torch import tracing
 from pathtracer_torch.accel import morton as morton_mod
 from pathtracer_torch.bsdf import microfacet as mf
 from pathtracer_torch.config import RenderConfig
+from pathtracer_torch.integrator import shade as shade_mod
 from pathtracer_torch.integrator import sky as sky_mod
 from pathtracer_torch.kernels import intersect as isect
 from pathtracer_torch.sampling import rng
@@ -352,6 +362,37 @@ def _nee(scene: Scene, cfg: RenderConfig, surf: Surface, view, pixel,
     return (out, new_blk) if prime_blk is not None else out
 
 
+def _env_sample(scene: Scene, u):
+    """Env-NEE direction, pdf and radiance from four uniforms u [M, 4]."""
+    l_dir, _, _ = envlight.sample_env(
+        scene.env_marginal_cdf, scene.env_cond_cdf,
+        u[..., 0], u[..., 1], u[..., 2], u[..., 3])
+    p_env = envlight.env_pdf(scene.env_pdf, l_dir)
+    le = sky_mod.envmap_radiance(scene.envmap, l_dir)
+    return l_dir, p_env, le
+
+
+def _env_table(scene: Scene, cfg: RenderConfig, sample, depth,
+               sample_window: int):
+    """The env-NEE draws of every (screen cell, sample) with
+    cfg.env_nee_cell > 1: (table f32[n_cells * S, 7] of l_dir | p_env |
+    le, s0), rows cell-major, S = max(1, sample_window) sample ids from
+    s0 = min(sample), an int64 scalar kept on the device."""
+    cell = cfg.env_nee_cell
+    n_cells = -(-cfg.width // cell) * -(-cfg.height // cell)
+    s_win = max(1, sample_window)
+    s0 = sample.long().min()
+    dev = sample.device
+    grid = (n_cells, s_win)
+    ck = torch.arange(n_cells, device=dev)[:, None].expand(grid).reshape(-1)
+    sk = torch.arange(s_win, device=dev)[None, :].expand(grid).reshape(-1) \
+        + s0
+    u = rng.uniform4(ck, sk, depth, rng.SALT_ENV_SELECT, cfg.seed,
+                     cfg.sampler)
+    l_dir, p_env, le = _env_sample(scene, u)
+    return torch.cat([l_dir, p_env[:, None], le], dim=1), s0
+
+
 def _env_draw(scene: Scene, cfg: RenderConfig, pixel, sample, depth,
               sample_window: int):
     """Env-NEE direction, pdf and radiance per lane (path.py:349-401).
@@ -359,41 +400,25 @@ def _env_draw(scene: Scene, cfg: RenderConfig, pixel, sample, depth,
     With cfg.env_nee_cell = c > 1 the draw is keyed on the pixel's c x c
     screen cell instead of the pixel, so a cell's lanes share one
     direction per (sample, depth): the sampling runs once per (cell,
-    sample) on a table of n_cells x S rows (S = sample_window, the
-    wavefront's sample-id window starting at s0 = min(sample)) and
-    reaches the lanes through one row gather - bit-identical to per-lane
-    draws keyed on the cell. s0 stays on the device (no host sync).
+    sample) on _env_table's rows (S = sample_window, the wavefront's
+    sample-id window starting at s0 = min(sample)) and reaches the lanes
+    through one row gather - bit-identical to per-lane draws keyed on
+    the cell. s0 stays on the device (no host sync).
     """
     cell = cfg.env_nee_cell
     if cell > 1:
+        table, s0 = _env_table(scene, cfg, sample, depth, sample_window)
         pix = pixel.long()
         cells_x = -(-cfg.width // cell)
-        cells_y = -(-cfg.height // cell)
-        n_cells = cells_x * cells_y
         cell_id = (torch.div(pix, cfg.width, rounding_mode="floor") // cell
                    * cells_x + torch.remainder(pix, cfg.width) // cell)
         s_win = max(1, sample_window)
-        samp = sample.long()
-        s0 = samp.min()
-        dev = pix.device
-        ck = torch.arange(n_cells, device=dev).repeat_interleave(s_win)
-        sk = torch.arange(s_win, device=dev).repeat(n_cells) + s0
-        u = rng.uniform4(ck, sk, depth, rng.SALT_ENV_SELECT, cfg.seed,
-                         cfg.sampler)
-    else:
-        u = rng.uniform4(pixel, sample, depth, rng.SALT_ENV_SELECT,
-                         cfg.seed, cfg.sampler)
-    l_dir, _, _ = envlight.sample_env(
-        scene.env_marginal_cdf, scene.env_cond_cdf,
-        u[..., 0], u[..., 1], u[..., 2], u[..., 3])
-    p_env = envlight.env_pdf(scene.env_pdf, l_dir)
-    le = sky_mod.envmap_radiance(scene.envmap, l_dir)
-    if cell > 1:
-        table = torch.cat([l_dir, p_env[:, None], le], dim=1)   # [cells*S, 7]
-        slot = torch.clamp(samp - s0, max=s_win - 1)
+        slot = torch.clamp(sample.long() - s0, max=s_win - 1)
         rows = table[cell_id * s_win + slot]
-        l_dir, p_env, le = rows[:, 0:3], rows[:, 3], rows[:, 4:7]
-    return l_dir, p_env, le
+        return rows[:, 0:3], rows[:, 3], rows[:, 4:7]
+    u = rng.uniform4(pixel, sample, depth, rng.SALT_ENV_SELECT, cfg.seed,
+                     cfg.sampler)
+    return _env_sample(scene, u)
 
 
 def _nee_env(scene: Scene, cfg: RenderConfig, surf: Surface, view, pixel,
@@ -531,15 +556,14 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
     def record(col, values):
         prime_out[:, col].scatter_reduce_(0, rows_of, values, "amax")
 
-    def segment(state, depth, primary=False):
-        """Trace + emission collection shared by every bounce."""
+    def trace(state, depth, primary=False):
+        """The closest-hit call shared by every bounce -> (state, hit)."""
         if cfg.wavefront_sort and not primary:
             # bounce 0 keeps its swizzled pixel-block order; later ones
             # re-order every carried lane (path.py:655-675)
             order = _wavefront_order(scene, state[0], state[1], state[4])
             state = tuple(x[order] for x in state[:-1]) + state[-1:]
-        o, d, throughput, radiance, active, prev_pdf, pix, samp, rays = state
-        rays = rays + active.sum()
+        o, d, active = state[0], state[1], state[4]
         o_eff = torch.where(active[..., None], o, 1e30)
         d_eff = torch.where(active[..., None], d, 1.0)
         if primary and prime is not None:
@@ -568,6 +592,13 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
         else:
             hit = intersect_fn(o_eff, d_eff, cfg.t_min, cfg.t_max,
                                primary=primary)
+        return state, hit
+
+    def segment(state, hit, depth):
+        """Sky and emission collection shared by every bounce (the plain
+        chain; K10 does the same in shade.Shader)."""
+        o, d, throughput, radiance, active, prev_pdf, pix, samp, rays = state
+        rays = rays + active.sum()
         hit_ok = hit.valid & active
         missed = active & ~hit.valid
         sky_rad = sky_mod.sky_radiance(cfg, d, scene.envmap,
@@ -602,9 +633,25 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
         return (o, d, throughput, radiance, active, prev_pdf, pix, samp,
                 rays), surf
 
+    def kernel_shades(primary, gbuffer=False):
+        """Does K10 shade this bounce? (shade.kernel_shades; counted)"""
+        primed = primary and prime is not None
+        use = shader is not None and shade_mod.kernel_shades(
+            dev, cfg, primed, gbuffer)
+        tracing.COUNTERS["shade_kernel" if use else "shade_plain"] += 1
+        return use
+
     def bounce(depth, state, primary=False):
-        """One full bounce: segment + NEE + BSDF continuation."""
-        state, surf = segment(state, depth, primary)
+        """One full bounce: trace + segment + NEE + BSDF continuation."""
+        state, hit = trace(state, depth, primary)
+        if kernel_shades(primary, primary and want_gbuffer):
+            table = None
+            if shader.env_nee and cfg.env_nee_cell > 1:
+                table = _env_table(scene, cfg, state[7], depth,
+                                   sample_window)
+            return shader.bounce(state, hit, depth, occluded_fn, primary,
+                                 table)
+        state, surf = segment(state, hit, depth)
         o, d, throughput, radiance, active, prev_pdf, pix, samp, rays = state
         view = -d
         primed = primary and prime is not None
@@ -716,6 +763,14 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
         active = active & (vmath.maxc(throughput) >= cfg.throughput_cutoff)
         return o, d, throughput, radiance, active, prev_pdf, pix, samp, rays
 
+    shader = None
+    if shade_mod.kernel_shades(dev, cfg):
+        shader = shade_mod.Shader(scene, cfg, surf_rows, mat_rows, env_nee,
+                                  sample_window, n)
+        # K10 updates the state in place: no caller's tensor may be in it
+        origins = origins.clone(memory_format=torch.contiguous_format)
+        directions = directions.clone(memory_format=torch.contiguous_format)
+        pixel_ids, sample_ids = pixel_ids.contiguous(), sample_ids.contiguous()
     state = (origins.contiguous(), directions.contiguous(),
              torch.ones((n, 3), dtype=torch.float32, device=dev),
              torch.zeros((n, 3), dtype=torch.float32, device=dev),
@@ -730,8 +785,12 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
             with tracing.span("pt.bounce", depth=depth):
                 state = bounce(depth, state)
     with tracing.span("pt.bounce", depth=cfg.max_depth - 1):
-        state, _ = segment(state, cfg.max_depth - 1,
-                           primary=(cfg.max_depth == 1))
+        last, primary = cfg.max_depth - 1, cfg.max_depth == 1
+        state, hit = trace(state, last, primary)
+        if kernel_shades(primary):
+            state = shader.last(state, hit, last)
+        else:
+            state, _ = segment(state, hit, last)
     radiance = state[3]
     if cfg.clamp_radiance > 0.0:
         radiance = torch.clamp(radiance, max=cfg.clamp_radiance)

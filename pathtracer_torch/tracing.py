@@ -13,15 +13,22 @@ Counters are plain host integers, counted whether tracing is on or off:
             cond_walk as "cond_walk" / "cond_walk_gated" for P2,
             sweep_attrib for P3, and sampling/rng.pcg4d_uniform as
             "pcg4d" for K9 (one a PCG draw of uniform1/2/4 on CUDA
-            tensors). Each wrapper adds one where it launches its CUDA
-            kernel and nowhere else, so a run can show that the main
-            path went through the kernels.
+            tensors), and integrator/shade.Shader's K10 as "shade" (one
+            a bounce it shades) and its resolve as "shade_resolve" (one
+            a bounce with shadow queries). Each wrapper adds one where it
+            launches its CUDA kernel and nowhere else, so a run can show
+            that the main path went through the kernels.
   COUNTERS  "host_syncs": the program's blocking host syncs, one at each
             site inside a step where the host waits for the device
             (host_sync): chunk_live's read of the live-chunk flags, each
             copy of host data to the device (device_tensor), and the
             G-buffer's masked gather. Each site counts on every device,
-            so a CPU run counts what a card's run syncs.
+            so a CPU run counts what a card's run syncs (but for the
+            gradient sky's two copies a segment, which K10 does not
+            make on a card).
+            "shade_kernel" / "shade_plain": the bounces of
+            path.trace_paths (the last segment included) shaded by K10
+            and by the plain chain.
 
 Spans are off by default; enable() and disable() switch them. Off, a
 span site costs one flag test and returns a shared no-op span: it opens
@@ -66,8 +73,8 @@ LAUNCHES = {"tile_cull": 0, "tile_cull_skip": 0, "frustum_cull": 0,
             "sweep_occluded": 0, "sweep_occluded_blocker": 0,
             "bvh_closest": 0, "bvh_occluded": 0, "chain_f32": 0,
             "chain_bf16": 0, "cond_walk": 0, "cond_walk_gated": 0,
-            "sweep_attrib": 0, "pcg4d": 0}
-COUNTERS = {"host_syncs": 0}
+            "sweep_attrib": 0, "pcg4d": 0, "shade": 0, "shade_resolve": 0}
+COUNTERS = {"host_syncs": 0, "shade_kernel": 0, "shade_plain": 0}
 SPANS = []              # recorded spans, oldest first, until take()
 
 _on = False
