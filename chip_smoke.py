@@ -25,12 +25,9 @@ Drives pathtracer_torch's paths on the card and checks them:
    share of bound; per sweep kernel the lane tests its data needs, those
    a kernel testing every lane of every visited column runs, and those
    the kernel runs (from the plain versions' column walk), with its
-   registers and occupancy; K7 (the frustum cull) and K8 (the first
-   cluster of the firstcluster key) bit-exact against their plain
-   versions on the chunks and calls of a headline frame traced with
-   cull="frustum" and firstcluster keys for both call kinds; K1-K3 at
+   registers and occupancy; K1-K3 at
    128 and 256 rays a tile on a chunk a batch of frames traced under
-   PT_TILE_RAYS=128 and 256 (as at 64), K4 at blk 128 and K7 on their K1
+   PT_TILE_RAYS=128 and 256 (as at 64), K4 at blk 128 on their K1
    chunks (bit-exact), with each width's ms a chunk, bound, lane tests
    and columns walked (`tile_rays` on the kernel_vs_plain and sweep_work
    lines), and pair_metrics' bounce-1 visited and needed columns at 32,
@@ -84,15 +81,14 @@ Drives pathtracer_torch's paths on the card and checks them:
    unprimed one with the same ray counts;
    variants: the headline once per default-off alternative of the
    cluster route (VARIANTS: the median/morton accel split, the sah,
-   sahleaf and sahdeep builds, the mixed and firstcluster keys (K8),
-   cull="frustum" (K7), wavefront_sort, PT_SCHED_PACK=1,
-   PT_FETCH_GROUP=2, PT_SORT_SCOPE=chunk, PT_TILE_RAYS=32, 128 and 256
-   and skip_nee), one warm-up and one timed frame each, against the default
+   sahleaf and sahdeep builds, wavefront_sort, PT_TILE_RAYS=32, 128
+   and 256 and skip_nee), one warm-up and one timed frame each, against
+   the default
    route's run of the same frames: rays within 1e-5 and the film within
    the gate (skip_nee: fewer rays, a finite display), and config 5's
    64x64 golden under the same knobs (skip_nee: finite); ms/frame,
-   Mrays/s, the ratio to the default, build seconds, peak memory and
-   K7/K8 launches per variant;
+   Mrays/s, the ratio to the default, build seconds and peak memory per
+   variant;
    bench: python -m pathtracer_torch.bench in this process at the
    headline with BENCH_FRAMES=2 (its default 8 cut to keep the phase
    near 30 s; 4 warm-up frames a leg, the textured and the interleaved
@@ -205,7 +201,7 @@ BATCH_NAMES = ("primary", "shadow0", "bounce1")   # first traversal calls
 CHUNK_STRIDE = 16   # compare every 16th chunk of a batch ...
 CMP_CHUNKS = 4      # ... and at most 4 chunks per batch
 # the tile widths the sweeps take beside the default 64 (PT_TILE_RAYS):
-# K1-K3 (K4 and K7 on the K1 chunks) replayed from frames traced at each,
+# K1-K3 (K4 on the K1 chunks) replayed from frames traced at each,
 # WIDE_CMP_CHUNKS chunks a batch (a chunk holds 2048 tiles of R rays)
 WIDE_TILES = (128, 256)
 TILE_WIDTHS = (32, 64) + WIDE_TILES
@@ -222,12 +218,6 @@ KERNELS = {
                                "(want_blocker=True)"),
     "tile_cull_skip": ("pathtracer_torch/csrc/cull.cu",
                        "pathtracer/kernels/pallas_cull.py:66"),
-    # XLA code in the JAX package, not Pallas: the default-off frustum
-    # cull (cull="frustum") and the firstcluster key's nearest cluster
-    "frustum_cull": ("pathtracer_torch/csrc/cull.cu",
-                     "pathtracer/kernels/packet.py:418"),
-    "first_cluster": ("pathtracer_torch/csrc/cull.cu",
-                      "pathtracer/kernels/packet.py:171"),
     # XLA code in the JAX package (lax.while_loop), not Pallas
     "bvh_closest": ("pathtracer_torch/csrc/traverse.cu",
                     "pathtracer/kernels/traverse.py:140"),
@@ -254,11 +244,9 @@ KERNELS = {
 }
 KERNEL_IDS = {"tile_cull": "K1", "sweep_closest": "K2",
               "sweep_occluded": "K3", "sweep_occluded_blocker": "K3b",
-              "tile_cull_skip": "K4", "frustum_cull": "K7",
-              "first_cluster": "K8"}
+              "tile_cull_skip": "K4"}
 CLUSTER_KERNELS = ("tile_cull", "tile_cull_skip", "sweep_closest",
-                   "sweep_occluded", "sweep_occluded_blocker",
-                   "frustum_cull", "first_cluster")
+                   "sweep_occluded", "sweep_occluded_blocker")
 BVH_KERNELS = ("bvh_closest", "bvh_occluded")
 UNPRIMED_KERNELS = ("tile_cull", "sweep_closest", "sweep_occluded")
 PRIMED_KERNELS = UNPRIMED_KERNELS + ("sweep_occluded_blocker",)
@@ -276,16 +264,6 @@ JAX_SKIP = {128: {"primary": 0.870, "shadow0": 0.821, "bounce1": 0.680},
 PEAK_FP32_INSTR, PEAK_BYTES = 67e12 / 2, 3.35e12
 # FP32 instructions per pair, counted off csrc/*.cu (a division as one):
 CULL_OPS = 28   # (ray, cluster): 6 sub, 6 mul, 10 min/max, 3 tests, 3
-# K7 a (tile, cluster): per axis 4 sub, 8 mul, 12 min/max for the interval
-# products and 2 for near/far (26 x 3), then 3 tests, the clamp and the
-# select; its per-tile reduction 13 min/max a ray. K8 a (ray, cluster): 6
-# sub, 6 mul, 10 min/max, the clamp, 2 tests, the select, the compare
-# with the best and 2 selects
-FRUSTUM_OPS, FRUSTUM_RAY_OPS, FIRST_OPS = 83, 13, 29
-# the firstcluster keys of both call kinds (K8) and the frustum cull (K7)
-# of the kernel phase's variant capture
-VARIANT_CAPTURE_ENV = {"PT_KEY_SCHEME": "firstcluster",
-                       "PT_KEY_SCHEME_OCCL": "firstcluster"}
 BW_OPS = {"sweep_closest": 38,             # (ray, triangle): bw_lane
           "sweep_occluded": 40,            # + denom < 0, t < t_max
           "sweep_occluded_blocker": 40}
@@ -419,45 +397,17 @@ def knob_env(env):
                 os.environ[k] = v
 
 
-@contextlib.contextmanager
-def cull_route(kind):
-    """Every cluster-route intersector made in the block passes
-    cull=kind to its traversal calls (the packet layer's cull= choice;
-    "ray" leaves them as they are)."""
-    from pathtracer_torch import render
-
-    real = render.make_intersectors
-
-    def make_intersectors(scene, cfg):
-        fns = real(scene, cfg)
-        if kind == "ray" or cfg.intersector != "cluster" \
-                or scene.n_tris <= 256:
-            return fns
-        fi, fo, fh = fns
-        return (lambda *a, **kw: fi(*a, cull=kind, **kw),
-                lambda *a, **kw: fo(*a, cull=kind, **kw), fh)
-
-    render.make_intersectors = make_intersectors
-    try:
-        yield
-    finally:
-        render.make_intersectors = real
-
-
 def capture_chunks(scene, cfg, cam, frame_idx=0, prime=None, env=None,
-                   cull_kind="ray", stride=CHUNK_STRIDE):
+                   stride=CHUNK_STRIDE):
     """Kernel arguments of one frame's primary, bounce-0 shadow and
     bounce-1 batches, recorded inside packet.py's chunk bodies while
     render_frame_with_stats renders the frame: every stride-th chunk of
-    each batch, at most CMP_CHUNKS of them, and each batch's
-    first K8 call (the firstcluster key of a sorted batch). env: knobs
-    set for the frame; cull_kind: the traversal calls' cull=.
+    each batch, at most CMP_CHUNKS of them. env: knobs set for the frame.
     """
     from pathtracer_torch import render
     from pathtracer_torch.kernels import cull, sweep
 
-    real = {"tile_cull": cull.tile_cull, "frustum_cull": cull.frustum_cull,
-            "first_cluster": cull.first_cluster,
+    real = {"tile_cull": cull.tile_cull,
             "sweep_closest": sweep.sweep_closest,
             "sweep_occluded": sweep.sweep_occluded,
             "make_intersectors": render.make_intersectors}
@@ -479,12 +429,6 @@ def capture_chunks(scene, cfg, cam, frame_idx=0, prime=None, env=None,
                     b[name].append((copies(a, (2, 3, 4)), dict(kw)))
             return real[name](*a, **kw)
         return call
-
-    def rec_first(*a):
-        b = cur["batch"]
-        if b is not None and not b["first_cluster"]:
-            b["first_cluster"].append((copies(a, (2, 3)), {}))
-        return real["first_cluster"](*a)
 
     def rec_sweep(name):
         def call(*a, **kw):
@@ -511,20 +455,16 @@ def capture_chunks(scene, cfg, cam, frame_idx=0, prime=None, env=None,
         return traversal(intersect_fn), traversal(occluded_fn), hint_fn
 
     cull.tile_cull = rec_cull("tile_cull")
-    cull.frustum_cull = rec_cull("frustum_cull")
-    cull.first_cluster = rec_first
     sweep.sweep_closest = rec_sweep("sweep_closest")
     sweep.sweep_occluded = rec_sweep("sweep_occluded")
     render.make_intersectors = make_intersectors
     try:
-        with knob_env(env), cull_route(cull_kind):
+        with knob_env(env):
             render.render_frame_with_stats(scene, cfg,
                                            cam.state(device=DEVICE),
                                            frame_idx, prime=prime)
     finally:
         cull.tile_cull = real["tile_cull"]
-        cull.frustum_cull = real["frustum_cull"]
-        cull.first_cluster = real["first_cluster"]
         sweep.sweep_closest = real["sweep_closest"]
         sweep.sweep_occluded = real["sweep_occluded"]
         render.make_intersectors = real["make_intersectors"]
@@ -556,29 +496,8 @@ def bound_ms(name, args, pair_tests, tile_rays=64):
     the larger. Operations count what this call's data needs: K1 the
     (ray, cluster) pairs of unparked rays and real clusters; the sweeps
     the (ray, triangle) tests their plain versions count (pair_tests:
-    live rays, real lanes, K3 up to the first blocking lane); K7 the
-    (tile, cluster) pairs of tiles with an unparked ray and real
-    clusters, with each tile's reduction; K8 every unparked ray against
-    every cluster (its minimum needs every box)."""
+    live rays, real lanes, K3 up to the first blocking lane)."""
     nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa
-    if name == "frustum_cull":
-        # every tile with an unparked ray against every real cluster,
-        # and each tile's reduction over its rays
-        lo, hi, o, inv_d, t_max = args
-        tiles = t_max.numel() // tile_rays
-        live = int((o[:, 0] < 1e29).reshape(tiles, tile_rays).any(1).sum())
-        pairs = live * int((lo[:, 0] < 1e29).sum())
-        ops = pairs * FRUSTUM_OPS + t_max.numel() * FRUSTUM_RAY_OPS
-        moved = nbytes(lo, hi, o, inv_d, t_max) + tiles * lo.shape[0] * 4
-        return ops / PEAK_FP32_INSTR * 1e3, moved / PEAK_BYTES * 1e3, pairs
-    if name == "first_cluster":
-        # every unparked ray against every cluster: the kernel walks them
-        # all (a pad box's test is as long as a real one's)
-        lo, hi, o, inv_d = args
-        pairs = int((o[:, 0] < 1e29).sum()) * lo.shape[0]
-        ops = pairs * FIRST_OPS
-        moved = nbytes(lo, hi, o, inv_d) + o.shape[0] * 8
-        return ops / PEAK_FP32_INSTR * 1e3, moved / PEAK_BYTES * 1e3, pairs
     if name in ("tile_cull", "tile_cull_skip"):
         lo, hi, o, inv_d, t_max = args
         tiles = t_max.numel() // tile_rays
@@ -608,7 +527,7 @@ def exact_vs_plain(name, label, out, ref):
     import torch
 
     tag = f"{KERNEL_IDS[name]} {label}"
-    if name in ("tile_cull", "tile_cull_skip", "frustum_cull"):
+    if name in ("tile_cull", "tile_cull_skip"):
         if not torch.equal(out, ref):
             raise PhaseError(f"{tag}: {int((out != ref).sum())} entries "
                              "differ")
@@ -631,9 +550,7 @@ def exact_vs_plain(name, label, out, ref):
         if not torch.equal(out, ref):
             raise PhaseError(f"{tag}: {int((out != ref).sum())} rays differ")
         return 0.0
-    names = (("id", "t") if name == "first_cluster"
-             else ("blocked", "btri"))            # sweep_occluded_blocker
-    for x, y, nm in zip(out, ref, names):
+    for x, y, nm in zip(out, ref, ("blocked", "btri")):  # K3b
         if not torch.equal(x, y):
             raise PhaseError(f"{tag}: {nm} differs on "
                              f"{int((x != y).sum())} rays")
@@ -662,10 +579,6 @@ def phase_kernels(scene, cfg, cam):
     def run_plain(name, args, kw, pair_tests):
         if name == "tile_cull":
             return cull.tile_cull_plain(*args, **kw)
-        if name == "frustum_cull":
-            return cull.frustum_cull_plain(*args, **kw)
-        if name == "first_cluster":
-            return cull.first_cluster_plain(*args)
         if name == "sweep_closest":
             return sweep.sweep_closest_plain(*plain_args(args),
                                              pair_tests=pair_tests)
@@ -689,10 +602,8 @@ def phase_kernels(scene, cfg, cam):
         return int(cols.sum()), int(tests)
 
     def run_kernel(name, args, kw):
-        if name in ("tile_cull", "frustum_cull"):
-            return getattr(cull, name)(*args, **kw)
-        if name == "first_cluster":
-            return cull.first_cluster(*args)
+        if name == "tile_cull":
+            return cull.tile_cull(*args, **kw)
         return getattr(sweep, name.replace("_blocker", ""))(*args, **kw)
 
     bw_rows = scene.clusters.bw_rows
@@ -828,12 +739,7 @@ def phase_kernels(scene, cfg, cam):
         pair_tests = torch.zeros((), dtype=torch.int64, device=DEVICE)
         ref, ms_p = timed(lambda: run_plain(name, args, kw, pair_tests))
         err = exact_vs_plain(name, label, out, ref)
-        if name == "first_cluster":
-            log("k8_call", batch=label, rays=out[0].numel(),
-                unparked=int((args[2][:, 0] < 1e29).sum()),
-                clusters=args[0].shape[0],
-                entered=int(torch.isfinite(out[1]).sum()))
-        elif name == "sweep_occluded_blocker":
+        if name == "sweep_occluded_blocker":
             k3 = sweep.sweep_occluded(*args)
             if not torch.equal(k3, out[0]):
                 raise PhaseError(f"K3b {label}: blocked != K3's")
@@ -873,17 +779,6 @@ def phase_kernels(scene, cfg, cam):
             compare("sweep_occluded_blocker", label, args, kw)
         log("kernels_batch", batch=label, chunks=b["chunks"],
             compared=len(b["tile_cull"]))
-    # K7 and K8 on the chunks and calls of a frame traced with the
-    # frustum cull and the firstcluster keys of both call kinds
-    for b in capture_chunks(scene, cfg, cam, env=VARIANT_CAPTURE_ENV,
-                            cull_kind="frustum"):
-        label = "variant_" + b["label"]
-        for name in ("frustum_cull", "first_cluster"):
-            for args, kw in b[name]:
-                compare(name, label, args, kw)
-        log("kernels_batch", batch=label, chunks=b["chunks"],
-            compared=len(b["frustum_cull"]),
-            first_cluster_calls=len(b["first_cluster"]))
     # K4 on every replayed K1 chunk (unprimed primary, shadow0, bounce1;
     # primed primary), at each block width
     for label, args, kw, k1_ms in cull_chunks:
@@ -970,15 +865,14 @@ def phase_wide_tiles(scene, cfg, cam, tile_rays, compare, new_stats,
     traced under PT_TILE_RAYS=tile_rays (WIDE_CMP_CHUNKS a batch), each
     against its plain version as at 64 rays (K1 bit-exact, K2 hit-exact
     with t/u/v bit-exact, K3 exact); on each K1 chunk K4 at blk 128 (bit
-    for bit its plain version and K1, its mask sc_mask_plain's) and K7
-    (bit for bit its plain version). Returns {kernel: stats}."""
+    for bit its plain version and K1, its mask sc_mask_plain's). Returns
+    {kernel: stats}."""
     import torch
 
     from pathtracer_torch.kernels import cull
 
     ws = {k: dict(new_stats(), rays=0) for k in (
-        "tile_cull", "sweep_closest", "sweep_occluded", "tile_cull_skip",
-        "frustum_cull")}
+        "tile_cull", "sweep_closest", "sweep_occluded", "tile_cull_skip")}
     env = {"PT_TILE_RAYS": str(tile_rays)}
     for b in capture_chunks(scene, cfg, cam, env=env):
         label = f"r{tile_rays}_{b['label']}"
@@ -993,8 +887,6 @@ def phase_wide_tiles(scene, cfg, cam, tile_rays, compare, new_stats,
                 ws[name]["rays"] = (args[2].shape[0] if name == "tile_cull"
                                     else args[2].shape[0] * tile_rays)
         for args, kw in b["tile_cull"][:WIDE_CMP_CHUNKS]:
-            compare("frustum_cull", label, args, kw, into=ws)
-            ws["frustum_cull"]["rays"] = args[2].shape[0]
             blk = SKIP_BLKS[0]
             mask = torch.empty((kw["n_tiles"], cull.n_blocks(args[0].shape[0],
                                                              blk)),
@@ -1905,30 +1797,22 @@ def phase_headline(scene, cfg, cam, frames):
 # held hit for hit to the default route on its first three calls, then a
 # headline run (one warm-up and VARIANT_FRAMES timed frames) beside the
 # default route's run of the same frames, and config 5's 64x64 golden
-# under the same knobs. (label, environment, RenderConfig fields, cull=)
+# under the same knobs. (label, environment, RenderConfig fields)
 VARIANT_FRAMES = 1
 VARIANT_RAY_TOL = 1e-5
 VARIANTS = [
     ("split_median_morton", {"PT_FINE_METHOD": "median",
-                             "PT_COARSE_METHOD": "morton"}, {}, "ray"),
-    ("build_sah", {"PT_FINE_METHOD": "sah", "PT_COARSE_METHOD": "sah"}, {},
-     "ray"),
+                             "PT_COARSE_METHOD": "morton"}, {}),
+    ("build_sah", {"PT_FINE_METHOD": "sah", "PT_COARSE_METHOD": "sah"}, {}),
     ("build_sahleaf", {"PT_FINE_METHOD": "sahleaf",
-                       "PT_COARSE_METHOD": "sahleaf"}, {}, "ray"),
+                       "PT_COARSE_METHOD": "sahleaf"}, {}),
     ("build_sahdeep", {"PT_FINE_METHOD": "sahdeep",
-                       "PT_COARSE_METHOD": "sahdeep"}, {}, "ray"),
-    ("key_mixed", {"PT_KEY_SCHEME": "mixed"}, {}, "ray"),
-    ("key_firstcluster", {"PT_KEY_SCHEME": "firstcluster",
-                          "PT_KEY_SCHEME_OCCL": "firstcluster"}, {}, "ray"),
-    ("cull_frustum", {}, {}, "frustum"),
-    ("wavefront_sort", {}, {"wavefront_sort": True}, "ray"),
-    ("sched_pack", {"PT_SCHED_PACK": "1"}, {}, "ray"),
-    ("fetch_group2", {"PT_FETCH_GROUP": "2"}, {}, "ray"),
-    ("sort_scope_chunk", {"PT_SORT_SCOPE": "chunk"}, {}, "ray"),
-    ("tile_rays32", {"PT_TILE_RAYS": "32"}, {}, "ray"),
-    ("tile_rays128", {"PT_TILE_RAYS": "128"}, {}, "ray"),
-    ("tile_rays256", {"PT_TILE_RAYS": "256"}, {}, "ray"),
-    ("skip_nee", {}, {"skip_nee": True}, "ray"),
+                       "PT_COARSE_METHOD": "sahdeep"}, {}),
+    ("wavefront_sort", {}, {"wavefront_sort": True}),
+    ("tile_rays32", {"PT_TILE_RAYS": "32"}, {}),
+    ("tile_rays128", {"PT_TILE_RAYS": "128"}, {}),
+    ("tile_rays256", {"PT_TILE_RAYS": "256"}, {}),
+    ("skip_nee", {}, {"skip_nee": True}),
 ]
 BUILD_KNOBS = ("PT_FINE_METHOD", "PT_COARSE_METHOD")
 
@@ -1962,12 +1846,11 @@ def capture_calls(scene, cfg, cam):
     return calls
 
 
-def replay_calls(scene, cfg, calls, env, cull_kind):
-    """The calls through the intersectors of (scene, cfg) under env and
-    cull_kind."""
+def replay_calls(scene, cfg, calls, env):
+    """The calls through the intersectors of (scene, cfg) under env."""
     from pathtracer_torch import render
 
-    with knob_env(env), cull_route(cull_kind):
+    with knob_env(env):
         fi, fo, _ = render.make_intersectors(scene, cfg)
         return [(fi if kind == "closest" else fo)(*a, **kw)
                 for kind, a, kw in calls]
@@ -2005,8 +1888,8 @@ def same_hits(label, got, ref):
 
 def phase_variants(scene, cfg, cam, tmp_dir):
     """Each of VARIANTS on the headline: ms/frame, Mrays/s, the ratio to
-    the default route's run in this phase, build seconds, peak memory and
-    K7/K8 launches. A variant fails the phase unless (1) on the default
+    the default route's run in this phase, build seconds and peak memory.
+    A variant fails the phase unless (1) on the default
     route's primary, bounce-0 shadow and bounce-1 calls it finds the
     hits and occlusion of the default route (same_hits: t bit for bit,
     the triangle free only at an exact tie - two triangles at one t,
@@ -2019,7 +1902,7 @@ def phase_variants(scene, cfg, cam, tmp_dir):
     passes the gate against it (skip_nee: fewer rays and a finite
     display); where a tie or a grazing ray went another way, the paths
     from there differ, and the film and rays are measured beside the
-    default's. Returns {label: drive result}."""
+    default's."""
     import numpy as np
     import torch
 
@@ -2028,7 +1911,7 @@ def phase_variants(scene, cfg, cam, tmp_dir):
 
     t_phase = time.perf_counter()
     calls = capture_calls(scene, cfg, cam)
-    ref_hits = replay_calls(scene, cfg, calls, {}, "ray")
+    ref_hits = replay_calls(scene, cfg, calls, {})
     base, r_b = drive("variant_default", scene, cfg, cam, VARIANT_FRAMES,
                       UNPRIMED_KERNELS)
     base_film = r_b.film.accum.cpu().numpy()
@@ -2039,8 +1922,7 @@ def phase_variants(scene, cfg, cam, tmp_dir):
     golden = load_golden(5)
     g_host = g_scene_fn()
     g_default = build_scene_clusters(g_host).to(DEVICE)
-    out = {"default": base}
-    for label, env, fields, cull_kind in VARIANTS:
+    for label, env, fields in VARIANTS:
         t0 = time.perf_counter()
         build_env = {k: v for k, v in env.items() if k in BUILD_KNOBS}
         vscene, g_scene, build_s = scene, g_default, None
@@ -2051,24 +1933,16 @@ def phase_variants(scene, cfg, cam, tmp_dir):
                 g_scene = build_scene_clusters(g_host).to(DEVICE)
         vcfg = dataclasses.replace(cfg, **fields)
         ties, moved = same_hits(label, replay_calls(vscene, vcfg, calls,
-                                                    env, cull_kind),
-                                ref_hits)
-        need = (("frustum_cull" if cull_kind == "frustum" else "tile_cull"),
-                "sweep_closest")
+                                                    env), ref_hits)
+        need = ("tile_cull", "sweep_closest")
         if not vcfg.skip_nee:
             need += ("sweep_occluded",)
-        if env.get("PT_KEY_SCHEME") == "firstcluster":
-            need += ("first_cluster",)
-        with cull_route(cull_kind):
-            res, r = drive("variant_" + label, vscene, vcfg, cam,
-                           VARIANT_FRAMES, need, env=env)
-            with knob_env(env):
-                g_img = render_frame(
-                    g_scene, dataclasses.replace(g_cfg, **fields),
-                    g_cam.state(device=DEVICE), 0).cpu().numpy()
-        if cull_kind == "frustum" and res["launches"]["tile_cull"]:
-            raise PhaseError(f"variant {label}: K1 launched "
-                             f"{res['launches']['tile_cull']} times")
+        res, r = drive("variant_" + label, vscene, vcfg, cam,
+                       VARIANT_FRAMES, need, env=env)
+        with knob_env(env):
+            g_img = render_frame(
+                g_scene, dataclasses.replace(g_cfg, **fields),
+                g_cam.state(device=DEVICE), 0).cpu().numpy()
         rays = res["rays_per_step"]
         rel = max(abs(a - b) / b for a, b in zip(rays, base_rays))
         film = r.film.accum.cpu().numpy()
@@ -2082,7 +1956,7 @@ def phase_variants(scene, cfg, cam, tmp_dir):
             ok_film = (gate["ok"] and rel <= VARIANT_RAY_TOL) or any(
                 ties) or any(moved)
             g_gate = robust_gate(g_img, golden)
-        cv = dict(variant=label, env=env, fields=fields, cull=cull_kind,
+        cv = dict(variant=label, env=env, fields=fields,
                   ms_per_frame=res["ms_per_frame"],
                   default_ms_per_frame=base["ms_per_frame"],
                   ms_ratio=res["ms_per_frame"] / base["ms_per_frame"],
@@ -2092,8 +1966,6 @@ def phase_variants(scene, cfg, cam, tmp_dir):
                   ties_by_batch=ties, other_hits_by_batch=moved,
                   replayed_rays=[int(a[0].shape[0]) for _, a, _ in calls],
                   build_s=build_s, peak_mem_bytes=res["peak_mem_bytes"],
-                  k7_launches=res["launches"]["frustum_cull"],
-                  k8_launches=res["launches"]["first_cluster"],
                   launches={k: res["launches"][k]
                             for k in UNPRIMED_KERNELS},
                   film_gate=gate, golden_gate=g_gate,
@@ -2106,13 +1978,11 @@ def phase_variants(scene, cfg, cam, tmp_dir):
             raise PhaseError(f"variant {label}: film or rays differ from the "
                              f"default route or config 5 fails its golden: "
                              f"{cv}")
-        out[label] = res
         del r, vscene, g_scene
         torch.cuda.empty_cache()
     del calls, ref_hits
     log("variants", count=len(VARIANTS),
         seconds=time.perf_counter() - t_phase)
-    return out
 
 
 # the composed CLI scene: the .glb turned a quarter and halved so that
@@ -3345,7 +3215,7 @@ def main(argv=None):
             _, config4 = phase_configs(tmp_dir, args.frames)
             base, skip, primed, r_b = phase_headline(scene, cfg, cam,
                                                      args.frames)
-            variants = phase_variants(scene, cfg, cam, tmp_dir)
+            phase_variants(scene, cfg, cam, tmp_dir)
             phase_bench(scene, cfg, cam)
             glb_res, lscene, glb = phase_assets(scene, cfg, cam,
                                                 args.frames, base, r_b,
@@ -3369,8 +3239,6 @@ def main(argv=None):
         return 1
     kern = []
     runs = {"sweep_occluded_blocker": primed, "tile_cull_skip": skip,
-            "frustum_cull": variants["cull_frustum"],
-            "first_cluster": variants["key_firstcluster"],
             "bvh_closest": config2, "bvh_occluded": config2}
     for name, (src, replaces) in KERNELS.items():
         s = stats[name]

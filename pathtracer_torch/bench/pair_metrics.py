@@ -91,8 +91,8 @@ def schedule_and_stops(accel, o2, d2):
     n_tiles = n // tile_rays
     t_max = torch.full((n,), 1e20, dtype=torch.float32, device=o2.device)
     _, o_s, d_s, t_max = packet._coherence_sort(accel, o2, d2, t_max, 2)
-    _, st, _, _ = packet._chunk_schedule(accel, o_s, d_s, t_max, 1e-3,
-                                         tile_rays, "ray", 1)
+    _, st, _ = packet._chunk_schedule(accel, o_s, d_s, t_max, 1e-3,
+                                      tile_rays)
     hit = packet.intersect_clusters(accel, o_s, d_s, 1e-3, 1e20,
                                     sort_rays=False)
     cap = packet._scene_exit(accel, o_s, d_s, t_max)

@@ -1,7 +1,5 @@
 // K1 tile cull and K4 block-gated tile cull: per-tile nearest cluster-entry
-// distance. K7 frustum cull (the per-tile interval variant) and K8 first
-// cluster (per-ray nearest cluster entry) share their slab arithmetic and
-// follow K4 below.
+// distance.
 //
 // K1 replaces pathtracer/kernels/pallas_cull.py:_cull_kernel (called through
 // tile_cull -> _tile_cull_impl). For each tile of R rays and each cluster
@@ -361,169 +359,6 @@ cudaError_t prepare_skip(size_t shmem) {
   return e;
 }
 
-// K7 frustum cull: a conservative per-tile interval slab test.
-//
-// Replaces pathtracer/kernels/packet.py:_frustum_cull (XLA code in the JAX
-// package, selected by cull="frustum"). For each tile it takes the minima
-// and maxima over the tile's rays of the origin o and of 1/d per axis and
-// the maximum of t_max; for each (tile, cluster) it bounds the slab
-// distances by interval products: t1 = (lo - o) * (1/d) lies in
-// [min, max] of the four products of (lo - o_hi, lo - o_lo) with (i_lo,
-// i_hi), and t2 likewise for hi. Then near = max over axes of
-// min(t1_lo, t2_lo), far = min over axes of max(t1_hi, t2_hi), and
-//   out[tile, c] = (near <= far) & (far >= t_min) & (near <= t_max_tile)
-//                  ? max(near, 0) : +inf
-// in the order of roundings of the plain version. Sub, mul, min and max
-// only, on finite values (packet._safe_inv keeps 1/d finite and nonzero,
-// boxes and origins are finite), so no product is NaN and fminf/fmaxf
-// agree with torch.minimum/maximum: the result equals the plain version
-// bit for bit (up to the sign of a zero, which compares equal).
-//
-// One CTA of 256 threads per tile: 13 threads reduce the tile's rays (one
-// quantity each, rays in order), then the threads stride over clusters.
-// What bounds it on an H100: ~50 FP32 instructions a (tile, cluster) and
-// the [tiles, C] output.
-
-constexpr int kFrustumThreads = 256;
-
-__global__ void __launch_bounds__(kFrustumThreads)
-    frustum_cull_kernel(const float* __restrict__ lo,
-                        const float* __restrict__ hi,
-                        const float* __restrict__ o,
-                        const float* __restrict__ inv_d,
-                        const float* __restrict__ t_max, float t_min,
-                        int n_clusters, int tile_rays,
-                        float* __restrict__ out) {
-  // red: o_lo(3), o_hi(3), i_lo(3), i_hi(3), t_max(1)
-  __shared__ float red[13];
-  const size_t tile = blockIdx.x;
-  const int q = threadIdx.x;
-  if (q < 13) {
-    const size_t r0 = tile * tile_rays;
-    float acc;
-    if (q < 12) {
-      const float* src = q < 6 ? o : inv_d;
-      const int ax = q % 3;
-      const bool want_max = (q % 6) >= 3;
-      acc = src[r0 * 3 + ax];
-      for (int i = 1; i < tile_rays; ++i) {
-        const float v = src[(r0 + i) * 3 + ax];
-        acc = want_max ? fmaxf(acc, v) : fminf(acc, v);
-      }
-    } else {
-      acc = t_max[r0];
-      for (int i = 1; i < tile_rays; ++i) acc = fmaxf(acc, t_max[r0 + i]);
-    }
-    red[q] = acc;
-  }
-  __syncthreads();
-  for (int c = q; c < n_clusters; c += blockDim.x) {
-    float near = -INFINITY, far = INFINITY;
-#pragma unroll
-    for (int ax = 0; ax < 3; ++ax) {
-      const float olo = red[ax], ohi = red[3 + ax];
-      const float ilo = red[6 + ax], ihi = red[9 + ax];
-      const float l = lo[c * 3 + ax], h = hi[c * 3 + ax];
-      // iprod(a_lo, a_hi) with (i_lo, i_hi): the four products
-      float a = l - ohi, b = l - olo;
-      float p1 = a * ilo, p2 = a * ihi, p3 = b * ilo, p4 = b * ihi;
-      const float t1_lo = fminf(fminf(p1, p2), fminf(p3, p4));
-      const float t1_hi = fmaxf(fmaxf(p1, p2), fmaxf(p3, p4));
-      a = h - ohi;
-      b = h - olo;
-      p1 = a * ilo;
-      p2 = a * ihi;
-      p3 = b * ilo;
-      p4 = b * ihi;
-      const float t2_lo = fminf(fminf(p1, p2), fminf(p3, p4));
-      const float t2_hi = fmaxf(fmaxf(p1, p2), fmaxf(p3, p4));
-      near = fmaxf(near, fminf(t1_lo, t2_lo));
-      far = fminf(far, fmaxf(t1_hi, t2_hi));
-    }
-    const bool hit = (near <= far) && (far >= t_min) && (near <= red[12]);
-    out[tile * n_clusters + c] = hit ? fmaxf(near, 0.0f) : INFINITY;
-  }
-}
-
-// K8 first cluster: per ray, the least clamped slab entry over all
-// clusters and that cluster's id.
-//
-// Replaces pathtracer/kernels/packet.py:_first_cluster (XLA code in the
-// JAX package; the firstcluster coherence key). For each ray and cluster
-// box: t1 = (lo - o) * (1/d), t2 = (hi - o) * (1/d), tn = max over axes
-// of min(t1, t2), tf = min over axes of max(t1, t2), entry = max(tn, 0)
-// where tf >= max(tn, 0) and tf > 0, else +inf; the ray keeps the least
-// entry and, on a tie, the lowest id (the JAX package's argmin over
-// blocks of 256 clusters, then a strict < across blocks: the first
-// minimum overall). A ray no box admits gets id 0 and +inf, parked rays
-// (origin 1e30) among them. Sub, mul, min and max on finite values (see
-// K7): bit for bit the plain version.
-//
-// One thread a ray; a CTA stages 256 boxes at a time in shared memory
-// and its rays read them as broadcasts. It runs at the global sort scope
-// (every lane of a spp-batched wavefront against every cluster), so what
-// bounds it on an H100 is FP32 instructions: ~25 a (ray, cluster).
-
-constexpr int kFirstThreads = 256;
-
-__global__ void __launch_bounds__(kFirstThreads)
-    first_cluster_kernel(const float* __restrict__ lo,
-                         const float* __restrict__ hi,
-                         const float* __restrict__ o,
-                         const float* __restrict__ inv_d, int n_rays,
-                         int n_clusters, int* __restrict__ out_id,
-                         float* __restrict__ out_t) {
-  __shared__ float box[6][kFirstThreads];
-  const size_t r = (size_t)blockIdx.x * kFirstThreads + threadIdx.x;
-  const bool live = r < (size_t)n_rays;
-  float ox = 0.f, oy = 0.f, oz = 0.f, ix = 1.f, iy = 1.f, iz = 1.f;
-  if (live) {
-    ox = o[r * 3 + 0];
-    oy = o[r * 3 + 1];
-    oz = o[r * 3 + 2];
-    ix = inv_d[r * 3 + 0];
-    iy = inv_d[r * 3 + 1];
-    iz = inv_d[r * 3 + 2];
-  }
-  float best_t = INFINITY;
-  int best_i = 0;
-  for (int c0 = 0; c0 < n_clusters; c0 += kFirstThreads) {
-    const int m = min(kFirstThreads, n_clusters - c0);
-    __syncthreads();
-    if (threadIdx.x < m) {
-      const int c = c0 + threadIdx.x;
-#pragma unroll
-      for (int ax = 0; ax < 3; ++ax) {
-        box[ax][threadIdx.x] = lo[c * 3 + ax];
-        box[3 + ax][threadIdx.x] = hi[c * 3 + ax];
-      }
-    }
-    __syncthreads();
-    for (int j = 0; j < m; ++j) {
-      float t1 = (box[0][j] - ox) * ix, t2 = (box[3][j] - ox) * ix;
-      float tn = fminf(t1, t2), tf = fmaxf(t1, t2);
-      t1 = (box[1][j] - oy) * iy;
-      t2 = (box[4][j] - oy) * iy;
-      tn = fmaxf(tn, fminf(t1, t2));
-      tf = fminf(tf, fmaxf(t1, t2));
-      t1 = (box[2][j] - oz) * iz;
-      t2 = (box[5][j] - oz) * iz;
-      tn = fmaxf(tn, fminf(t1, t2));
-      tf = fminf(tf, fmaxf(t1, t2));
-      const float tc = fmaxf(tn, 0.0f);
-      const float entry = (tf >= tc && tf > 0.0f) ? tc : INFINITY;
-      if (entry < best_t) {
-        best_t = entry;
-        best_i = c0 + j;
-      }
-    }
-  }
-  if (live) {
-    out_id[r] = best_i;
-    out_t[r] = best_t;
-  }
-}
-
 }  // namespace
 
 extern "C" int pt_tile_cull_skip(const float* aabb_lo, const float* aabb_hi,
@@ -570,25 +405,5 @@ extern "C" int pt_tile_cull(const float* aabb_lo, const float* aabb_hi,
   const size_t shmem = sizeof(float) * 7 * tile_rays;
   tile_cull_kernel<<<grid, kThreads, shmem, (cudaStream_t)stream>>>(
       aabb_lo, aabb_hi, o, inv_d, t_max, t_min, n_clusters, tile_rays, out);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int pt_frustum_cull(const float* aabb_lo, const float* aabb_hi,
-                               const float* o, const float* inv_d,
-                               const float* t_max, float t_min, int n_tiles,
-                               int n_clusters, int tile_rays, float* out,
-                               void* stream) {
-  frustum_cull_kernel<<<n_tiles, kFrustumThreads, 0, (cudaStream_t)stream>>>(
-      aabb_lo, aabb_hi, o, inv_d, t_max, t_min, n_clusters, tile_rays, out);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int pt_first_cluster(const float* aabb_lo, const float* aabb_hi,
-                                const float* o, const float* inv_d,
-                                int n_rays, int n_clusters, int* out_id,
-                                float* out_t, void* stream) {
-  const int blocks = (n_rays + kFirstThreads - 1) / kFirstThreads;
-  first_cluster_kernel<<<blocks, kFirstThreads, 0, (cudaStream_t)stream>>>(
-      aabb_lo, aabb_hi, o, inv_d, n_rays, n_clusters, out_id, out_t);
   return (int)cudaGetLastError();
 }

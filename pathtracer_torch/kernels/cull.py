@@ -19,18 +19,10 @@ tests a kept block's clusters against the rays that pass its union box
 only (`skip_ray_sets_plain`; the argument is in csrc/cull.cu). Its
 union boxes are derived once per box table and blk (`union_table`).
 
-`frustum_cull` (K7, cull="frustum" of the packet layer) is the JAX
-package's `_frustum_cull` (packet.py:418): a per-tile interval slab test
-over the tile's origin and 1/d ranges, f32[n_tiles, C] as tile_cull
-returns. `first_cluster` (K8, the firstcluster coherence key) is its
-`_first_cluster` (packet.py:171): per ray the least clamped slab entry
-over all clusters and its cluster id (the lowest on a tie; id 0 and
-+inf where no box admits the ray).
-
 For CPU tensors each kernel runs its plain version (`tile_cull_plain`,
-`tile_cull_skip_plain`, `frustum_cull_plain`, `first_cluster_plain`);
-for CUDA tensors it launches csrc/cull.cu or raises. Kernel and plain
-version agree bit for bit (sub, mul, min and max only).
+`tile_cull_skip_plain`); for CUDA tensors it launches csrc/cull.cu or
+raises. Kernel and plain version agree bit for bit (sub, mul, min and
+max only).
 """
 
 from __future__ import annotations
@@ -95,8 +87,8 @@ def union_boxes(aabb_lo, aabb_hi, blk):
             aabb_hi.reshape(nb, blk, 3).amax(dim=1).contiguous())
 
 
-# tables derived from tensors (K4's union boxes, the fetch groups' sweep
-# tables): (tag, ids) -> (weak refs, version counters, table)
+# tables derived from tensors (K4's union boxes): (tag, ids) -> (weak
+# refs, version counters, table)
 _DERIVED = {}
 _DERIVED_KEPT = 8
 
@@ -254,12 +246,7 @@ _SIG = {"pt_tile_cull": [ctypes.c_void_p] * 5 + [
     ctypes.c_void_p, ctypes.c_void_p],
     "pt_tile_cull_skip": [ctypes.c_void_p] * 6 + [
     ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3,
-    "pt_tile_cull_skip_info": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4,
-    "pt_frustum_cull": [ctypes.c_void_p] * 5 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_void_p],
-    "pt_first_cluster": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
-    ctypes.c_void_p] * 3}
+    "pt_tile_cull_skip_info": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4}
 
 
 def _check(name, t, shape, dtype, device):
@@ -383,116 +370,3 @@ def kernel_info(tile_rays=64, nb=22):
     return dict(registers=regs, local_bytes=local, threads=threads,
                 blocks_per_sm=blocks, occupancy=blocks * threads / 32 / 64)
 
-
-# --- K7 frustum cull and K8 first cluster -----------------------------------
-
-FIRST_RAY_BLOCK = 1 << 16   # rays per plain first-cluster block
-
-
-def frustum_cull_plain(aabb_lo, aabb_hi, o, inv_d, t_max, *, t_min, n_tiles,
-                       tile_rays):
-    """Plain PyTorch K7 (packet.py:418-456), blocked over clusters."""
-    ot = o.reshape(n_tiles, tile_rays, 3)
-    it = inv_d.reshape(n_tiles, tile_rays, 3)
-    o_lo, o_hi = ot.amin(dim=1)[:, None], ot.amax(dim=1)[:, None]
-    i_lo, i_hi = it.amin(dim=1)[:, None], it.amax(dim=1)[:, None]
-    tmx = t_max.reshape(n_tiles, tile_rays).amax(dim=1)[:, None]
-
-    def iprod(a_lo, a_hi):
-        p1, p2 = a_lo * i_lo, a_lo * i_hi
-        p3, p4 = a_hi * i_lo, a_hi * i_hi
-        return (torch.minimum(torch.minimum(p1, p2), torch.minimum(p3, p4)),
-                torch.maximum(torch.maximum(p1, p2), torch.maximum(p3, p4)))
-
-    c = aabb_lo.shape[0]
-    out = torch.empty((n_tiles, c), dtype=torch.float32, device=o.device)
-    for c0 in range(0, c, CULL_BLOCK):
-        lo = aabb_lo[None, c0:c0 + CULL_BLOCK]
-        hi = aabb_hi[None, c0:c0 + CULL_BLOCK]
-        t1_lo, t1_hi = iprod(lo - o_hi, lo - o_lo)        # [tiles, B, 3]
-        t2_lo, t2_hi = iprod(hi - o_hi, hi - o_lo)
-        near = torch.minimum(t1_lo, t2_lo).amax(dim=-1)
-        far = torch.maximum(t1_hi, t2_hi).amin(dim=-1)
-        hit = (near <= far) & (far >= t_min) & (near <= tmx)
-        out[:, c0:c0 + CULL_BLOCK] = torch.where(
-            hit, torch.clamp(near, min=0.0), torch.inf)
-    return out
-
-
-def frustum_cull(aabb_lo, aabb_hi, o, inv_d, t_max, *, t_min, n_tiles,
-                 tile_rays):
-    """K7: tile_tnear f32[n_tiles, C] of the interval slab test (kernel on
-    CUDA, plain on CPU)."""
-    if o.device.type == "cpu":
-        return frustum_cull_plain(aabb_lo, aabb_hi, o, inv_d, t_max,
-                                  t_min=t_min, n_tiles=n_tiles,
-                                  tile_rays=tile_rays)
-    out = _checked_out(aabb_lo, aabb_hi, o, inv_d, t_max, n_tiles,
-                       tile_rays)
-    c = aabb_lo.shape[0]
-    if n_tiles == 0 or c == 0:
-        return out
-    lib = cuda_build.load("cull", _SIG)
-    rc = lib.pt_frustum_cull(
-        aabb_lo.data_ptr(), aabb_hi.data_ptr(), o.data_ptr(),
-        inv_d.data_ptr(), t_max.data_ptr(), float(t_min), n_tiles, c,
-        tile_rays, out.data_ptr(), cuda_build.stream_ptr(o.device))
-    cuda_build.check_launch(rc, "frustum_cull")
-    LAUNCHES["frustum_cull"] += 1
-    return out
-
-
-def first_cluster_plain(aabb_lo, aabb_hi, o, inv_d):
-    """Plain PyTorch K8 (packet.py:171-211) -> (id i32[N], t f32[N]):
-    blocked over rays and over CULL_BLOCK clusters, argmin (first
-    minimum) within a block and a strict < across blocks."""
-    n = o.shape[0]
-    c = aabb_lo.shape[0]
-    best_t = torch.full((n,), torch.inf, dtype=torch.float32,
-                        device=o.device)
-    best_i = torch.zeros((n,), dtype=torch.int32, device=o.device)
-    for r0 in range(0, n, FIRST_RAY_BLOCK):
-        ob = o[r0:r0 + FIRST_RAY_BLOCK, None, :]
-        ib = inv_d[r0:r0 + FIRST_RAY_BLOCK, None, :]
-        bt = best_t[r0:r0 + FIRST_RAY_BLOCK]
-        bi = best_i[r0:r0 + FIRST_RAY_BLOCK]
-        for c0 in range(0, c, CULL_BLOCK):
-            t1 = (aabb_lo[None, c0:c0 + CULL_BLOCK] - ob) * ib
-            t2 = (aabb_hi[None, c0:c0 + CULL_BLOCK] - ob) * ib
-            tn = torch.minimum(t1, t2).amax(dim=-1)
-            tf = torch.maximum(t1, t2).amin(dim=-1)
-            tc = torch.clamp(tn, min=0.0)
-            tn = torch.where((tf >= tc) & (tf > 0.0), tc, torch.inf)
-            tj, j = torch.min(tn, dim=1)
-            better = tj < bt
-            bt.copy_(torch.where(better, tj, bt))
-            bi.copy_(torch.where(better, (c0 + j).to(torch.int32), bi))
-    return best_i, best_t
-
-
-def first_cluster(aabb_lo, aabb_hi, o, inv_d):
-    """K8: per ray the nearest cluster's id i32[N] and clamped entry
-    f32[N] (kernel on CUDA, plain on CPU)."""
-    if o.device.type == "cpu":
-        return first_cluster_plain(aabb_lo, aabb_hi, o, inv_d)
-    if o.device.type != "cuda":
-        raise ValueError(f"first_cluster: unsupported device {o.device}")
-    dev = o.device
-    n, c = o.shape[0], aabb_lo.shape[0]
-    f32 = torch.float32
-    _check("aabb_lo", aabb_lo, (c, 3), f32, dev)
-    _check("aabb_hi", aabb_hi, (c, 3), f32, dev)
-    _check("o", o, (n, 3), f32, dev)
-    _check("inv_d", inv_d, (n, 3), f32, dev)
-    out_id = torch.zeros((n,), dtype=torch.int32, device=dev)
-    out_t = torch.full((n,), torch.inf, dtype=f32, device=dev)
-    if n == 0:
-        return out_id, out_t
-    lib = cuda_build.load("cull", _SIG)
-    rc = lib.pt_first_cluster(
-        aabb_lo.data_ptr(), aabb_hi.data_ptr(), o.data_ptr(),
-        inv_d.data_ptr(), n, c, out_id.data_ptr(), out_t.data_ptr(),
-        cuda_build.stream_ptr(dev))
-    cuda_build.check_launch(rc, "first_cluster")
-    LAUNCHES["first_cluster"] += 1
-    return out_id, out_t

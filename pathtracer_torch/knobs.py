@@ -4,10 +4,13 @@ Every knob that `pathtracer/` reads is in KNOBS, in one of three states:
 
   honoured  the port reads it where the JAX package does, with the same
             default, and gives it the same meaning;
-  refused   TPU mechanics with no counterpart on the card (a DMA ring
-            depth, a Pallas gate, a per-iteration cost of the v5e sweep,
-            the XLA cull): set to anything but the JAX default, it makes
-            `check_refused` raise a ValueError naming it and saying why;
+  refused   either TPU mechanics with no counterpart on the card (a DMA
+            ring depth, a Pallas gate, a per-iteration cost of the v5e
+            sweep, the XLA cull), or an alternative of the packet layer
+            that was slower than the default on the card (a coherence
+            key, the schedule sort, the sort scope, fetch groups): set
+            to anything but the JAX default, it makes `check_refused`
+            raise a ValueError naming it and giving its own reason;
   equal     accepted at every value because every value gives the same
             result in the port (PT_PERMUTE: the sort network and the
             gather give the same permutation, and the port gathers).
@@ -24,6 +27,14 @@ import os
 
 HONOURED, REFUSED, EQUAL = "honoured", "refused", "equal"
 
+# the packet layer's alternatives: time a frame against the default's on
+# an H100 (80 GB HBM3, 700 W), 30 s of the benchmark's 1920x1080 headline
+# (4 spp, depth 6) and of its 1024x1024 env map (8 frames a step); "one
+# frame": a single headline frame timed earlier, before the integrator's
+# draws and shading became kernels
+_LOST = "slower than the default on the card: "
+_TPU = "TPU mechanics with no counterpart on the card: "
+
 # knob -> (state, where the port reads it, or why it is refused / equal)
 KNOBS = {
     "PT_FINE_METHOD": (HONOURED, "accel/cluster.build_scene_clusters"),
@@ -34,18 +45,9 @@ KNOBS = {
                         "0 runs the numpy oracle)"),
     "PT_BOUNCE_ACCEL": (HONOURED, "render.make_intersectors"),
     "PT_OCCL_ACCEL": (HONOURED, "render.make_intersectors"),
-    "PT_GROUP_PRIMARY": (HONOURED, "render.make_intersectors"),
-    "PT_GROUP_BOUNCE": (HONOURED, "render.make_intersectors"),
-    "PT_GROUP_OCCL": (HONOURED, "render.make_intersectors"),
-    "PT_FETCH_GROUP": (HONOURED, "kernels/packet._fetch_group"),
-    "PT_KEY_SCHEME": (HONOURED, "kernels/packet._coherence_key"),
-    "PT_KEY_SCHEME_OCCL": (HONOURED, "kernels/packet.occluded_clusters"),
     "PT_DIR_BITS": (HONOURED, "kernels/packet._coherence_key"),
     "PT_CLOSEST_DB": (HONOURED, "kernels/packet.intersect_clusters"),
     "PT_OCCL_DB": (HONOURED, "kernels/packet.occluded_clusters"),
-    "PT_SCHED_PACK": (HONOURED, "kernels/packet._sorted_schedule"),
-    "PT_SORT_SCOPE": (HONOURED, "kernels/packet.intersect_clusters / "
-                      "occluded_clusters"),
     "PT_CHUNK_TILES": (HONOURED, "kernels/packet (tiles per chunk)"),
     "PT_TILE_RAYS": (HONOURED, "kernels/packet (rays per tile: 32, 64, "
                      "128 or 256, the widths the sweep kernels take)"),
@@ -55,23 +57,67 @@ KNOBS = {
     "PT_PLATFORM": (HONOURED, "bench/__main__ (cpu or cuda)"),
     "PT_PERMUTE": (EQUAL, "sortnet and gather give the same permutation; "
                    "the port always gathers"),
-    "PT_SWEEP_SLOTS": (REFUSED, "the depth of the Pallas sweep's DMA ring "
-                       "(pallas_sweep.py:48); the port's sweeps stage "
-                       "through a two-slot cp.async ring in shared memory"),
-    "PT_SWEEP_DEADGATE": (REFUSED, "the Pallas sweep's dead-tile prefetch "
-                          "gate (pallas_sweep.py:55); a CUDA block whose "
-                          "tile visits no column stages nothing"),
-    "PT_SWEEP_GATE": (REFUSED, "the Pallas sweep's gated argmin extraction "
-                      "(pallas_sweep.py:412); the port's K2 merges its "
-                      "candidates once a column"),
-    "PT_SWEEP_CPI": (REFUSED, "clusters a Pallas sweep iteration opens, "
-                     "sized to the v5e per-iteration cost "
-                     "(pallas_sweep.py:359); the port's K2 walks one "
+    "PT_SWEEP_SLOTS": (REFUSED, _TPU + "the depth of the Pallas sweep's "
+                       "DMA ring (pallas_sweep.py:48); the port's sweeps "
+                       "stage through a two-slot cp.async ring in shared "
+                       "memory"),
+    "PT_SWEEP_DEADGATE": (REFUSED, _TPU + "the Pallas sweep's dead-tile "
+                          "prefetch gate (pallas_sweep.py:55); a CUDA "
+                          "block whose tile visits no column stages "
+                          "nothing"),
+    "PT_SWEEP_GATE": (REFUSED, _TPU + "the Pallas sweep's gated argmin "
+                      "extraction (pallas_sweep.py:412); the port's K2 "
+                      "merges its candidates once a column"),
+    "PT_SWEEP_CPI": (REFUSED, _TPU + "the clusters a Pallas sweep "
+                     "iteration opens, sized to the v5e per-iteration "
+                     "cost (pallas_sweep.py:359); the port's K2 walks one "
                      "cluster a column"),
-    "PT_CULL_BACKEND": (REFUSED, "'xla' selects the JAX package's XLA cull "
-                        "(packet.py:406); the port's plain versions never "
-                        "run on the card, so there is no second cull"),
+    "PT_CULL_BACKEND": (REFUSED, _TPU + "'xla' selects the JAX package's "
+                        "XLA cull (packet.py:406); the port's plain "
+                        "versions never run on the card, so there is no "
+                        "second cull"),
+    "PT_KEY_SCHEME": (REFUSED, _LOST + "the mixed key took 1.16x the "
+                      "dirmajor key's time a frame on the headline, 1.19x "
+                      "on the env map (one frame: 1.106x), and the "
+                      "firstcluster keys 1.21x and 1.14x (1.125x); the "
+                      "port sorts by dirmajor alone"),
+    "PT_KEY_SCHEME_OCCL": (REFUSED, _LOST + "the occlusion calls take the "
+                           "dirmajor key as the closest calls do; the "
+                           "firstcluster keys of both call kinds took "
+                           "1.21x the default's time a frame on the "
+                           "headline and 1.14x on the env map (one frame: "
+                           "1.125x)"),
+    "PT_SCHED_PACK": (REFUSED, _LOST + "the packed u32 schedule sort took "
+                      "1.31x the stable sort's time a frame on the "
+                      "headline and 1.20x on the env map (one frame: "
+                      "1.175x)"),
+    "PT_SORT_SCOPE": (REFUSED, _LOST + "a sort per chunk took 2.01x the "
+                      "time a frame of one sort of the whole wavefront "
+                      "on the headline and 6.35x on the env map (one "
+                      "frame: 1.606x): only the whole wavefront's sort "
+                      "parks the dead lanes in whole chunks the "
+                      "traversal skips"),
+    "PT_FETCH_GROUP": (REFUSED, _LOST + "sweeps over groups of 2 clusters "
+                       "took 1.17x the time a frame of one cluster a "
+                       "column on the headline and 1.00x on the env map "
+                       "(one frame: 1.092x)"),
+    "PT_GROUP_PRIMARY": (REFUSED, _LOST + "fetch groups of the primary "
+                         "closest calls, as PT_FETCH_GROUP's of every "
+                         "call (1.17x at 2 on the headline)"),
+    "PT_GROUP_BOUNCE": (REFUSED, _LOST + "fetch groups of the bounce "
+                        "closest calls, as PT_FETCH_GROUP's of every call "
+                        "(1.17x at 2 on the headline)"),
+    "PT_GROUP_OCCL": (REFUSED, _LOST + "fetch groups of the occlusion "
+                      "calls, as PT_FETCH_GROUP's of every call (1.17x "
+                      "at 2 on the headline)"),
 }
+
+
+def _is_int(value: str, n: int) -> bool:
+    try:
+        return int(value) == n
+    except ValueError:
+        return False
 
 
 def _refused_value(name: str, value: str) -> bool:
@@ -86,6 +132,16 @@ def _refused_value(name: str, value: str) -> bool:
         return value != ""
     if name == "PT_CULL_BACKEND":
         return value == "xla"
+    if name in ("PT_KEY_SCHEME", "PT_KEY_SCHEME_OCCL"):
+        return value not in ("", "dirmajor")
+    if name == "PT_SCHED_PACK":
+        return value != "0"
+    if name == "PT_SORT_SCOPE":
+        return value != "global"
+    if name == "PT_FETCH_GROUP":
+        return not _is_int(value, 1)
+    if name.startswith("PT_GROUP_"):
+        return value != "" and not _is_int(value, 1)
     raise KeyError(name)
 
 
@@ -98,9 +154,8 @@ def check_refused(env=None):
             continue
         if _refused_value(name, env[name]):
             raise ValueError(
-                f"{name}={env[name]!r} is refused by pathtracer_torch: it "
-                f"is TPU mechanics with no counterpart on the card ({why}); "
-                "unset it")
+                f"{name}={env[name]!r} is refused by pathtracer_torch: "
+                f"{why}; unset it")
 
 
 def choice(name: str, default: str, allowed):

@@ -49,10 +49,8 @@ def make_intersectors(scene: Scene, cfg: RenderConfig):
     the JAX package does. The cluster route runs packet traversal through
     the kernel wrappers (CUDA kernels on CUDA tensors, never demoted):
     closest calls on scene.clusters_fine and occlusion calls on
-    scene.clusters, with the per-call accel and fetch-group knobs
-    (PT_BOUNCE_ACCEL, PT_OCCL_ACCEL, PT_GROUP_*); its intersect_fn and
-    occluded_fn also take cull="frustum" (K7). It raises on a refused
-    knob (knobs.check_refused).
+    scene.clusters, with the per-call accel knobs (PT_BOUNCE_ACCEL,
+    PT_OCCL_ACCEL). It raises on a refused knob (knobs.check_refused).
     occluded_fn(..., want_blocker=True) also returns blocker hints.
     hint_fn(tri, o, d, t_min, t_max, front_only=False) -> (t, u, v, ok)
     re-tests a hint (path.trace_paths) with the route's own ray-triangle
@@ -114,30 +112,21 @@ def make_intersectors(scene: Scene, cfg: RenderConfig):
     occl_accel = (accel_fine if knobs.choice("PT_OCCL_ACCEL", "coarse",
                                              ("coarse", "fine")) == "fine"
                   else accel)
-    # fetch groups per call kind, falling back to PT_FETCH_GROUP
-    group = {name: (knobs.integer(name, 1) if os.environ.get(name)
-                    else None)
-             for name in ("PT_GROUP_PRIMARY", "PT_GROUP_BOUNCE",
-                          "PT_GROUP_OCCL")}
     # with the integrator's per-bounce wavefront sort the rays arrive
     # compacted and coherence-ordered: the packet layer skips its sort
     sort_rays = (not cfg.wavefront_sort) and cfg.packet_sort
 
-    def intersect_fn(o, d, t_min, t_max, primary=False, cull="ray"):
+    def intersect_fn(o, d, t_min, t_max, primary=False):
         # primary rays arrive in swizzled 8x8 pixel-block order, already
         # tighter than the coherence key: they skip the sort
         return packet.intersect_clusters(
             accel_fine if primary else bounce_accel, o, d, t_min, t_max,
-            sort_rays=sort_rays and not primary, cull=cull,
-            group=group["PT_GROUP_PRIMARY" if primary
-                        else "PT_GROUP_BOUNCE"])
+            sort_rays=sort_rays and not primary)
 
-    def occluded_fn(o, d, t_max, primary=False, want_blocker=False,
-                    cull="ray"):
+    def occluded_fn(o, d, t_max, primary=False, want_blocker=False):
         return packet.occluded_clusters(occl_accel, o, d, t_max,
                                         sort_rays=sort_rays,
-                                        want_blocker=want_blocker, cull=cull,
-                                        group=group["PT_GROUP_OCCL"])
+                                        want_blocker=want_blocker)
 
     def hint_fn(tri, o, d, t_min, t_max, front_only=False):
         # a shadow blocker (front_only) is re-tested with the rows of the

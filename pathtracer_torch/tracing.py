@@ -4,7 +4,6 @@ Counters are plain host integers, counted whether tracing is on or off:
 
   LAUNCHES  kernel launches per kernel (kernels.LAUNCHES is this dict):
             cull.tile_cull for K1, cull.tile_cull_skip for K4,
-            cull.frustum_cull for K7, cull.first_cluster for K8,
             sweep.sweep_closest, sweep.sweep_occluded, sweep.sweep_occluded
             with want_blocker as "sweep_occluded_blocker",
             traverse.intersect_bvh as "bvh_closest" for K5,
@@ -68,8 +67,7 @@ import time
 
 import torch
 
-LAUNCHES = {"tile_cull": 0, "tile_cull_skip": 0, "frustum_cull": 0,
-            "first_cluster": 0, "sweep_closest": 0,
+LAUNCHES = {"tile_cull": 0, "tile_cull_skip": 0, "sweep_closest": 0,
             "sweep_occluded": 0, "sweep_occluded_blocker": 0,
             "bvh_closest": 0, "bvh_occluded": 0, "chain_f32": 0,
             "chain_bf16": 0, "cond_walk": 0, "cond_walk_gated": 0,

@@ -1079,96 +1079,16 @@ def test_probe_wrappers_check_their_inputs(dev):
                      torch.zeros(3, dtype=torch.bfloat16, device=dev))
 
 
-# --- K7 frustum cull, K8 first cluster, grouped sweeps --------------------
-
-@pytest.mark.parametrize("tile_rays", [32, 64, 128, 256])
-@pytest.mark.parametrize("trap", CULL_TRAPS)
-def test_frustum_cull_kernel_on_adversarial_chunk(dev, trap, tile_rays):
-    """K7 on cull_trap_case's chunk (parked rays, pad boxes, equal
-    negative 1/d) as 7 tiles of 64 or 14 of 32 (its first 3 tiles of 128
-    or 1 of 256): bit for bit its plain version, one launch."""
-    pads, t_min, t_max = trap
-    lo, hi, o, inv, tm = cull_trap_case(pads, t_max, dev)
-    n = 448 // tile_rays * tile_rays
-    o, inv, tm = o[:n], inv[:n], tm[:n]
-    kw = dict(t_min=t_min, n_tiles=n // tile_rays, tile_rays=tile_rays)
-    before = kernels.LAUNCHES["frustum_cull"]
-    got = cull.frustum_cull(lo, hi, o, inv, tm, **kw)
-    assert kernels.LAUNCHES["frustum_cull"] == before + 1
-    assert torch.equal(got, cull.frustum_cull_plain(lo, hi, o, inv, tm,
-                                                    **kw))
-    # conservative against K1's per-ray entries
-    k1 = cull.tile_cull_plain(lo, hi, o, inv, tm, **kw)
-    assert bool((torch.isfinite(got) | ~torch.isfinite(k1)).all())
-
-
-@pytest.mark.parametrize("method,min_k", [("morton", 8), ("sahsplit", 128)])
-def test_first_cluster_kernel_matches_plain(dev, method, min_k):
-    """K8 over 375 clusters (two 256-box stages, the tie rule across
-    them) or a sahsplit accel with pad boxes; rays inside the soup (ties
-    at entry 0: lowest id) and a parked tail (id 0, +inf)."""
-    accel = build_clusters(*_soup(3000, 9), 512, min_k=min_k,
-                           method=method).to(dev)
-    o, d = _rays(5000, 10, dev, park_tail=300)
-    o = o * 0.5
-    o[-300:] = 1e30
-    inv = packet._safe_inv(d)
-    before = kernels.LAUNCHES["first_cluster"]
-    got_i, got_t = cull.first_cluster(accel.aabb_lo, accel.aabb_hi, o, inv)
-    assert kernels.LAUNCHES["first_cluster"] == before + 1
-    ref_i, ref_t = cull.first_cluster_plain(accel.aabb_lo, accel.aabb_hi, o,
-                                            inv)
-    assert torch.equal(got_i, ref_i) and torch.equal(got_t, ref_t)
-    assert bool((got_i[-300:] == 0).all())
-    assert bool(torch.isinf(got_t[-300:]).all())
-    assert int((got_t == 0).sum()) > 100
-
-
-@pytest.mark.parametrize("g", [2, 4])
-@pytest.mark.parametrize("tile_rays", [32, 64, 128, 256])
-def test_grouped_sweeps_match_plain(dev, g, tile_rays):
-    """K2, K3 and K3b on fetch-group accels of K = 128 g lanes (ring
-    slots of 32 KB and 64 KB at g = 2 and 4): bit for bit their plain
-    versions."""
-    accel = build_clusters(*_soup(2500, 11), method="sahsplit").to(dev)
-    n_tiles = 20
-    o, d = _rays(tile_rays * n_tiles, 12, dev, park_tail=40)
-    tm = torch.full((o.shape[0],), 2.5, device=dev)
-    tn = cull.tile_cull(accel.aabb_lo, accel.aabb_hi, o, packet._safe_inv(d),
-                        tm, t_min=1e-3, n_tiles=n_tiles, tile_rays=tile_rays)
-    ttg, grouped = packet._group_blocks(accel, tn, g)
-    assert grouped.tris_per_cluster == 128 * g
-    st, si = packet._sorted_schedule(ttg)
-    rays6 = packet._tile_rays6(o, d, n_tiles, tile_rays)
-    tm2 = tm.reshape(n_tiles, tile_rays).contiguous()
-    cap = packet._scene_exit(accel, o, d, tm).reshape(n_tiles, tile_rays)
-    got = sweep.sweep_closest(st, si, rays6, cap.contiguous(), grouped, 1e-3)
-    ref = sweep.sweep_closest_plain(st, si, rays6, cap, grouped.blocks_t,
-                                    1e-3)
-    for x, y in zip(got, ref):
-        assert torch.equal(x, y)
-    assert torch.equal(sweep.sweep_occluded(st, si, rays6, tm2, grouped),
-                       sweep.sweep_occluded_plain(st, si, rays6, tm2,
-                                                  grouped.blocks_t))
-    for x, y in zip(sweep.sweep_occluded(st, si, rays6, tm2, grouped,
-                                         want_blocker=True),
-                    sweep.sweep_occluded_plain(st, si, rays6, tm2,
-                                               grouped.blocks_t,
-                                               want_blocker=True)):
-        assert torch.equal(x, y)
-
+# --- the packet layer's knobs ---------------------------------------------
 
 @pytest.mark.parametrize("env", [
-    {"PT_KEY_SCHEME": "firstcluster", "PT_KEY_SCHEME_OCCL": "firstcluster"},
-    {"PT_KEY_SCHEME": "mixed", "PT_FETCH_GROUP": "2", "PT_SCHED_PACK": "1"},
-    {"PT_TILE_RAYS": "32", "PT_SORT_SCOPE": "chunk", "PT_CHUNK_TILES": "4"},
-    {"PT_TILE_RAYS": "128", "PT_SCHED_PACK": "1", "PT_FETCH_GROUP": "2"},
-    {"PT_TILE_RAYS": "256", "PT_SORT_SCOPE": "chunk", "PT_CHUNK_TILES": "2"},
+    {"PT_TILE_RAYS": "32", "PT_CHUNK_TILES": "4"},
+    {"PT_TILE_RAYS": "128"},
+    {"PT_TILE_RAYS": "256", "PT_CHUNK_TILES": "2"},
 ])
-@pytest.mark.parametrize("cull_kind", ["ray", "frustum"])
-def test_packet_knobs_card_equals_cpu(dev, env, cull_kind, monkeypatch):
-    """The packet layer under the knobs on the card (K1/K7, K8, K2, K3)
-    finds what its CPU route (the plain versions) finds, hit for hit."""
+def test_packet_knobs_card_equals_cpu(dev, env, monkeypatch):
+    """The packet layer under the knobs on the card (K1, K2, K3) finds
+    what its CPU route (the plain versions) finds, hit for hit."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     accel = build_clusters(*_soup(2000, 13), method="sahsplit")
@@ -1178,9 +1098,9 @@ def test_packet_knobs_card_equals_cpu(dev, env, cull_kind, monkeypatch):
     for where in ("cpu", dev):
         a = accel.to(where)
         hit = packet.intersect_clusters(a, o.to(where), d.to(where), 1e-3,
-                                        1e20, cull=cull_kind)
+                                        1e20)
         blocked = packet.occluded_clusters(a, o.to(where), d.to(where),
-                                           tm.to(where), cull=cull_kind)
+                                           tm.to(where))
         out[str(where)] = [x.cpu() for x in (hit.t, hit.tri, hit.u, hit.v,
                                              blocked)]
     for x, y in zip(out["cpu"], out[str(dev)]):

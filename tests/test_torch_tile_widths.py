@@ -239,8 +239,7 @@ def test_knob_takes_wide_tiles(tile_rays, monkeypatch):
     monkeypatch.setenv("PT_TILE_RAYS", str(tile_rays))
     monkeypatch.setenv("PT_CHUNK_TILES", "2")
     assert packet.tile_rays_knob() == tile_rays
-    assert packet._call_shape(None, None, "ray") == (tile_rays,
-                                                     2 * tile_rays)
+    assert packet._call_shape(None, None) == (tile_rays, 2 * tile_rays)
     v = _soup(200, seed=6)
     ta = build_clusters(*(_T(x) for x in v), method="sahsplit")
     o, d = _rays(3 * tile_rays + 5, seed=7)
