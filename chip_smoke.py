@@ -25,7 +25,12 @@ Drives pathtracer_torch's paths on the card and checks them:
    share of bound; per sweep kernel the lane tests its data needs, those
    a kernel testing every lane of every visited column runs, and those
    the kernel runs (from the plain versions' column walk), with its
-   registers and occupancy; K1-K3 at
+   registers and occupancy; for K2 also its pass B's (the long walks'
+   tail on thread-block clusters) and per compared chunk the tiles pass
+   B resumed (exactly those whose plain walk passes the budget), the
+   columns it tested, and the chunk's time beside its 8 longest tiles'
+   alone and the others' (`per_chunk`; `--only kernels` runs this phase
+   alone after the device phase); K1-K3 at
    128 and 256 rays a tile on a chunk a batch of frames traced under
    PT_TILE_RAYS=128 and 256 (as at 64), K4 at blk 128 on their K1
    chunks (bit-exact), with each width's ms a chunk, bound, lane tests
@@ -477,6 +482,49 @@ def plain_args(args):
     return args[:4] + (args[4].blocks_t,) + args[5:]
 
 
+def tail_split(kernel, args, kw, cols, n, time_ms):
+    """A sweep chunk's time on its n longest-walking tiles alone and on
+    the others (time_ms(fn) -> ms), and the share of the chunk's columns
+    (cols [tiles], the plain walk's) those tiles walk."""
+    import torch
+
+    order = torch.argsort(cols, descending=True)
+
+    def part(ix):
+        return tuple(a[ix].contiguous() if i < 4 else a
+                     for i, a in enumerate(args))
+
+    top, rest = part(order[:n]), part(order[n:])
+    return {f"longest{n}_ms": time_ms(lambda: kernel(*top, **kw)),
+            f"others{n}_ms": time_ms(lambda: kernel(*rest, **kw)),
+            f"longest{n}_column_share": float(cols[order[:n]].sum()
+                                              / cols.sum())}
+
+
+def k2_engagement(label, args, cols):
+    """K2's two passes on one recorded chunk: the tiles pass B resumed,
+    which must be those whose plain walk (cols [tiles]) passes
+    RESUME_COLUMNS, the columns pass B tests (whole rounds of
+    RESUME_CTAS) and those the walk visits past the budget."""
+    import torch
+
+    from pathtracer_torch.kernels import sweep
+
+    *_, resumed = sweep.sweep_closest_resumed(*args)
+    want = torch.nonzero(cols > sweep.RESUME_COLUMNS)[:, 0]
+    if not torch.equal(resumed, want):
+        raise PhaseError(f"K2 {label}: pass B resumed {resumed.numel()} "
+                         f"tiles, the plain walk passes the budget in "
+                         f"{want.numel()}")
+    past = (cols - sweep.RESUME_COLUMNS).clamp(min=0)
+    rounds = (past + sweep.RESUME_CTAS - 1) // sweep.RESUME_CTAS
+    tested = ((sweep.RESUME_COLUMNS + rounds * sweep.RESUME_CTAS)
+              .clamp(max=args[0].shape[1]) - sweep.RESUME_COLUMNS)
+    return dict(resumed=int(resumed.numel()),
+                pass_b_columns=int(tested.clamp(min=0).sum()),
+                pass_b_needed=int(past.sum()))
+
+
 def timed(fn):
     import torch
 
@@ -568,7 +616,7 @@ def phase_kernels(scene, cfg, cam):
     def new_stats():
         return {"ms": [], "plain_ms": [], "ops_ms": [], "bytes_ms": [],
                 "bound_ms": [], "pairs": [], "max_abs_err": 0.0, "calls": 0,
-                "walk": []}
+                "walk": [], "split": []}
 
     stats = {k: new_stats() for k in CLUSTER_KERNELS}
     skip_stats = {blk: dict(new_stats(), **{k: [] for k in (
@@ -588,7 +636,7 @@ def phase_kernels(scene, cfg, cam):
 
     def walk_counts(name, args, kw):
         """The plain version's column walk of one sweep call: (columns
-        visited, lane tests the kernel runs)."""
+        visited, lane tests the kernel runs, columns of each tile)."""
         tests = torch.zeros((), dtype=torch.int64, device=DEVICE)
         cols = torch.zeros(args[0].shape[0], dtype=torch.int64,
                            device=DEVICE)
@@ -599,7 +647,14 @@ def phase_kernels(scene, cfg, cam):
             sweep.sweep_occluded_plain(
                 *plain_args(args), want_blocker=kw.get("want_blocker", False),
                 kernel_tests=tests, tile_columns=cols)
-        return int(cols.sum()), int(tests)
+        return int(cols.sum()), int(tests), cols
+
+    def k2_split(label, args, kw, ms, cols):
+        """K2's two passes on one chunk (k2_engagement) and the chunk's
+        time beside its 8 longest tiles' and the others'."""
+        return dict(batch=label, **k2_engagement(label, args, cols), ms=ms,
+                    **tail_split(sweep.sweep_closest, args, kw, cols, 8,
+                                 lambda fn: timed(fn)[1]))
 
     def run_kernel(name, args, kw):
         if name == "tile_cull":
@@ -751,9 +806,13 @@ def phase_kernels(scene, cfg, cam):
             record_stats(into[name], name, args, ms, ms_p, pair_tests, err,
                          kw.get("tile_rays", 64))
             if name.startswith("sweep"):
-                into[name]["walk"].append(walk_counts(name, args, kw))
+                *walk, cols = walk_counts(name, args, kw)
+                into[name]["walk"].append(walk)
                 into[name]["shape"] = (args[2].shape[2],
                                        args[4].tris_per_cluster)
+                if name == "sweep_closest":
+                    into[name]["split"].append(
+                        k2_split(label, args, kw, ms, cols))
         return out
 
     for b in capture_chunks(scene, cfg, cam):
@@ -833,6 +892,17 @@ def phase_kernels(scene, cfg, cam):
             **cull.kernel_info(64, cull.n_blocks(scene.clusters.n_clusters,
                                                  blk)))
     compare_traps()
+
+    def k2_passes(name, s, r, k):
+        """K2's pass B on the sweep_work line: its registers, CTAs an SM
+        and clusters, the budget and cluster size, and per chunk the
+        tiles it resumed, the columns it tested and the times."""
+        if name != "sweep_closest":
+            return {}
+        return dict(pass_b=sweep.kernel_info("sweep_resume", r, k),
+                    resume_columns=sweep.RESUME_COLUMNS,
+                    resume_ctas=sweep.RESUME_CTAS, per_chunk=s["split"])
+
     for name in ("sweep_closest", "sweep_occluded", "sweep_occluded_blocker"):
         s = stats[name]
         n = s["calls"]
@@ -845,7 +915,7 @@ def phase_kernels(scene, cfg, cam):
             dense_over_needed=dense / s["pairs"],
             kernel_over_needed=kernel / s["pairs"],
             columns=columns,
-            **sweep.kernel_info(name, r, k))
+            **sweep.kernel_info(name, r, k), **k2_passes(name, s, r, k))
     for w, ws in wide.items():
         for name in ("sweep_closest", "sweep_occluded"):
             s = ws[name]
@@ -854,7 +924,7 @@ def phase_kernels(scene, cfg, cam):
                 needed_tests=s["pairs"],
                 kernel_tests=sum(x[1] for x in s["walk"]) / s["calls"],
                 columns=sum(x[0] for x in s["walk"]) / s["calls"],
-                **sweep.kernel_info(name, r, k))
+                **sweep.kernel_info(name, r, k), **k2_passes(name, s, r, k))
     phase_tile_columns(scene, cfg, cam)
     return stats
 
@@ -3180,10 +3250,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--frames", type=int, default=2,
                     help="timed frames after one warm-up frame, per run")
-    ap.add_argument("--only", choices=("shade",),
+    ap.add_argument("--only", choices=("shade", "kernels"),
                     help="run the device phase and these phases alone: "
                          "shade = K10 against the plain chain and the "
-                         "config 1-5 golden gates through K10")
+                         "config 1-5 golden gates through K10; kernels = "
+                         "K1-K4 against their plain versions on the "
+                         "headline's chunks at every tile width")
     args = ap.parse_args(argv)
 
     import torch
@@ -3206,6 +3278,10 @@ def main(argv=None):
                 log("done", seconds=time.perf_counter() - t_start)
                 print(json.dumps({"shade": shade_stats["shade"]}),
                       flush=True)
+                return 0
+            if args.only == "kernels":
+                phase_kernels(scene, cfg, cam)
+                log("done", seconds=time.perf_counter() - t_start)
                 return 0
             stats = phase_kernels(scene, cfg, cam)
             stats.update(phase_rng())

@@ -17,6 +17,11 @@ blocks_t [C, 16, K] (accel/cluster.py):
       the smallest t (lowest lane on a tie) in the first schedule column
       where the ray became blocked.
 
+On the card K2 runs in two launches (csrc/sweep.cu): pass A walks each
+tile up to RESUME_COLUMNS columns and lists the tiles still walking
+there; pass B, beside pass A's last CTAs, finishes those on clusters of
+RESUME_CTAS CTAs, that many columns a round - the same hits bit for bit.
+
 t_min must be >= 0 (the kernels reject lanes on the sign of t before
 the reciprocal). The wrappers take the ClusterAccel: for CPU tensors
 they run the plain versions on its blocks_t; for CUDA tensors they
@@ -43,6 +48,12 @@ _STOP_CHECK = 8             # columns between host checks of "any tile live"
 _WARP = 32                  # rays a warp of the kernels tests together
 TILE_WIDTHS = (32, 64, 128, 256)   # rays a tile the kernels take
 _BLOCK_THREADS = 256        # threads a block at R >= 64 (kMaxThreads)
+# K2's two passes (csrc/sweep.cu): pass A walks each tile up to
+# RESUME_COLUMNS columns, pass B finishes the walks still going there on
+# clusters of RESUME_CTAS CTAs (the kernel's kResumeCtas), RESUME_CTAS
+# columns a round
+RESUME_COLUMNS = 48
+RESUME_CTAS = 4
 
 
 def parts(tile_rays: int) -> int:
@@ -255,8 +266,9 @@ _SIG = {
     "pt_sweep_closest": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p],
     "pt_sweep_occluded": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -268,9 +280,10 @@ _SIG = {
         ctypes.c_void_p],
     "pt_sweep_info": [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
 }
-_KINDS = ("sweep_closest", "sweep_occluded", "sweep_occluded_blocker")
+_KINDS = ("sweep_closest", "sweep_occluded", "sweep_occluded_blocker",
+          "sweep_resume")
 
 
 def _check_inputs(st, si, rays, per_ray, accel):
@@ -309,6 +322,15 @@ def sweep_closest(st, si, rays, t_cap, accel, t_min):
                                    t_min)
     if st.device.type != "cuda":
         raise ValueError(f"sweep_closest: unsupported device {st.device}")
+    return _closest_cuda(st, si, rays, t_cap, accel, t_min,
+                         RESUME_COLUMNS)[0]
+
+
+def _closest_cuda(st, si, rays, t_cap, accel, t_min, columns):
+    """K2's two launches -> ((t, tri, u, v), resume): resume
+    i32[tiles + 3], csrc/sweep.cu's list: the count of tiles pass B
+    resumed, two counters, then tile + 1 of each in the order pass A
+    listed them (None when no walk can pass `columns`: pass A alone)."""
     tiles, cs, r, k = _check_inputs(st, si, rays, t_cap, accel)
     dev = st.device
     out_t = torch.empty((tiles, r), dtype=torch.float32, device=dev)
@@ -316,17 +338,33 @@ def sweep_closest(st, si, rays, t_cap, accel, t_min):
     out_u = torch.empty_like(out_t)
     out_v = torch.empty_like(out_t)
     if tiles == 0:
-        return out_t, out_tri, out_u, out_v
+        return (out_t, out_tri, out_u, out_v), None
+    resume = (torch.empty(tiles + 3, dtype=torch.int32, device=dev)
+              if columns < cs else None)
     lib = cuda_build.load("sweep", _SIG)
     rc = lib.pt_sweep_closest(
         st.data_ptr(), si.data_ptr(), tiles, cs, rays.data_ptr(),
         t_cap.data_ptr(), accel.blocks_lm.data_ptr(),
-        accel.n_lanes.data_ptr(), k, r, float(t_min), out_t.data_ptr(),
+        accel.n_lanes.data_ptr(), k, r, float(t_min), columns,
+        0 if resume is None else resume.data_ptr(), out_t.data_ptr(),
         out_tri.data_ptr(), out_u.data_ptr(), out_v.data_ptr(),
         cuda_build.stream_ptr(dev))
     cuda_build.check_launch(rc, "sweep_closest")
     LAUNCHES["sweep_closest"] += 1
-    return out_t, out_tri, out_u, out_v
+    return (out_t, out_tri, out_u, out_v), resume
+
+
+def sweep_closest_resumed(st, si, rays, t_cap, accel, t_min,
+                          columns=RESUME_COLUMNS):
+    """K2 on CUDA tensors with pass B's engagement -> (t, tri, u, v,
+    resumed): resumed i64, the sorted tiles pass B finished (a host
+    sync). columns sets pass A's budget for a measurement; sweep_closest
+    runs RESUME_COLUMNS."""
+    out, resume = _closest_cuda(st, si, rays, t_cap, accel, t_min, columns)
+    if resume is None:
+        return out + (torch.zeros(0, dtype=torch.int64, device=st.device),)
+    n = int(resume[0])
+    return out + (torch.sort(resume[3:3 + n].long() - 1).values,)
 
 
 def sweep_occluded(st, si, rays, t_max_rays, accel, want_blocker=False):
@@ -366,12 +404,16 @@ def kernel_info(name, tile_rays=64, k=128):
     resident blocks and the occupancy (resident warps / 64) an SM of
     sweep kernel `name` for tile_rays rays a tile and K lanes, from the
     CUDA runtime (needs a card; the build's ptxas report is
-    cuda_build.build_logs["sweep"])."""
+    cuda_build.build_logs["sweep"]). "sweep_resume" is K2's pass B, on
+    clusters of RESUME_CTAS CTAs; its `clusters`, the most its grid takes."""
     lib = cuda_build.load("sweep", _SIG)
-    vals = [ctypes.c_int(0) for _ in range(4)]
+    vals = [ctypes.c_int(0) for _ in range(5)]
     rc = lib.pt_sweep_info(_KINDS.index(name), tile_rays, k,
                            *(ctypes.byref(v) for v in vals))
     cuda_build.check_launch(rc, f"kernel_info({name})")
-    regs, local, blocks, threads = (v.value for v in vals)
-    return dict(registers=regs, local_bytes=local, threads=threads,
+    regs, local, blocks, threads, groups = (v.value for v in vals)
+    info = dict(registers=regs, local_bytes=local, threads=threads,
                 blocks_per_sm=blocks, occupancy=blocks * threads / 32 / 64)
+    if name == "sweep_resume":
+        info["clusters"] = groups
+    return info

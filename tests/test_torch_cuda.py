@@ -447,10 +447,12 @@ def test_sweep_kernels_match_plain_on_every_branch(dev, t_min):
 
 
 def test_sweep_kernel_occupancy_is_reported(dev):
-    for name in ("sweep_closest", "sweep_occluded", "sweep_occluded_blocker"):
+    for name in ("sweep_closest", "sweep_occluded", "sweep_occluded_blocker",
+                 "sweep_resume"):
         info = sweep.kernel_info(name)
         assert info["registers"] > 0 and info["blocks_per_sm"] > 0
         assert 0.0 < info["occupancy"] <= 1.0
+    assert sweep.kernel_info("sweep_resume")["clusters"] > 0
     info = cull.kernel_info()
     assert info["registers"] > 0 and info["blocks_per_sm"] > 0
     assert info["threads"] == 256 and info["local_bytes"] == 0
@@ -1205,6 +1207,158 @@ def test_sweep_refuses_other_widths(dev):
     with pytest.raises(ValueError, match="128, 256"):
         sweep.sweep_closest(st, si, rays6, torch.ones((2, 96), device=dev),
                             accel, 1e-3)
+
+
+# --- K2's two passes on long walks -------------------------------------------
+
+# sweep.RESUME_COLUMNS and RESUME_CTAS, mirrored: long_walk_case's walks
+# are laid out around them, so the card tests surely reach pass B
+RESUME_COLUMNS = 48
+RESUME_CTAS = 4
+LONG_ROWS = dict(farther=0, nearer=1, tie=2, early=3, below_t_min=4,
+                 past_stop=5)
+
+
+def long_walks(columns=RESUME_COLUMNS, ctas=RESUME_CTAS, long=True):
+    """The columns each tile of long_walk_case walks (None: its whole
+    schedule): short walks, the budget's neighbours and, if long, every
+    stop past it in the first two rounds of pass B and a full walk."""
+    walks = [3, columns - 1, columns]
+    if long:
+        walks += [columns + i for i in range(1, 2 * ctas + 1)] + [None]
+    return walks
+
+
+def long_walk_case(tile_rays, walks, t_min=0.0, dev="cpu",
+                   columns=RESUME_COLUMNS, ctas=RESUME_CTAS):
+    """A chunk of K2 whose tiles walk the given numbers of columns.
+
+    2 * columns + 8 clusters of 64 lanes lie along +x, cluster j's box
+    entered at x = j + 1 by every ray: two slivers in the planes y = +-1,
+    parallel to the rays, which no ray hits. Tile i's rays start at
+    x = 0, 4 across in y and R / 4 rows in z (z in [3i, 3i + 1]), and run
+    along +x, so they enter the clusters in order and the walk goes on
+    while any ray of the tile escapes. A wall across tile i's rays in
+    cluster w - 1 (at x = w + 0.25) stops its walk after w columns.
+    Targets in the plane x = X, across one row of every tile
+    (LONG_ROWS), put hits into pass B's rounds: in the second round
+    (columns L + N, L + N + 1) a farther hit behind a nearer one and a
+    nearer one behind a farther one, so a later column's candidate
+    computed with the round's stale seed must be refused or taken; in the
+    third (L + 2N, L + 2N + 1) two triangles at one t, the earlier
+    column's winning; an early hit in column 5 and one at t = 5e-4, below
+    a t_min of 1e-3. Behind each wall, in column w, a target nearer than
+    the wall (x = w + 0.1) whose schedule entry is raised to w + 1, where
+    the slivers alone put it: the stop rule ends the walk before it, so a
+    round that tests it must discard it. The rows past 5 stay open.
+
+    Returns (st, si, rays6, cap, accel, ids): the schedule from
+    tile_cull at t_min, the rays [tiles, 6, R], the scene-exit caps and
+    the ClusterAccel on dev; ids the target triangles by name."""
+    n_tiles, n_cols, k = len(walks), 2 * columns + 8, 64
+    gz = tile_rays // 4
+    tris = [[(j + 1.0, y, -1.0), (j + 1.5, y, -1.0),
+             (j + 1.0, y, 3.0 * n_tiles + 1.0)]
+            for j in range(n_cols) for y in (-1.0, 1.0)]   # the slivers
+    lanes = [[2 * j, 2 * j + 1] for j in range(n_cols)]
+
+    def add(col, tri):
+        lanes[col].append(len(tris))
+        tris.append(tri)
+        return len(tris) - 1
+
+    def across(x, z0, z1):
+        """In the plane x = X, over y in [-0.5, 0.5] and z in [z0, z1]
+        (nothing beyond z1 + 0.2 (z1 - z0))."""
+        return [(x, -5.0, z0), (x, 5.0, z0), (x, 0.0, z0 + 1.2 * (z1 - z0))]
+
+    ids = {}
+    second, third = columns + ctas, columns + 2 * ctas
+    for i, w in enumerate(walks):
+        z = 3.0 * i
+
+        def row(name, col, x):
+            r = LONG_ROWS[name]
+            return add(col, across(x, z + r / gz, z + (r + 1) / gz))
+
+        if w is not None:
+            ids.setdefault("wall", {})[i] = add(
+                w - 1, across(w + 0.25, z - 0.1, z + 2.0))
+            row("past_stop", w, w + 0.1)
+        ids.setdefault("farther", []).append(
+            (row("farther", second, second + 31.0),
+             row("farther", second + 1, second + 42.0)))
+        ids.setdefault("nearer", []).append(
+            (row("nearer", second, second + 41.0),
+             row("nearer", second + 1, second + 22.0)))
+        ids.setdefault("tie", []).append(
+            (row("tie", third, third + 26.0),
+             row("tie", third + 1, third + 26.0)))
+        ids.setdefault("early", []).append(row("early", 5, 16.0))
+        ids.setdefault("below_t_min", []).append(
+            row("below_t_min", 0, 5e-4))
+    assert max(map(len, lanes)) <= k
+    tris = np.asarray(tris, np.float32)
+    sid = np.full((n_cols * k,), -1, np.int64)
+    for j, ln in enumerate(lanes):
+        sid[j * k: j * k + len(ln)] = ln
+    real = sid >= 0
+    sv = [np.where(real[:, None], tris[np.maximum(sid, 0), v], 1e30)
+          .astype(np.float32) for v in range(3)]
+    accel = _finish_build(*(torch.from_numpy(x) for x in sv),
+                          torch.from_numpy(sid), k, int((~real).sum()),
+                          len(tris))
+    iy, iz = np.meshgrid(np.arange(4), np.arange(gz), indexing="xy")
+    y = -0.375 + 0.25 * iy.reshape(-1)
+    zr = (iz.reshape(-1) + 0.5) / gz
+    o = np.stack([np.zeros(n_tiles * tile_rays),
+                  np.tile(y, n_tiles),
+                  np.repeat(3.0 * np.arange(n_tiles), tile_rays)
+                  + np.tile(zr, n_tiles)], 1)
+    d = np.tile([1.0, 0.0, 0.0], (n_tiles * tile_rays, 1))
+    o, d = (torch.from_numpy(x.astype(np.float32)) for x in (o, d))
+    tm = torch.full((o.shape[0],), 1e20)
+    tn = cull.tile_cull_plain(accel.aabb_lo, accel.aabb_hi, o,
+                              packet._safe_inv(d), tm, t_min=t_min,
+                              n_tiles=n_tiles, tile_rays=tile_rays)
+    st, si = packet._sorted_schedule(tn)
+    for i, w in enumerate(walks):
+        if w is not None:
+            st[i, si[i] == w] = w + 1.0
+    rays6 = packet._tile_rays6(o, d, n_tiles, tile_rays)
+    cap = packet._scene_exit(accel, o, d, tm).reshape(
+        n_tiles, tile_rays).contiguous()
+    return (st.to(dev), si.to(dev), rays6.to(dev), cap.to(dev),
+            accel.to(dev), ids)
+
+
+@pytest.mark.parametrize("long", [True, False])
+@pytest.mark.parametrize("t_min", [0.0, 1e-3])
+@pytest.mark.parametrize("tile_rays", sweep.TILE_WIDTHS)
+def test_two_pass_closest_matches_plain(dev, tile_rays, t_min, long):
+    """K2 on long_walk_case: bit for bit sweep_closest_plain at every
+    tile width, one launch counted a call, pass B resuming exactly the
+    tiles whose sequential walk passes RESUME_COLUMNS (none on a chunk
+    without long walks)."""
+    assert (sweep.RESUME_COLUMNS, sweep.RESUME_CTAS) == (RESUME_COLUMNS,
+                                                         RESUME_CTAS)
+    st, si, rays6, cap, accel, _ = long_walk_case(
+        tile_rays, long_walks(long=long), t_min, dev)
+    cols = torch.zeros(st.shape[0], dtype=torch.int64, device=dev)
+    ref = sweep.sweep_closest_plain(st, si, rays6, cap, accel.blocks_t,
+                                    t_min, tile_columns=cols)
+    before = kernels.LAUNCHES["sweep_closest"]
+    got = sweep.sweep_closest(st, si, rays6, cap, accel, t_min)
+    assert kernels.LAUNCHES["sweep_closest"] == before + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    *again, resumed = sweep.sweep_closest_resumed(st, si, rays6, cap, accel,
+                                                  t_min)
+    for a, b in zip(again, ref):
+        assert torch.equal(a, b)
+    want = torch.nonzero(cols > RESUME_COLUMNS)[:, 0]
+    assert torch.equal(resumed, want)
+    assert len(want) == (2 * RESUME_CTAS + 1 if long else 0)
 
 
 # --- P2 at the probe's grid ----------------------------------------------

@@ -580,3 +580,107 @@ def test_branch_case_reaches_every_branch(t_min):
     assert not bool(blocked[2][tm[128:192] <= 0.0].any())
     st1, si1 = occl[0][1], occl[1][1]
     assert bool((accel.n_lanes[si1[torch.isfinite(st1)].long()] == 0).any())
+
+
+@pytest.mark.parametrize("t_min", [0.0, 1e-3])
+@pytest.mark.parametrize("tile_rays", sweep.TILE_WIDTHS)
+def test_long_walk_case_reaches_pass_b(tile_rays, t_min):
+    """tests/test_torch_cuda.py holds K2's two passes to the plain version
+    on long_walk_case; here the plain walk shows that the chunk reaches
+    pass B: tiles stop short of the budget, at it, and past it at every
+    residue of a round, and the full walk's rows take the hits the
+    stale-seed cases are made of (the farther hit refused, the nearer
+    taken, the earlier of two equal ones, the hit below t_min refused),
+    and no walled tile takes the nearer hit behind its stop."""
+    from tests.test_torch_cuda import (LONG_ROWS, RESUME_COLUMNS,
+                                       RESUME_CTAS, long_walk_case,
+                                       long_walks)
+
+    assert (sweep.RESUME_COLUMNS, sweep.RESUME_CTAS) == (RESUME_COLUMNS,
+                                                         RESUME_CTAS)
+    walks = long_walks()
+    st, si, rays6, cap, accel, ids = long_walk_case(tile_rays, walks, t_min)
+    cols = torch.zeros(st.shape[0], dtype=torch.int64)
+    _, tri, _, _ = sweep.sweep_closest_plain(st, si, rays6, cap,
+                                             accel.blocks_t, t_min,
+                                             tile_columns=cols)
+    n_cols = accel.aabb_lo.shape[0]
+    assert cols.tolist() == [n_cols if w is None else w for w in walks]
+    past = [int(c) - RESUME_COLUMNS for c in cols if c > RESUME_COLUMNS]
+    assert len(past) == 2 * RESUME_CTAS + 1
+    assert {p % RESUME_CTAS for p in past} == set(range(RESUME_CTAS))
+    assert max(past) > 4 * RESUME_CTAS
+    full = len(walks) - 1
+    rows = tri[full].reshape(tile_rays // 4, 4)
+    assert bool((rows[LONG_ROWS["farther"]] == ids["farther"][full][0]).all())
+    assert bool((rows[LONG_ROWS["nearer"]] == ids["nearer"][full][1]).all())
+    assert bool((rows[LONG_ROWS["tie"]] == ids["tie"][full][0]).all())
+    assert bool((rows[LONG_ROWS["early"]] == ids["early"][full]).all())
+    low = rows[LONG_ROWS["below_t_min"]]
+    assert bool((low == (ids["below_t_min"][full] if t_min == 0.0
+                         else -1)).all())
+    assert bool((rows[len(LONG_ROWS):] == -1).all())
+    for i, wall in ids["wall"].items():
+        rows = tri[i].reshape(tile_rays // 4, 4)
+        assert bool((rows[LONG_ROWS["past_stop"]:] == wall).all())
+
+
+def _split_walk(st, si, rays6, cap, blocks_t, t_min, columns, ctas):
+    """csrc/sweep.cu's two passes over one tile at a time: the sequential
+    walk up to `columns` columns, then rounds of `ctas` columns, each
+    column's candidate taken with the round's starting best t as its
+    seed and merged in column order under the stop rule."""
+    tiles, cs = st.shape
+    out = [cap.clone(), torch.full(cap.shape, -1, dtype=torch.int32),
+           torch.zeros_like(cap), torch.zeros_like(cap)]
+    for i in range(tiles):
+        o = tuple(rays6[i:i + 1, a, :, None] for a in range(3))
+        d = tuple(rays6[i:i + 1, a, :, None] for a in range(3, 6))
+        best = [x[i] for x in out]
+
+        def cand(j, seed):
+            blk = blocks_t[si[i, j].long()][None]
+            t, u, v, _ = sweep._bw_lane(blk, o, d, t_min, seed[None, :, None])
+            tid = torch.round(blk[0, 12]).to(torch.int32) - 1
+            tj, jj = torch.min(t[0], dim=1)
+            return (tj, tid[jj], u[0].gather(1, jj[:, None])[:, 0],
+                    v[0].gather(1, jj[:, None])[:, 0])
+
+        def take(c):
+            ok = (c[0] < best[0]) & (c[1] >= 0)
+            for b, x in zip(best, c):
+                b.copy_(torch.where(ok, x, b))
+
+        def goes_on(j):
+            return j < cs and bool(st[i, j] < best[0].max())
+
+        j = 0
+        while goes_on(j) and j < columns:
+            take(cand(j, best[0]))
+            j += 1
+        while goes_on(j):
+            seed = best[0].clone()
+            for c in [cand(q, seed) for q in range(j, min(j + ctas, cs))]:
+                if not goes_on(j):
+                    break
+                take(c)
+                j += 1
+    return tuple(out)
+
+
+@pytest.mark.parametrize("columns,ctas", [(64, 2), (64, 4), (9, 4)])
+@pytest.mark.parametrize("tile_rays", [32, 256])
+def test_split_walk_equals_the_sequential_walk(tile_rays, columns, ctas):
+    """The argument of csrc/sweep.cu's header, run: the two passes'
+    rounds with stale seeds give sweep_closest_plain's (t, tri, u, v)
+    bit for bit on long_walk_case, with the budget where the chunk is
+    laid out and far before it."""
+    from tests.test_torch_cuda import long_walk_case, long_walks
+
+    st, si, rays6, cap, accel, _ = long_walk_case(
+        tile_rays, long_walks(64, ctas), 1e-3, columns=64, ctas=ctas)
+    args = (st, si, rays6, cap, accel.blocks_t, 1e-3)
+    ref = sweep.sweep_closest_plain(*args)
+    got = _split_walk(*args, columns, ctas)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
