@@ -109,9 +109,11 @@ def _sorted_schedule(tile_tnear):
     Returns (st f32, si i32) [tiles, C]; unvisited entries are +inf with
     id 0 (a harmless re-test of cluster 0).
     """
-    st, si = torch.sort(tile_tnear, dim=1, stable=True)
-    si = torch.where(torch.isfinite(st), si, 0).to(torch.int32)
-    return st.contiguous(), si.contiguous()
+    with tracing.span("pt.schedule", tiles=tile_tnear.shape[0],
+                      clusters=tile_tnear.shape[1]):
+        st, si = torch.sort(tile_tnear, dim=1, stable=True)
+        si = torch.where(torch.isfinite(st), si, 0).to(torch.int32)
+        return st.contiguous(), si.contiguous()
 
 
 def _pad_rays(rays, n, multiple):

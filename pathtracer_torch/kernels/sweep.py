@@ -40,6 +40,7 @@ import ctypes
 
 import torch
 
+from pathtracer_torch import tracing
 from pathtracer_torch.kernels import LAUNCHES, cuda_build
 from pathtracer_torch.kernels.intersect import DET_EPS
 
@@ -313,17 +314,31 @@ def _check_inputs(st, si, rays, per_ray, accel):
 
 
 def sweep_closest(st, si, rays, t_cap, accel, t_min):
-    """K2: (t, tri, u, v) [tiles, R] (kernel on CUDA, plain on CPU)."""
+    """K2: (t, tri, u, v) [tiles, R] (kernel on CUDA, plain on CPU).
+
+    Spanned as pt.sweep.closest [tiles, columns: pass A's budget,
+    resumed: the tiles whose walk passes it, which pass B finishes]. On
+    the card `resumed` is the device's count (the list's first word),
+    read when the spans are taken; on the CPU the plain walk counts
+    them, traced or not, so that tracing adds no op there."""
     if not t_min >= 0.0:
         raise ValueError(f"sweep_closest: t_min {t_min} must be >= 0 (the "
                          "kernel rejects lanes on the sign of t)")
-    if st.device.type == "cpu":
-        return sweep_closest_plain(st, si, rays, t_cap, accel.blocks_t,
-                                   t_min)
-    if st.device.type != "cuda":
+    if st.device.type not in ("cpu", "cuda"):
         raise ValueError(f"sweep_closest: unsupported device {st.device}")
-    return _closest_cuda(st, si, rays, t_cap, accel, t_min,
-                         RESUME_COLUMNS)[0]
+    with tracing.span("pt.sweep.closest", tiles=st.shape[0],
+                      columns=RESUME_COLUMNS) as sp:
+        if st.device.type == "cpu":
+            cols = torch.zeros(st.shape[0], dtype=torch.int64)
+            out = sweep_closest_plain(st, si, rays, t_cap, accel.blocks_t,
+                                      t_min, tile_columns=cols)
+            sp.set(resumed=int((cols > RESUME_COLUMNS).sum()))
+            return out
+        out, resume = _closest_cuda(st, si, rays, t_cap, accel, t_min,
+                                    RESUME_COLUMNS)
+        if tracing.enabled():
+            sp.set(resumed=0 if resume is None else resume[0])
+        return out
 
 
 def _closest_cuda(st, si, rays, t_cap, accel, t_min, columns):

@@ -51,6 +51,13 @@ The spans, from the top (attributes in brackets):
   pt.traverse.occluded  one shadow call of the intersector
   pt.sort               the packet layer's coherence sort, or its unsort
   pt.chunk              one live chunk: the cull, the schedule sort, the sweep
+  pt.schedule           packet._sorted_schedule, the per-tile schedule sort
+                        [tiles, clusters]
+  pt.sweep.closest      sweep.sweep_closest, K2's launches (both passes on
+                        the card) [tiles, columns: pass A's column budget,
+                        resumed: the tiles whose walk passes it, which
+                        pass B finishes; on the card the device's count,
+                        a tensor until take()]
   pt.sync               one blocking host sync (host_sync) [site:
                         chunk_live, copy or gbuffer]
   pt.film               film.accumulate / accumulate_many
@@ -83,6 +90,12 @@ _ids = itertools.count(1)
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def enabled() -> bool:
+    """Whether span sites record (a site that would compute an attribute
+    only for its span asks first)."""
+    return _on
 
 
 def enable():
@@ -132,9 +145,11 @@ class Span:
         return False
 
     def as_dict(self) -> dict:
+        attrs = {k: v.item() if isinstance(v, torch.Tensor) else v
+                 for k, v in self.attrs.items()}
         return {"name": self.name, "id": self.id, "parent": self.parent,
                 "step": self.step, "start_ns": self.start_ns,
-                "end_ns": self.end_ns, "attrs": dict(self.attrs)}
+                "end_ns": self.end_ns, "attrs": attrs}
 
 
 class _Off:
@@ -186,7 +201,12 @@ def device_tensor(data, device, dtype=None):
 
 def take() -> list:
     """The recorded spans as dicts (name, id, parent, step, start_ns,
-    end_ns - None while open - and attrs), oldest first; forgets them."""
+    end_ns - None while open - and attrs), oldest first; forgets them.
+    An attribute the device holds (a tensor: pt.sweep.closest's
+    `resumed` on the card) becomes its Python number here, a read that
+    waits for the device; steps take nothing, so it falls after their
+    last sync. Until then each such attribute keeps its buffer alive
+    (K2's resume list, tiles + 3 words a call)."""
     out = [s.as_dict() for s in SPANS]
     SPANS.clear()
     return out

@@ -9,6 +9,8 @@ runs on a card with:
 """
 
 import collections
+import importlib.util
+import os
 import traceback
 import warnings
 
@@ -105,7 +107,8 @@ def test_step_records_the_span_tree(box, loop):
     assert {s["step"] for s in spans} == {steps[0]["id"]}
     names = {s["name"] for s in spans}
     assert names == {"pt.step", "pt.wavefront", "pt.bounce", "pt.film",
-                     "pt.sort", "pt.chunk", "pt.sync", *TRAVERSE}
+                     "pt.sort", "pt.chunk", "pt.schedule", "pt.sweep.closest",
+                     "pt.sync", *TRAVERSE}
     for s in spans:
         assert s["start_ns"] <= s["end_ns"]
         if s["parent"] is not None:
@@ -116,6 +119,10 @@ def test_step_records_the_span_tree(box, loop):
         if s["name"] in ("pt.chunk", "pt.sort") or s["attrs"] == {
                 "site": "chunk_live"}:
             assert any(a in TRAVERSE for a in up), (s, up)
+        if s["name"] in ("pt.schedule", "pt.sweep.closest"):
+            assert up[0] == "pt.chunk", up
+        if s["name"] == "pt.sweep.closest":
+            assert up[1] == "pt.traverse.closest", up
         if s["name"] in TRAVERSE:
             assert up[0] == "pt.bounce" and "pt.wavefront" in up, up
         if s["name"] == "pt.bounce":
@@ -233,6 +240,79 @@ def test_spans_nest_and_take_forgets():
     assert tracing.take() == []
 
 
+def _long_walks():
+    """tests/test_torch_cuda.py's long_walk_case and long_walks, loaded
+    by path (on the card machine an installed package named `tests`
+    shadows the checkout's)."""
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_cuda", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "test_torch_cuda.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.long_walk_case, mod.long_walks
+
+
+def test_schedule_and_sweep_spans_carry_their_attributes(box):
+    """Each live chunk records one pt.schedule [tiles, clusters: the
+    chunk's schedule] and each closest chunk one pt.sweep.closest
+    [tiles, columns: pass A's budget, resumed: an int, at most tiles],
+    as ints once taken."""
+    from pathtracer_torch.kernels import sweep
+
+    r = _renderer(box, spp=1, width=16, height=16, max_depth=3)
+    spans = _traced_step(r)
+    by_id = {s["id"]: s for s in spans}
+    chunks = [s for s in spans if s["name"] == "pt.chunk"]
+    sched = [s for s in spans if s["name"] == "pt.schedule"]
+    k2 = [s for s in spans if s["name"] == "pt.sweep.closest"]
+    closest_chunks = [c for c in chunks if by_id[c["parent"]]["name"]
+                      == "pt.traverse.closest"]
+    assert len(sched) == len(chunks) > 0
+    assert len(k2) == len(closest_chunks) > 0
+    n_clusters = box.clusters_fine.n_clusters
+    for s in sched:
+        assert set(s["attrs"]) == {"tiles", "clusters"}
+        assert s["attrs"]["clusters"] == n_clusters
+        assert s["attrs"]["tiles"] >= 1
+    for s in k2:
+        a = s["attrs"]
+        assert set(a) == {"tiles", "columns", "resumed"}
+        assert a["columns"] == sweep.RESUME_COLUMNS
+        assert type(a["resumed"]) is int and 0 <= a["resumed"] <= a["tiles"]
+        sib = [c for c in spans if c["parent"] == s["parent"]
+               and c["name"] == "pt.schedule"]
+        assert [c["attrs"]["tiles"] for c in sib] == [a["tiles"]]
+
+
+@pytest.mark.parametrize("long", [True, False])
+@pytest.mark.parametrize("tile_rays", [32, 64, 128, 256])
+def test_sweep_span_counts_the_walks_past_the_budget(tile_rays, long):
+    """On long_walk_case, whose tiles walk a chosen number of columns,
+    pt.sweep.closest's `resumed` is the number of tiles that walk past
+    RESUME_COLUMNS, counted from the walks asked for, and recording it
+    changes no hit."""
+    from pathtracer_torch.kernels import sweep
+    long_walk_case, long_walks = _long_walks()
+
+    walks = long_walks(long=long)
+    st, si, rays6, cap, accel, _ = long_walk_case(tile_rays, walks)
+    off = sweep.sweep_closest(st, si, rays6, cap, accel, 0.0)
+    tracing.enable()
+    try:
+        on = sweep.sweep_closest(st, si, rays6, cap, accel, 0.0)
+    finally:
+        tracing.disable()
+    (span,) = tracing.take()
+    want = sum(w is None or w > sweep.RESUME_COLUMNS for w in walks)
+    assert span["name"] == "pt.sweep.closest"
+    assert span["attrs"] == {"tiles": len(walks),
+                             "columns": sweep.RESUME_COLUMNS,
+                             "resumed": want}
+    assert want == (2 * sweep.RESUME_CTAS + 1 if long else 0)
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
+
+
 def _site(stack):
     """The innermost frames of pathtracer_torch in a stack (else of the
     whole stack, the recorder's own left out), as text."""
@@ -278,3 +358,61 @@ def test_host_syncs_equal_the_sync_debug_warnings():
         print(f"{n:5d}  {site}")
     assert sum(sites.values()) >= 2 * cfg.max_depth - 1   # chunk_live's
     assert counted == sum(sites.values()), sites
+
+
+@pytest.mark.cuda
+def test_sweep_span_reads_pass_bs_count_without_a_sync():
+    """On the card pt.sweep.closest's `resumed` is pass B's own count,
+    the tiles sweep_closest_resumed lists, read when the spans are
+    taken: the traced call makes no synchronizing CUDA call (sync debug
+    mode "error"), and a traced Renderer step counts as many host syncs
+    as an untraced one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pathtracer_torch.kernels import sweep
+    long_walk_case, long_walks = _long_walks()
+
+    for tile_rays in sweep.TILE_WIDTHS:
+        st, si, rays6, cap, accel, _ = long_walk_case(
+            tile_rays, long_walks(), dev="cuda")
+        *want, resumed = sweep.sweep_closest_resumed(st, si, rays6, cap,
+                                                     accel, 0.0)
+        torch.cuda.synchronize()
+        tracing.take()
+        tracing.enable()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = sweep.sweep_closest(st, si, rays6, cap, accel, 0.0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            tracing.disable()
+        torch.cuda.synchronize()
+        (span,) = tracing.take()
+        assert span["attrs"] == {"tiles": st.shape[0],
+                                 "columns": sweep.RESUME_COLUMNS,
+                                 "resumed": len(resumed)}
+        assert len(resumed) == 2 * sweep.RESUME_CTAS + 1
+        for a, b in zip(want, got):
+            assert torch.equal(a, b)
+
+    scene = build_scene_clusters(procedural.cornell_box(spheres=True)
+                                 .finalize(device="cpu"))
+    cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4,
+                       spp_batch=True)
+    r = Renderer(scene, cfg, _camera(BOX_CAM), device="cuda")
+    r.step()
+    rises = []
+    for traced in (False, True, False):
+        torch.cuda.synchronize()
+        before = tracing.COUNTERS["host_syncs"]
+        if traced:
+            tracing.enable()
+        r.step()
+        tracing.disable()
+        torch.cuda.synchronize()
+        rises.append(tracing.COUNTERS["host_syncs"] - before)
+    spans = tracing.take()
+    assert rises[0] == rises[1] == rises[2] > 0
+    assert any(s["name"] == "pt.sweep.closest" for s in spans)
+    assert all(type(s["attrs"]["resumed"]) is int for s in spans
+               if s["name"] == "pt.sweep.closest")
